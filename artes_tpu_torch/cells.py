@@ -1,13 +1,34 @@
 """The configurations the port's checks drive, built in one place.
 
+Atmospheres:
+
 * :func:`flagship`: BASELINE #1 of the JAX package's bench (bench.py:51-61),
   Rayleigh tau=5 in one radial cell.
 * :func:`hydrostatic39`: 39 shells with an exponentially graded opacity
   (bench.py:110-114), the kind of grid users build with ``ptprofile``.
-* :func:`spectrum_tables`: the tables and static configuration of a
-  default spectrum-mode run of an atmosphere.
-* :func:`write_input`: an ``input/<name>/`` directory for the CLI; its
-  defaults are the README quick-start input.
+* :func:`thermal_bench`: the bench's self-luminous shell
+  (bench.py:199-214), a pure absorber; :func:`thermal_scattering_shell`
+  the half-scattering thermal shell of tests/test_pallas_stream.py:163-191,
+  whose photons scatter and leave (``flux_exit`` > 0).
+* :func:`thin_rayleigh_shell` and :func:`transparent_thermal_shell`: the
+  optically thin shells of the analytic oracles of tests/test_transport.py,
+  with their expectations :func:`thin_shell_phase_oracle` (single Rayleigh
+  scattering at every phase angle) and :func:`thermal_shell_oracle`
+  (L / (4 pi d^2)).
+
+Configurations, as ``(TransportTables, KernelStatic)``:
+
+* :func:`run_tables`: any atmosphere under ``ArtesConfig`` keys;
+  :func:`spectrum_tables` its default spectrum-mode run;
+  :func:`imaging_tables` the flagship imaged on npix x npix pixels (the
+  bench's ``imaging_throughput_25px`` and ``_101px``, bench.py:216-235);
+  :func:`crescent_offaxis` the crescent with an off-axis star of
+  tests/test_pallas_stream.py:433-446.
+* :data:`KERNEL_CELLS`: every configuration ``chip_smoke.py`` holds the CUDA
+  kernel against its plain version on, one or more per instantiation.
+
+:func:`write_input` writes an ``input/<name>/`` directory for the CLI; its
+defaults are the README quick-start input.
 """
 
 from __future__ import annotations
@@ -19,6 +40,8 @@ import numpy as np
 import torch
 
 from artes_tpu import presets
+from artes_tpu.constants import R_JUP
+from artes_tpu.opacity import isotropic, rayleigh
 
 QUICKSTART_OPACITY = "opacity01: 1, 5e-4, 0, nr, 0, ntheta, 0, nphi"
 
@@ -36,29 +59,130 @@ def hydrostatic39():
     return atm
 
 
+def thermal_bench():
+    return presets.thermal_shell(tau_abs=0.8, nr=4)
+
+
+def thermal_scattering_shell():
+    tab = isotropic.generate([10.0], absorption=0.5, scattering=0.5)
+    density = (1.0 / 500e3) / ((tab.absorption[0] + tab.scattering[0]) / 10.0)
+    return presets._from_table(tab, R_JUP + np.linspace(0.0, 500e3, 4), (0.0, 180.0), (),
+                               density, temperature=900.0)
+
+
+# a 70 km core under a 70000 km shell: nothing occults the shell
+_THIN_RFRONT = 1.0e-3 * R_JUP + np.array([0.0, 7.0e7])
+
+
+def thin_rayleigh_shell():
+    """Rayleigh shell of radial tau about 8e-4 (test_transport.py:47-79)."""
+    return presets._from_table(rayleigh.generate([0.7]), _THIN_RFRONT, (0.0, 180.0), (),
+                               density_si=1.0e-6)
+
+
+def transparent_thermal_shell():
+    """Isothermal 900 K absorbing shell of tau about 7e-3
+    (test_transport.py:82-105)."""
+    tab = isotropic.generate([10.0], absorption=1.0, scattering=0.0)
+    return presets._from_table(tab, _THIN_RFRONT, (0.0, 180.0), (), density_si=1.0e-9,
+                               temperature=900.0)
+
+
+def thin_shell_phase_oracle(atm, phase_deg):
+    """Single scattering in an optically thin shell seen at phase angle
+    ``phase_deg`` (scattering angle Theta = 180 - phase): ``(I / (norm pi),
+    -Q / I)`` = ((4/3) k P11(Theta), sin^2 Theta / (1 + cos^2 Theta)), with
+    k the extinction per outer radius, 4/3 the mean chord of a uniformly
+    entered unit sphere, ``norm`` the stellar normalisation of
+    ``normalization.dat`` and P11 interpolated between the matrix rows
+    (centred at i + 0.5 deg)."""
+    k_scaled = atm.k_sca[0, 0, 0, 0] * atm.rfront[-1]
+    theta = np.radians(180.0 - phase_deg)
+    p11 = np.interp(180.0 - phase_deg, np.arange(180) + 0.5, atm.scatter[0, 0, 0, 0, :, 0])
+    return ((4.0 / 3.0) * k_scaled * p11,
+            np.sin(theta) ** 2 / (1.0 + np.cos(theta) ** 2))
+
+
+def stellar_norm(cfg, atm, wl_index=0):
+    """Stellar flux normalisation of a planet of outer radius rfront[-1]
+    (ARTES.f90:3984)."""
+    from artes_tpu.constants import PI, planck_lambda
+
+    return (PI * planck_lambda(cfg.t_star, atm.wavelengths[wl_index]) * atm.rfront[-1] ** 2
+            * cfg.r_star ** 2 / (cfg.orbit ** 2 * cfg.distance_planet ** 2))
+
+
+def thermal_shell_oracle(atm, cfg, wl_index=0):
+    """Flux of a transparent isothermal shell at the observer: V kappa B /
+    d^2, i.e. L / (4 pi d^2) with L = 4 pi V kappa B."""
+    from artes_tpu.constants import planck_lambda
+
+    b = planck_lambda(float(atm.temperature[0, 0, 0]), atm.wavelengths[wl_index])
+    return atm.cell_volume().sum() * atm.k_abs[0, 0, 0, wl_index] * b / cfg.distance_planet ** 2
+
+
 CELLS = {"flagship": flagship, "hydrostatic39": hydrostatic39}
 
 
-def spectrum_tables(atm, device, dtype=torch.float32):
-    """``(TransportTables, KernelStatic)`` of a default spectrum-mode config."""
+def run_tables(atm, device, dtype=torch.float32, crescent=False, mode="spectrum", **keys):
+    """``(TransportTables, KernelStatic)`` of ``atm`` under a default
+    ``ArtesConfig`` in ``mode`` with the attributes ``keys`` set."""
     from artes_tpu.config import ArtesConfig, detector_setup
     from artes_tpu_torch.runner import _kernel_static
     from artes_tpu_torch.transport.tables import build_tables
 
     cfg = ArtesConfig()
-    cfg.mode = "spectrum"
+    cfg.mode = mode
+    for k, v in keys.items():
+        setattr(cfg, k, v)
     det = detector_setup(cfg, float(atm.rfront[-1]))
     return (build_tables(atm, cfg, det, 0, dtype=dtype, device=device).tables,
-            _kernel_static(cfg, det, atm, False))
+            _kernel_static(cfg, det, atm, crescent))
 
 
-def write_artes_in(d, fstop=None):
-    """artes.in of a stellar spectrum seen from theta = phi = 90 deg."""
-    keys = ["photon:source=star", "detector:type=spectrum",
-            "detector:theta=90", "detector:phi=90"]
+def spectrum_tables(atm, device, dtype=torch.float32):
+    """``(TransportTables, KernelStatic)`` of a default spectrum-mode config."""
+    return run_tables(atm, device, dtype)
+
+
+def imaging_tables(npix, device, dtype=torch.float32, atm=None, **keys):
+    """The flagship (or ``atm``) imaged on ``npix`` x ``npix`` pixels at the
+    default 90 deg phase."""
+    return run_tables(flagship() if atm is None else atm, device, dtype,
+                      mode="imaging_mono", npix=npix, **keys)
+
+
+def crescent_offaxis(device, dtype=torch.float32):
+    """Crescent sampling with the star at theta* = 1.2, phi* = 0.4 on a
+    Rayleigh tau=1 two-shell grid (tests/test_pallas_stream.py:433-446)."""
+    return run_tables(presets.rayleigh_single_layer(tau=1.0, nr=2), device, dtype,
+                      crescent=True, stellar_direction=True, theta_star=1.2, phi_star=0.4)
+
+
+KERNEL_CELLS = {
+    "flagship": lambda dev: spectrum_tables(flagship(), dev),
+    "hydrostatic39": lambda dev: spectrum_tables(hydrostatic39(), dev),
+    "imaging25": lambda dev: imaging_tables(25, dev),
+    "imaging101": lambda dev: imaging_tables(101, dev),
+    "thermal_iso": lambda dev: run_tables(thermal_bench(), dev, photon_source="planet"),
+    "thermal_biased": lambda dev: run_tables(thermal_bench(), dev, photon_source="planet",
+                                             photon_emission="biased"),
+    "thermal_scattering": lambda dev: run_tables(thermal_scattering_shell(), dev,
+                                                 photon_source="planet"),
+    "thermal_imaging25": lambda dev: imaging_tables(25, dev, atm=thermal_scattering_shell(),
+                                                    photon_source="planet"),
+    "crescent_offaxis": crescent_offaxis,
+}
+
+
+def write_artes_in(d, fstop=None, keys=()):
+    """artes.in of a stellar spectrum seen from theta = phi = 90 deg, with
+    ``keys`` (``key=value`` lines) appended."""
+    lines = ["photon:source=star", "detector:type=spectrum",
+             "detector:theta=90", "detector:phi=90"]
     if fstop is not None:
-        keys.insert(1, f"photon:fstop={fstop}")
-    pathlib.Path(d, "artes.in").write_text("\n".join(keys) + "\n")
+        lines.insert(1, f"photon:fstop={fstop}")
+    pathlib.Path(d, "artes.in").write_text("\n".join(lines + list(keys)) + "\n")
 
 
 def write_input(root, name="demo", wavelengths=(0.7,), radial="100",
@@ -66,7 +190,6 @@ def write_input(root, name="demo", wavelengths=(0.7,), radial="100",
     """Write ``root/input/<name>/`` (Rayleigh opacity FITS, atmosphere.in,
     artes.in) and build its ``atmosphere.fits``; returns the directory."""
     from artes_tpu.atmosphere import build_and_write
-    from artes_tpu.opacity import rayleigh
     from artes_tpu.opacity.base import write_opacity_fits
 
     d = pathlib.Path(root, "input", name)
@@ -77,4 +200,16 @@ def write_input(root, name="demo", wavelengths=(0.7,), radial="100",
         f"gas: off\nfits01: rayleigh.fits\n{opacity}\n")
     write_artes_in(d, fstop)
     build_and_write(str(d))
+    return d
+
+
+def write_artifact_input(root, name, atm, keys=()) -> pathlib.Path:
+    """``root/input/<name>/`` holding ``atm`` as ``atmosphere.fits`` and an
+    :func:`write_artes_in` file with ``keys``; returns the directory."""
+    from artes_tpu.atmosphere import write_artifact
+
+    d = pathlib.Path(root, "input", name)
+    os.makedirs(d)
+    write_artifact(str(d / "atmosphere.fits"), atm)
+    write_artes_in(d, keys=keys)
     return d

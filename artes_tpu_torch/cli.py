@@ -1,17 +1,18 @@
-"""Command-line interface: the reference's run contract, spectrum mode.
+"""Command-line interface: the reference's run contract.
 
 Usage (the contract of ``artes_tpu.cli``)::
 
     python -m artes_tpu_torch.cli <atmosphere> <photons> -o <run> [-k key=value ...]
-        [--seed N] [--f64] [--device cuda|cpu]
+        [--seed N] [--f64] [--device cuda|cpu] [--debug-stokes]
     python -m artes_tpu_torch.cli build <atmosphere>
 
 Reads ``input/<atmosphere>/artes.in`` and ``atmosphere.fits``, runs the
-spectrum mode and writes ``output/<run>/{input,output,plot}`` with a
-snapshot of the inputs. ``--device cuda`` (the default) runs the CUDA
-kernel and fails when there is no card; ``--device cpu`` runs the plain
-PyTorch version, the only one that runs ``--f64``. The other detector
-modes are not ported yet and raise ``NotImplementedError``.
+detector mode it names (spectrum, imaging_mono, imaging_broad or phase) and
+writes ``output/<run>/{input,output,plot}`` with a snapshot of the inputs.
+``--device cuda`` (the default) runs the CUDA kernel and fails when there
+is no card; ``--device cpu`` runs the plain PyTorch version, the only one
+that runs ``--f64``. Configurations outside the ported slices raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,12 +23,6 @@ import shutil
 import sys
 
 import torch
-
-_LATER_MODES = {
-    "imaging_mono": "imaging slice (ROADMAP queue 1 items 6-8)",
-    "imaging_broad": "imaging slice (ROADMAP queue 1 items 6-8)",
-    "phase": "phase-curve slice (ROADMAP queue 1 items 6-8)",
-}
 
 
 def build_main(argv=None):
@@ -61,6 +56,8 @@ def run_main(argv=None):
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--progress", action="store_true",
                    help="per-chunk progress ticker on stderr")
+    p.add_argument("--debug-stokes", action="store_true",
+                   help="Stokes-anomaly check after every scatter (not ported yet: raises)")
     args = p.parse_args(argv)
 
     from artes_tpu.atmosphere import load_artifact
@@ -71,9 +68,7 @@ def run_main(argv=None):
 
     atm_dir = os.path.join(args.root, "input", args.atmosphere)
     cfg = load_config(os.path.join(atm_dir, "artes.in"), overrides=args.keyword)
-    if cfg.mode in _LATER_MODES:
-        raise NotImplementedError(f"detector:type={cfg.mode} is not ported yet: "
-                                  f"{_LATER_MODES[cfg.mode]}")
+    cfg.debug_stokes = args.debug_stokes
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: torch finds no CUDA device")
     atm = load_artifact(os.path.join(atm_dir, "atmosphere.fits"))
@@ -95,24 +90,69 @@ def run_main(argv=None):
     report.stage1(cfg, atm, det)
     out.write_plot_dat(dirs, cfg, atm, det)
 
-    det, results = runner.run_spectrum(
-        atm, cfg, packages, seed=args.seed, batch_size=args.batch_size,
-        dtype=torch.float64 if args.f64 else torch.float32, device=args.device,
-        progress=sys.stderr.isatty() or args.progress)
-    report.stage2(cfg, det, packages)
-    n_capped = 0
-    for wl, res in enumerate(results):
-        wl_m = atm.wavelengths[wl]
-        out.write_spectrum_row(dirs, wl_m, res)
-        out.write_optical_depth(dirs, atm, wl)
+    kw = dict(seed=args.seed, batch_size=args.batch_size,
+              dtype=torch.float64 if args.f64 else torch.float32, device=args.device,
+              progress=sys.stderr.isatty() or args.progress)
+    thermal = cfg.photon_source != "star"
+    runs = []
+
+    if cfg.mode == "spectrum":
+        det, results = runner.run_spectrum(atm, cfg, packages, **kw)
+        report.stage2(cfg, atm, det, packages, 0, results[0].cell_depth)
+        for wl, res in enumerate(results):
+            wl_m = atm.wavelengths[wl]
+            out.write_spectrum_row(dirs, wl_m, res)
+            out.write_optical_depth(dirs, atm, wl)
+            out.write_cell_depth(dirs, wl_m, res.cell_depth)
+            if thermal:
+                out.write_luminosity(dirs, wl_m, res, packages)
+            else:
+                out.write_normalization(dirs, cfg, atm, wl_m)
+            runs.append(res)
+            print(f"Wavelength: {wl_m * 1e6:7.3f} micron", file=sys.stderr)
+        report.stage3(cfg, atm, results[-1], atm.n_wavelength - 1)
+
+    elif cfg.mode == "imaging_mono":
+        det, res = runner.run_imaging_mono(atm, cfg, packages, **kw)
+        report.stage2(cfg, atm, det, packages, 0, res.cell_depth)
+        wl_m = atm.wavelengths[0]
+        out.write_stokes_fits(dirs, det, res)
+        out.write_photometry(dirs, wl_m, res)
         out.write_cell_depth(dirs, wl_m, res.cell_depth)
-        out.write_normalization(dirs, cfg, atm, wl_m)
-        n_capped += res.n_alive_at_cap
-        print(f"Wavelength: {wl_m * 1e6:7.3f} micron", file=sys.stderr)
-    report.stage3(cfg, atm, results[-1], atm.n_wavelength - 1)
-    report.truncation(n_capped, packages * len(results), cfg.max_scatter)
+        if thermal:
+            out.write_luminosity(dirs, wl_m, res, packages)
+            out.write_cell_luminosity(dirs, res.prep.cell_luminosity)
+        else:
+            out.write_normalization(dirs, cfg, atm, wl_m)
+        runs.append(res)
+        report.stage3(cfg, atm, res)
+
+    elif cfg.mode == "imaging_broad":
+        det, summed, runs = runner.run_imaging_broad(atm, cfg, packages, **kw)
+        report.stage2(cfg, atm, det, packages, 0, runs[0].cell_depth)
+        out.write_stokes_fits(dirs, det, summed)
+        for wl in range(atm.n_wavelength):
+            out.write_optical_depth(dirs, atm, wl)
+        report.stage3(cfg, atm, summed)
+
+    elif cfg.mode == "phase":
+        results = runner.run_phase_curve(atm, cfg, packages, **kw)
+        report.stage2(cfg, atm, results[0][1], packages, 0, results[0][2].cell_depth)
+        for ang, _, res in results:
+            out.write_phase_row(dirs, ang, res)
+            if not thermal and ang < 1.0:
+                out.write_normalization(dirs, cfg, atm, atm.wavelengths[0])
+            runs.append(res)
+            print(f"\rPhase angle: {ang:6.1f} degrees", end="", file=sys.stderr)
+        print(file=sys.stderr)
+
+    # n_capped sums over every run (wavelength / phase angle), so the
+    # denominator is the total emitted count
+    report.truncation(sum(res.n_alive_at_cap for res in runs),
+                      packages * max(len(runs), 1), cfg.max_scatter)
     if args.device == "cuda":
-        report.emit(f"CUDA kernel launches: pool_radial={pool_cuda.LAUNCHES}")
+        report.emit(f"CUDA kernel launches: pool_radial={sum(pool_cuda.LAUNCHES.values())} ("
+                    + " ".join(f"{k}={v}" for k, v in pool_cuda.LAUNCHES.items()) + ")")
     report.stage4()
     out.send_completion_email(cfg, args.output)
     return 0

@@ -1,23 +1,38 @@
 // Photon transport on radial grids: one hand-written CUDA kernel for Hopper.
 //
 // Replaces the TPU kernel artes_tpu/transport/pallas_stream.py::_build_kernel
-// (the fused regeneration-pool Pallas kernel) in its RADIAL, single-pixel,
-// stellar, surfaceless, flow-free specialisation: the path of a reflected-
-// light Stokes spectrum. Its plain PyTorch version is
+// (the fused regeneration-pool Pallas kernel) in its RADIAL, surfaceless,
+// flow-free specialisations: stellar or thermal sources, a single pixel (a
+// Stokes spectrum) or an nx x ny image. Its plain PyTorch version is
 // artes_tpu_torch/transport/kernel.py::run_stream.
+//
+// Four compile-time instantiations, pool_radial_kernel<THERMAL, IMAGE>,
+// dispatched from the one C entry point, so the stellar spectrum keeps its
+// own register budget:
+//   THERMAL: emission from the emissivity CDF (sites 0-5, isotropic or
+//     Gordon-biased), the birth peel e^-tau/4pi on Stokes I, and the
+//     flux_emitted / flux_exit tallies (pallas_stream.py:1347-1421,
+//     :1688-1698, :1874-1882);
+//   IMAGE: each accepted peel is added into its pixel of an (npix, 8) double
+//     and (npix, 2) 64-bit count detector with global atomics (the TPU's
+//     MXU one-hot splat, :1711-1779). Double and 64-bit atomics are exact
+//     per add, so the TPU's bf16 hi/lo split and count-row collapse have
+//     no counterpart.
+// Crescent sampling and the off-axis stellar beam are runtime scalars.
 //
 // Design. One thread per photon, grid-stride over the photon ids: a thread
 // runs its photon from emission to death, then takes the next id. Photon
 // streams are keyed by (seed, photon id, draw site), so no lane pool, refill
 // ranking or stage machine is needed, and the per-photon draw-site schedule
 // is the one of the JAX and plain versions:
-//   emission: sites 0, 1;
-//   round 0 (prewalk fused with the forced first interaction): site 2;
+//   emission: sites 0, 1 (stellar) or 0-5 (thermal, then the birth peel,
+//     which draws nothing);
+//   prewalk fused with the forced first interaction: one site;
 //   every scattering round: 5 sites (roulette, azimuth x2, zenith, tau).
 // The closed-form shell-chord walks (artes_tpu/transport/radial.py) need no
 // per-face arrays: face roots are computed on the fly in path order.
 // Tables live in global memory and are read per cell (__ldg). Per-thread
-// tallies are double (Stokes sums and squares) and 64-bit integers
+// tallies are double (Stokes sums and squares, fluxes) and 64-bit integers
 // (counts), reduced per block in shared memory and added with one atomicAdd
 // per tally.
 //
@@ -30,8 +45,10 @@
 // of one warp live for different numbers of rounds (geometric roulette
 // lifetimes) and walk shells of different counts, so warps run partly
 // idle; each thread holds a 4x4 matrix and the Stokes state in registers.
-// This first version keeps the loop simple; warp-level refill, shared-memory
-// tables and occupancy tuning are later work.
+// The image splat adds ten global atomics per accepted peel, which contend
+// on the lit pixels. This version keeps the loop simple; warp-level refill,
+// shared-memory tables, a privatised shared-memory detector and occupancy
+// tuning are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,16 +67,25 @@ constexpr float DEG_F = (float)(3.14159265358979323846 / 180.0);
 constexpr float ONE_MINUS_EPS = (float)(1.0 - 1.0e-10);   // rounds to 1.0f
 constexpr float U_MIN = 1.17549435e-38f;                   // FLT_MIN
 constexpr float U_MAX = 0.99999994f;                       // 1 - 2^-24
-constexpr int N_SCAL = 29;
-constexpr int N_OUT_D = 8;
-constexpr int N_OUT_I = 3;
+constexpr float FOUR_PI_F = (float)(4.0 * 3.14159265358979323846);
+constexpr float U_CLIP_LO = 1.0e-4f;                       // thermal birth clip
+constexpr float U_CLIP_HI = (float)(1.0 - 1.0e-4);
+constexpr int N_SCAL = 32;
+constexpr int N_OUT_D = 10;
+constexpr int N_OUT_I = 4;
+constexpr int N_IMG_D = 8;
+constexpr int N_IMG_I = 2;
 
 // scalar table layout (pool_cuda.py builds it)
 enum {
   S_FSTOP = 0, S_PMIN = 1, S_XMAX = 2, S_YMAX = 3, S_DET = 4, S_TRIG = 7,
   S_RFLOOR = 11, S_OB = 12, S_UHAT = 15, S_E1 = 18, S_E2 = 21, S_WHAT = 24,
-  S_POS_EPS = 27, S_SEL1 = 28,
+  S_POS_EPS = 27, S_SEL1 = 28, S_TCOS = 29, S_BIAS = 31,
 };
+// runtime flags of the launch
+enum { F_CRESCENT = 1, F_BIASED = 2 };
+// outcome of a march
+enum { M_EXIT = 0, M_INTER = 1, M_FLOOR = 2 };
 // constant table layout: beta basis (3 x 17), sin/cos(2 edge) (16 + 16)
 enum { C_BASIS = 0, C_SIN2 = 51, C_COS2 = 67 };
 
@@ -71,12 +97,22 @@ struct Tables {
   const float* __restrict__ prefix;    // (nr, 4, 181) alpha-CDF prefixes
   const float* __restrict__ p_int;     // (nr, 4) azimuth integrals
   const float* __restrict__ consts;    // 83 sampling constants
+  const float* __restrict__ emis_cum;  // (nr,) emissivity CDF (thermal)
+  const float* __restrict__ cell_weight;  // (nr,) emission weights (thermal)
   int nr;
 };
 
 struct Scal {
-  float fstop, pmin, x_max, y_max, rfloor, pos_eps, sel1;
-  float det[3], trig[4], ob[3], u_hat[3], e1[3], e2[3], w_hat[3];
+  float fstop, pmin, x_max, y_max, rfloor, pos_eps, sel1, bias;
+  float det[3], trig[4], ob[3], u_hat[3], e1[3], e2[3], w_hat[3], tcos[2];
+};
+
+// the image: (npix, 8) double moments [I, Q, U, V, I^2, Q^2, U^2, V^2] and
+// (npix, 2) counts [Stokes-I row (scatter + birth peels), Q/U/V rows]
+struct Image {
+  double* __restrict__ sums;
+  unsigned long long* __restrict__ counts;
+  int nx, ny;
 };
 
 // ---------------------------------------------------------------- RNG ----
@@ -108,6 +144,17 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t 
 __device__ __forceinline__ float bits_to_f32(uint32_t w) {
   float u = __uint_as_float((w >> 9) | 0x3F800000u) - 1.0f;
   return fminf(fmaxf(u, U_MIN), U_MAX);
+}
+
+// the six thermal emission draws at sites 0-5: both words of counters 0-2
+__device__ __forceinline__ void draws6(uint32_t k0, uint32_t k1, float* out) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    uint32_t w0, w1;
+    threefry2x32(k0, k1, (uint32_t)j, 0u, w0, w1);
+    out[2 * j] = bits_to_f32(w0);
+    out[2 * j + 1] = bits_to_f32(w1);
+  }
 }
 
 // n (<= 5) float32 draws at sites s .. s+n-1: site s+i is word (s+i)&1 of
@@ -197,10 +244,11 @@ __device__ float tau_walk(const Tables& T, const Scal& S, const float* p, const 
   return tau;
 }
 
-// march to the optical depth tau_budget (radial.march): true at an
-// interaction, with the path length s_stop and the shell cr; false when the
-// photon leaves the grid or reaches the floor (absorbed)
-__device__ bool march(const Tables& T, const Scal& S, const float* p, const float* d,
+// march to the optical depth tau_budget (radial.march): M_INTER at an
+// interaction, with the path length s_stop and the shell cr; M_EXIT when the
+// photon leaves the grid through the top, M_FLOOR when it reaches the floor
+// (absorbed)
+__device__ int march(const Tables& T, const Scal& S, const float* p, const float* d,
                       float tau_budget, float& s_stop, int& cr) {
   const Ray r = make_ray(S, p, d);
   float s_surf;
@@ -216,12 +264,12 @@ __device__ bool march(const Tables& T, const Scal& S, const float* p, const floa
     if (c_new > tau_budget) {
       s_stop = start + (tau_budget - cum) / (k == 0.0f ? 1.0f : k);
       cr = m;
-      return true;
+      return M_INTER;
     }
     cum = c_new;
     e_hi = e_lo;
   }
-  if (surface_hit) return false;
+  if (surface_hit) return M_FLOOR;
   float h_lo = face_out(r, __ldg(T.rfront));
   for (int m = 0; m < T.nr; ++m) {
     const float h_hi = face_out(r, __ldg(T.rfront + m + 1));
@@ -230,12 +278,12 @@ __device__ bool march(const Tables& T, const Scal& S, const float* p, const floa
     if (c_new > tau_budget) {
       s_stop = h_lo + (tau_budget - cum) / (k == 0.0f ? 1.0f : k);
       cr = m;
-      return true;
+      return M_INTER;
     }
     cum = c_new;
     h_lo = h_hi;
   }
-  return false;
+  return M_EXIT;
 }
 
 // re-locate a photon whose radius left its tracked shell by more than sel1
@@ -407,9 +455,9 @@ __device__ void sample_alpha(const Tables& T, int cell, const float* st, float c
 // ---------------------------------------------------------------- peel ----
 
 // detector-frame Stokes contribution of a scattering toward the observer
-// (kernel._peel_photon_prep); returns whether the point lies in the image
-__device__ bool peel_prep(const Tables& T, const Scal& S, const float* p, const float* d,
-                          int cell, const float* st_in, float* contrib) {
+// (kernel._peel_photon_prep)
+__device__ void peel_prep(const Tables& T, const Scal& S, const float* d, int cell,
+                          const float* st_in, float* contrib) {
   const float* D = S.det;
   const float mu = fminf(fmaxf(d[0] * D[0] + d[1] * D[1] + d[2] * D[2], -ONE_MINUS_EPS),
                          ONE_MINUS_EPS);
@@ -428,19 +476,103 @@ __device__ bool peel_prep(const Tables& T, const Scal& S, const float* p, const 
   contrib[1] = -st[1];   // detector Q sign flip (ARTES.f90:4956)
   contrib[2] = st[2];
   contrib[3] = st[3];
-  // the single pixel is the image square of half-size x_max
+}
+
+// pixel of a peel origin, -1 outside the image (kernel._pixel_index); the
+// single pixel of a spectrum is the image square of half-size x_max
+template <bool IMAGE>
+__device__ __forceinline__ int pixel_of(const Scal& S, const Image& img, const float* p) {
   const float x_im = p[1] * S.trig[3] - p[0] * S.trig[2];
   const float y_im = p[2] * S.trig[0] - p[1] * S.trig[1] * S.trig[2] - p[0] * S.trig[1] * S.trig[3];
-  const float ix = floorf((x_im + S.x_max) / (2.0f * S.x_max));
-  const float iy = floorf((y_im + S.y_max) / (2.0f * S.y_max));
-  return ix == 0.0f && iy == 0.0f;
+  if constexpr (IMAGE) {
+    const float ix = floorf((float)img.nx * (x_im + S.x_max) / (2.0f * S.x_max));
+    const float iy = floorf((float)img.ny * (y_im + S.y_max) / (2.0f * S.y_max));
+    const bool in = ix >= 0.0f && ix < (float)img.nx && iy >= 0.0f && iy < (float)img.ny;
+    return in ? (int)ix * img.ny + (int)iy : -1;
+  } else {
+    const float ix = floorf((x_im + S.x_max) / (2.0f * S.x_max));
+    const float iy = floorf((y_im + S.y_max) / (2.0f * S.y_max));
+    return (ix == 0.0f && iy == 0.0f) ? 0 : -1;
+  }
+}
+
+// add an accepted peel into the tallies: NK = 4 Stokes components for a
+// scatter peel, NK = 1 (Stokes I and the Stokes-I row's count) for a birth
+// peel; per-thread sums for a spectrum, atomics into the pixel for an image
+template <bool IMAGE, int NK>
+__device__ __forceinline__ void book(const Image& img, int pix, const float* v, double* acc) {
+  if constexpr (IMAGE) {
+    double* row = img.sums + (size_t)N_IMG_D * pix;
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      atomicAdd(row + k, (double)v[k]);
+      atomicAdd(row + 4 + k, (double)(v[k] * v[k]));
+    }
+    unsigned long long* c = img.counts + (size_t)N_IMG_I * pix;
+    atomicAdd(c, 1ull);
+    if (NK == 4) atomicAdd(c + 1, 1ull);
+  } else {
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      acc[k] += (double)v[k];
+      acc[4 + k] += (double)(v[k] * v[k]);
+    }
+  }
+}
+
+// ---------------------------------------------------------- emission ----
+
+// thermal birth (kernel._emit_thermal): cell from the emissivity CDF, a
+// point inside the shell, an isotropic or Gordon-biased direction; returns
+// the initial Stokes I (bias weight over cell weight)
+__device__ float emit_thermal(const Tables& T, const Scal& S, const float* u, bool biased,
+                              float* pos, float* dir) {
+  const float u_r = fminf(fmaxf(u[1], U_CLIP_LO), U_CLIP_HI);
+  const float u_t = fminf(fmaxf(u[2], U_CLIP_LO), U_CLIP_HI);
+  const float target = u[0] * __ldg(T.emis_cum + T.nr - 1);
+  int lo = 0, hi = T.nr;                 // lower bound: first emis_cum >= target
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(T.emis_cum + mid) < target) lo = mid + 1; else hi = mid;
+  }
+  const int cr = min(lo, T.nr - 1);
+  const float r0 = __ldg(T.rfront + cr), r1 = __ldg(T.rfront + cr + 1);
+  const float r = r0 + u_r * (r1 - r0);
+  const float cos_t = S.tcos[0] + u_t * (S.tcos[1] - S.tcos[0]);
+  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  const float phi = TWO_PI_F * u[3];
+  pos[0] = r * sin_t * cosf(phi) / S.ob[0];
+  pos[1] = r * sin_t * sinf(phi) / S.ob[1];
+  pos[2] = r * cos_t / S.ob[2];
+  const float beta = TWO_PI_F * u[5];
+  float bias_w = 1.0f;
+  if (!biased) {
+    const float alpha = 2.0f * u[4] - 1.0f;
+    const float s = sqrtf(fmaxf(1.0f - alpha * alpha, 0.0f));
+    dir[0] = s * cosf(beta);
+    dir[1] = s * sinf(beta);
+    dir[2] = alpha;
+  } else {
+    // biased upward, Gordon 1987 (ARTES.f90:1229-1254)
+    const float root = sqrtf(1.0f - S.bias * S.bias);
+    const float y = (1.0f + S.bias) * tanf(PI_F * u[4] / 2.0f) / root;
+    const float theta_s = acosf(fminf(fmaxf((1.0f - y * y) / (1.0f + y * y), -1.0f), 1.0f));
+    float rad[3];
+    for (int k = 0; k < 3; ++k) rad[k] = pos[k] * (S.ob[k] * S.ob[k]);
+    const float norm = sqrtf(rad[0] * rad[0] + rad[1] * rad[1] + rad[2] * rad[2]);
+    for (int k = 0; k < 3; ++k) rad[k] /= norm;
+    direction_cosine(cosf(PI_F - theta_s), beta, rad, dir);
+    bias_w = (PI_F * sinf(theta_s) * (1.0f + S.bias * cosf(theta_s))) / (2.0f * root);
+  }
+  return bias_w / __ldg(T.cell_weight + cr);
 }
 
 // ------------------------------------------------------------- kernel ----
 
+template <bool THERMAL, bool IMAGE>
 __global__ void __launch_bounds__(256)
-pool_radial_kernel(Tables T, const float* __restrict__ scal, uint32_t n_photons,
-                   uint32_t key_hi, uint32_t id_lo, int max_scatter,
+pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t n_photons,
+                   uint32_t key_hi, uint32_t id_lo, int max_scatter, int flags,
                    double* __restrict__ out_d, unsigned long long* __restrict__ out_i) {
   Scal S;
   S.fstop = __ldg(scal + S_FSTOP);
@@ -450,6 +582,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, uint32_t n_photons,
   S.rfloor = __ldg(scal + S_RFLOOR);
   S.pos_eps = __ldg(scal + S_POS_EPS);
   S.sel1 = __ldg(scal + S_SEL1);
+  S.bias = __ldg(scal + S_BIAS);
   for (int i = 0; i < 3; ++i) {
     S.det[i] = __ldg(scal + S_DET + i);
     S.ob[i] = __ldg(scal + S_OB + i);
@@ -459,32 +592,56 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, uint32_t n_photons,
     S.w_hat[i] = __ldg(scal + S_WHAT + i);
   }
   for (int i = 0; i < 4; ++i) S.trig[i] = __ldg(scal + S_TRIG + i);
+  for (int i = 0; i < 2; ++i) S.tcos[i] = __ldg(scal + S_TCOS + i);
+  const bool crescent = (flags & F_CRESCENT) != 0;
+  const bool biased = (flags & F_BIASED) != 0;
 
-  double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  unsigned long long cnt[N_OUT_I] = {0ull, 0ull, 0ull};   // peels, capped, emitted
+  // I, Q, U, V sums, their squares (spectrum only), flux emitted, flux exit
+  double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  // scatter peels, photons capped, photons emitted, birth peels
+  unsigned long long cnt[N_OUT_I] = {0ull, 0ull, 0ull, 0ull};
 
   // 64-bit index: a 32-bit one would wrap past n_photons near 2^32
   const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
   for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_photons; i += stride) {
     const uint32_t pid = id_lo + (uint32_t)i;
     cnt[2] += 1;
-    float d[5];
-
-    // emission: uniform parallel beam over the ellipsoid silhouette (sites 0, 1)
-    draws(key_hi, pid, 0u, 2, d);
-    const float r_disk = sqrtf(d[0]);
-    const float phi = TWO_PI_F * d[1];
-    const float disk1 = r_disk * sinf(phi), disk2 = r_disk * cosf(phi);
-    const float depth = sqrtf(fmaxf(1.0f - disk1 * disk1 - disk2 * disk2, 0.0f));
+    float d[6];
     float pos[3], dir[3];
-    for (int k = 0; k < 3; ++k) {
-      pos[k] = (disk1 * S.e1[k] + disk2 * S.e2[k] - depth * S.w_hat[k]) / S.ob[k];
-      dir[k] = S.u_hat[k];
-    }
     float st[4] = {1.0f, 0.0f, 0.0f, 0.0f};
-    uint32_t ctr = 2;
+    uint32_t ctr;
 
-    // round 0: prewalk along the photon's direction + forced first interaction
+    if constexpr (THERMAL) {
+      draws6(key_hi, pid, d);
+      st[0] = emit_thermal(T, S, d, biased, pos, dir);
+      acc[8] += (double)st[0];
+      ctr = 6;
+      // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598)
+      bool surf;
+      const float tau_b = tau_walk(T, S, pos, S.det, surf);
+      const int pix = pixel_of<IMAGE>(S, img, pos);
+      if (!surf && tau_b < 50.0f && pix >= 0) {
+        const float v = expf(-fminf(tau_b, 500.0f)) / FOUR_PI_F * st[0];
+        book<IMAGE, 1>(img, pix, &v, acc);
+        cnt[3] += 1;
+      }
+    } else {
+      // uniform parallel beam over the ellipsoid silhouette (sites 0, 1),
+      // on the crescent ring r > 0.9 for phase angles >= 170 deg
+      draws(key_hi, pid, 0u, 2, d);
+      const float u1 = crescent ? 0.81f + 0.19f * d[0] : d[0];
+      const float r_disk = sqrtf(u1);
+      const float phi = TWO_PI_F * d[1];
+      const float disk1 = r_disk * sinf(phi), disk2 = r_disk * cosf(phi);
+      const float depth = sqrtf(fmaxf(1.0f - disk1 * disk1 - disk2 * disk2, 0.0f));
+      for (int k = 0; k < 3; ++k) {
+        pos[k] = (disk1 * S.e1[k] + disk2 * S.e2[k] - depth * S.w_hat[k]) / S.ob[k];
+        dir[k] = S.u_hat[k];
+      }
+      ctr = 2;
+    }
+
+    // prewalk along the photon's direction + forced first interaction
     bool pre_surface;
     const float tau_first = tau_walk(T, S, pos, dir, pre_surface);
     draws(key_hi, pid, ctr, 1, d);
@@ -497,7 +654,11 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, uint32_t n_photons,
     if (forced) st[0] *= one_m_exp;
     float s_stop;
     int cr;
-    if (!march(T, S, pos, dir, tau, s_stop, cr)) continue;
+    const int first = march(T, S, pos, dir, tau, s_stop, cr);
+    if (first != M_INTER) {
+      if (THERMAL && first == M_EXIT) acc[9] += (double)st[0];
+      continue;
+    }
     for (int k = 0; k < 3; ++k) pos[k] += s_stop * dir[k];
 
     // scattering rounds (ARTES.f90:786-951); the max_scatter cap bounds them
@@ -512,7 +673,8 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, uint32_t n_photons,
       if (st[0] <= S.pmin) break;
 
       float contrib[4];
-      const bool in_image = peel_prep(T, S, pos, dir, cr, st, contrib);
+      peel_prep(T, S, dir, cr, st, contrib);
+      const int pix = pixel_of<IMAGE>(S, img, pos);
       float beta, c2b, s2b, alpha, alpha_deg;
       sample_beta(T, cr, st, d[1], d[2], beta, c2b, s2b);
       sample_alpha(T, cr, st, c2b, s2b, d[3], alpha, alpha_deg);
@@ -524,19 +686,21 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, uint32_t n_photons,
 
       bool peel_surface;
       const float tau_peel = tau_walk(T, S, pos, S.det, peel_surface);
-      if (!peel_surface && tau_peel < 50.0f && in_image) {
+      if (!peel_surface && tau_peel < 50.0f && pix >= 0) {
         const float w = expf(-fminf(tau_peel, 500.0f));
-        for (int k = 0; k < 4; ++k) {
-          const float v = contrib[k] * w;
-          acc[k] += (double)v;
-          acc[4 + k] += (double)(v * v);
-        }
+        float v[4];
+        for (int k = 0; k < 4; ++k) v[k] = contrib[k] * w;
+        book<IMAGE, 4>(img, pix, v, acc);
         cnt[0] += 1;
       }
 
       tau = -logf(1.0f - d[4]);
       for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
-      if (!march(T, S, pos, dir, tau, s_stop, cr)) break;
+      const int out = march(T, S, pos, dir, tau, s_stop, cr);
+      if (out != M_INTER) {
+        if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
+        break;
+      }
       for (int k = 0; k < 3; ++k) pos[k] += s_stop * dir[k];
       if (n_scat >= max_scatter) {
         cnt[1] += 1;
@@ -570,30 +734,52 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, uint32_t n_photons,
   }
 }
 
-static_assert(N_SCAL == S_SEL1 + 1, "scalar layout");
+static_assert(N_SCAL == S_BIAS + 1, "scalar layout");
+
+// the instantiation of a variant: bit 0 thermal, bit 1 image
+using KernelFn = void (*)(Tables, const float*, Image, uint32_t, uint32_t, uint32_t, int, int,
+                          double*, unsigned long long*);
+KernelFn variant_fn(int variant) {
+  switch (variant) {
+    case 0: return pool_radial_kernel<false, false>;
+    case 1: return pool_radial_kernel<true, false>;
+    case 2: return pool_radial_kernel<false, true>;
+    case 3: return pool_radial_kernel<true, true>;
+    default: return nullptr;
+  }
+}
 
 }  // namespace
 
-// C entry point for ctypes: launches on `stream` and returns cudaGetLastError().
-// out_d: 8 doubles (I, Q, U, V sums, then their squares); out_i: 3 counters
-// (accepted peels, photons capped at max_scatter, photons emitted).
+// C entry point for ctypes: launches the instantiation of `variant` (bit 0
+// thermal, bit 1 image) on `stream` and returns cudaGetLastError().
+// out_d: 10 doubles (I, Q, U, V sums and their squares, zero for an image;
+// flux emitted; flux exit); out_i: 4 counters (scatter peels, photons capped
+// at max_scatter, photons emitted, birth peels). An image (nx * ny pixels)
+// is added into img_sums (npix, 8) and img_counts (npix, 2).
 extern "C" int artes_pool_radial_launch(
     const float* rfront, const float* opacity, const float* albedo, const float* scatter,
     const float* prefix, const float* p_int, const float* consts, const float* scal,
-    int nr, unsigned int n_photons, unsigned int key_hi, unsigned int id_lo,
-    int max_scatter, double* out_d, unsigned long long* out_i, int blocks, int threads,
-    void* stream) {
-  Tables T{rfront, opacity, albedo, scatter, prefix, p_int, consts, nr};
-  if (threads > 256 || threads % 32 != 0 || blocks < 1) return (int)cudaErrorInvalidValue;
-  pool_radial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      T, scal, n_photons, key_hi, id_lo, max_scatter, out_d, out_i);
+    const float* emis_cum, const float* cell_weight, int nr, unsigned int n_photons,
+    unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags, int nx,
+    int ny, double* img_sums, unsigned long long* img_counts, double* out_d,
+    unsigned long long* out_i, int blocks, int threads, void* stream) {
+  Tables T{rfront, opacity, albedo, scatter, prefix, p_int, consts, emis_cum, cell_weight, nr};
+  Image img{img_sums, img_counts, nx, ny};
+  const KernelFn fn = variant_fn(variant);
+  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(T, scal, img, n_photons, key_hi, id_lo,
+                                                   max_scatter, flags, out_d, out_i);
   return (int)cudaGetLastError();
 }
 
-// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_I}.
+// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_I, N_IMG_D, N_IMG_I}.
 extern "C" int artes_pool_radial_layout(int* sizes) {
   sizes[0] = N_SCAL;
   sizes[1] = N_OUT_D;
   sizes[2] = N_OUT_I;
+  sizes[3] = N_IMG_D;
+  sizes[4] = N_IMG_I;
   return 0;
 }

@@ -1,10 +1,12 @@
-"""Run outputs of spectrum mode.
+"""Run outputs.
 
-Counterpart of the spectrum-mode part of ``artes_tpu.output`` (the
-reference's ``write_output``, ARTES.f90:3472-3772, the run report,
-:3843-4152, and ``plot.dat``, :1328-1348): spectrum, optical depth, cell
-depth and normalization tables, the banner/log report and the error log.
-File formats and units match the reference and the JAX package.
+Counterpart of ``artes_tpu.output`` (the reference's ``write_output``,
+ARTES.f90:3472-3772, the run report, :3843-4152, and ``plot.dat``,
+:1328-1348): spectrum, phase, photometry, luminosity, optical depth, cell
+depth and normalization tables, the Stokes, error and cell-luminosity FITS
+images, the banner/log report and the error log. File formats and units
+match the reference and the JAX package. The flow FITS files wait for the
+flow slice.
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import numpy as np
 
 from artes_tpu.config import ArtesConfig, DetectorSetup
 from artes_tpu.constants import PI, SIGMA_SB, planck_lambda
-from artes_tpu_torch.runner import WavelengthResult
+from artes_tpu.io.fitsio import write_fits
+from artes_tpu_torch.runner import WavelengthResult, detector_errors
 
 
 class OutputDirs:
@@ -54,6 +57,55 @@ def write_spectrum_row(dirs: OutputDirs, wavelength_m: float, res: WavelengthRes
             [wavelength_m * 1e6,
              1e-6 * d[..., 0, 0].sum(), 1e-6 * d[..., 1, 0].sum(),
              1e-6 * d[..., 2, 0].sum(), 1e-6 * d[..., 3, 0].sum()])
+
+
+def write_phase_row(dirs: OutputDirs, phase_deg: float, res: WavelengthResult):
+    """phase.dat (ARTES.f90:3521-3563)."""
+    d = res.detector
+    err = detector_errors(res.detector)
+    if phase_deg < 1.0:
+        phase_deg = 0.0
+    elif phase_deg > 179.0:
+        phase_deg = 180.0
+    row = [phase_deg]
+    for k in range(4):
+        row += [1e-6 * d[..., k, 0].sum(), 1e-6 * float(err[..., k].sum())]
+    _append(dirs.path("phase.dat"),
+            "# Phase [deg] - Stokes I, I err, Q, Q err, U, U err, V, V err [W m-2 micron-1]",
+            row)
+
+
+def write_stokes_fits(dirs: OutputDirs, det: DetectorSetup, res: WavelengthResult):
+    """stokes.fits + error.fits (ARTES.f90:3565-3570): per-pixel surface
+    brightness [W m-2 micron-1 mas-2], NAXIS order (4, ny, nx)."""
+    img = res.detector[..., 0] * 1e-6 / (det.pixel_scale * det.pixel_scale)
+    write_fits(dirs.path("stokes.fits"), [(None, img.transpose(2, 1, 0))])
+    err = detector_errors(res.detector)
+    write_fits(dirs.path("error.fits"), [(None, err.transpose(2, 1, 0))])
+
+
+def write_photometry(dirs: OutputDirs, wavelength_m: float, res: WavelengthResult):
+    """photometry.dat (ARTES.f90:3574-3588)."""
+    p = res.photometry
+    _append(dirs.path("photometry.dat"),
+            "# Wavelength [micron] - Stokes I, I err, Q, Q err, U, U err, V, V err [W m-2 micron-1]",
+            [wavelength_m * 1e6] + [1e-6 * p[i] for i in range(8)])
+
+
+def write_luminosity(dirs: OutputDirs, wavelength_m: float, res: WavelengthResult,
+                     packages: int):
+    """luminosity.dat: emitted vs emergent (ARTES.f90:3654-3685)."""
+    e_pack = res.prep.emissivity_total / packages
+    _append(dirs.path("luminosity.dat"),
+            "# Wavelength [micron] - Emitted luminosity [W micron-1] - "
+            "Emergent luminosity [W micron-1] - Emergent luminosity [a.u.]",
+            [wavelength_m * 1e6, res.flux_emitted * e_pack * 1e-6,
+             res.flux_exit * e_pack * 1e-6, res.flux_exit])
+
+
+def write_cell_luminosity(dirs: OutputDirs, lum):
+    """cell_luminosity.fits (ARTES.f90:3658), NAXIS order (nphi, ntheta, nr)."""
+    write_fits(dirs.path("cell_luminosity.fits"), [(None, np.asarray(lum).transpose(2, 1, 0))])
 
 
 def write_normalization(dirs: OutputDirs, cfg: ArtesConfig, atm, wavelength_m: float):
@@ -128,14 +180,23 @@ class RunReport:
         self.emit(f"Field of view [mas x mas]: {det.x_fov:.2e} x {det.y_fov:.2e}")
         self.emit(f"Pixel scale [mas pixel-1]: {det.pixel_scale:.2e}")
 
-    def stage2(self, cfg: ArtesConfig, det: DetectorSetup, packages: int):
+    def stage2(self, cfg: ArtesConfig, atm, det: DetectorSetup, packages: int,
+               wl_index: int = 0, cell_depth: int = 0):
         self.emit("--------------------------------------------------------")
         self.emit("--> Photon transfer\n")
         self.emit(f"Photon source: {cfg.photon_source}")
         self.emit(f"Emitted photons: {float(packages):.2e}")
-        self.emit(f"Phase angle [deg]: {det.phase_observer:.2e}")
+        if cfg.photon_source == "star" and cfg.mode != "phase":
+            self.emit(f"Phase angle [deg]: {det.phase_observer:.2e}")
         lum = 4.0 * PI * cfg.r_star**2 * SIGMA_SB * cfg.t_star**4
         self.emit(f"Stellar luminosity [W]: {lum:.2e}")
+        if cfg.mode != "spectrum":
+            for kind, label in (("ext", "Total"), ("sca", "Scattering"), ("abs", "Absorption")):
+                self.emit(f"{label} optical depth:")
+                tau = atm.column_optical_depth(wl_index, kind, cell_depth)
+                for it in range(atm.ntheta):
+                    for ip in range(atm.nphi):
+                        self.emit(f"[Theta, phi] = [{it}, {ip}] --> {tau[it, ip]:.4e}")
 
     def stage3(self, cfg: ArtesConfig, atm, res: WavelengthResult, wl_index: int = 0):
         p = res.photometry
@@ -146,13 +207,15 @@ class RunReport:
         self.emit("Planet integrated flux\n")
         for lab, v in zip("IQUV", (p[0], p[2], p[4], p[6])):
             self.emit(f"Stokes {lab} [W m-2 micron-1]: {v * 1e-6:.2e}")
-        flux = PI * planck_lambda(cfg.t_star, atm.wavelengths[wl_index])
-        norm = flux * atm.rfront[-1]**2 * cfg.r_star**2 / (cfg.orbit**2 * cfg.distance_planet**2)
-        norm2 = flux * cfg.r_star**2 / cfg.distance_planet**2
-        for lab, v in zip("IQUV", (p[0], p[2], p[4], p[6])):
-            self.emit(f"Normalized Stokes {lab}: {v / norm:.2e}")
-        for lab, v in zip("IQUV", (p[0], p[2], p[4], p[6])):
-            self.emit(f"Stellar normalized Stokes {lab}: {v / norm2:.2e}")
+        if cfg.photon_source == "star":
+            flux = PI * planck_lambda(cfg.t_star, atm.wavelengths[wl_index])
+            norm = (flux * atm.rfront[-1]**2 * cfg.r_star**2
+                    / (cfg.orbit**2 * cfg.distance_planet**2))
+            norm2 = flux * cfg.r_star**2 / cfg.distance_planet**2
+            for lab, v in zip("IQUV", (p[0], p[2], p[4], p[6])):
+                self.emit(f"Normalized Stokes {lab}: {v / norm:.2e}")
+            for lab, v in zip("IQUV", (p[0], p[2], p[4], p[6])):
+                self.emit(f"Stellar normalized Stokes {lab}: {v / norm2:.2e}")
         self.emit(f"-Q/I: {-p[2] / p[0]:.2e}")
         self.emit(f" U/I: {p[4] / p[0]:.2e}")
         self.emit(f" V/I: {p[6] / p[0]:.2e}")

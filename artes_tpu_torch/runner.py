@@ -1,7 +1,9 @@
-"""Run orchestration: the spectrum mode's wavelength loop and photometry.
+"""Run orchestration: wavelength and mode loops, photometry.
 
 Counterpart of ``artes_tpu.runner`` (the reference's ``run`` dispatcher,
-ARTES.f90:121-267) for spectrum mode. Each wavelength transports its
+ARTES.f90:121-267): spectrum mode re-runs transport per wavelength,
+imaging_broad sums one detector over the wavelengths, imaging_mono is a
+single run, and phase mode sweeps 73 detector azimuths. Each run transports its
 photons in chunks of at most 2^30 with continuous 64-bit photon ids, so the
 (seed, id) -> photon stream mapping does not depend on the chunking.
 
@@ -26,6 +28,8 @@ from artes_tpu_torch.transport.kernel import KernelStatic, check_slice, run_stre
 from artes_tpu_torch.transport.tables import PreparedWavelength, build_tables
 
 CHUNK = 1 << 30
+
+PHASE_ANGLES_DEG = [1.0e-5] + [2.5 * i for i in range(1, 72)] + [180.0 - 1.0e-5]  # (:215-229)
 
 
 def stellar_area_factor(cfg: ArtesConfig) -> float:
@@ -63,7 +67,7 @@ def package_energy(cfg: ArtesConfig, atm, wl_index: int, packages: int,
 class WavelengthResult:
     detector: np.ndarray        # (nx, ny, 4, 3) energy-scaled moments
     photometry: np.ndarray      # (11,) (ARTES.f90:977-1004)
-    flux_emitted: float
+    flux_emitted: float         # unitless Stokes-I tallies (thermal)
     flux_exit: float
     n_error: int                # zero by construction: the closed form has no failure modes
     n_alive_at_cap: int
@@ -119,6 +123,7 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
             return run_stream(prep.tables, static, n, seed, width, id_hi, id_lo)
 
     detector = np.zeros((det.nx * det.ny, 4, 3), np.float64)
+    flux_emitted = flux_exit = 0.0
     n_alive = 0
     chunk = CHUNK
     if progress:
@@ -130,6 +135,8 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
         n = min(chunk, packages - start, (1 << 32) - (start & 0xFFFFFFFF))
         out = kern(n, start >> 32, start & 0xFFFFFFFF)
         detector += out["detector"].cpu().numpy().astype(np.float64)
+        flux_emitted += float(out["flux_emitted"])
+        flux_exit += float(out["flux_exit"])
         n_alive += int(out["n_alive_at_cap"])
         start += n
         if progress:
@@ -144,7 +151,7 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
     scaled[..., 2] = det_img[..., 2]
     return WavelengthResult(
         detector=scaled, photometry=photometry_from_detector(scaled),
-        flux_emitted=0.0, flux_exit=0.0, n_error=0, n_alive_at_cap=n_alive,
+        flux_emitted=flux_emitted, flux_exit=flux_exit, n_error=0, n_alive_at_cap=n_alive,
         cell_depth=prep.cell_depth, prep=prep)
 
 
@@ -205,3 +212,31 @@ def run_spectrum(atm, cfg, packages, seed=0, wl_subset=None, **kw):
     results = [run_wavelength(atm, cfg, det, wl, packages, seed=seed + wl, **kw)
                for wl in wls]
     return det, results
+
+
+def run_imaging_mono(atm, cfg, packages, seed=0, wl_index=0, **kw):
+    det = detector_setup(cfg, float(atm.rfront[-1]))
+    return det, run_wavelength(atm, cfg, det, wl_index, packages, seed=seed, **kw)
+
+
+def run_imaging_broad(atm, cfg, packages, seed=0, **kw):
+    """Accumulate one detector across all wavelengths (ARTES.f90:168-204)."""
+    det = detector_setup(cfg, float(atm.rfront[-1]))
+    tallies = [run_wavelength(atm, cfg, det, wl, packages, seed=seed + wl, **kw)
+               for wl in range(atm.n_wavelength)]
+    total = sum(res.detector for res in tallies)
+    summed = dataclasses.replace(tallies[-1], detector=total,
+                                 photometry=photometry_from_detector(total))
+    return det, summed, tallies
+
+
+def run_phase_curve(atm, cfg, packages, seed=0, wl_index=0, **kw):
+    """73 phase angles at 2.5-degree steps (ARTES.f90:213-250), the disk
+    sampled on its crescent ring from 170 degrees (:1041)."""
+    results = []
+    for i, ang in enumerate(PHASE_ANGLES_DEG):
+        det = detector_setup(cfg, float(atm.rfront[-1]), det_phi=ang * PI / 180.0)
+        res = run_wavelength(atm, cfg, det, wl_index, packages, seed=seed + i,
+                             crescent=ang >= 170.0, **kw)
+        results.append((ang, det, res))
+    return results

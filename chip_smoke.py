@@ -7,17 +7,39 @@ Run from the root of a checkout, with no arguments:
 Phases, one line each; any failure exits non-zero before the result lines:
 
 1. env: torch, CUDA, nvcc, the card's name and power limit;
-2. build: compiles ``artes_tpu_torch/csrc/pool_radial.cu`` with nvcc;
-3. kernel vs plain: the CUDA kernel against its plain PyTorch version on
-   the card (flagship and the nr=39 graded grid, 2^20 photons, seed 7,
-   float32): the count, the photons at the scattering cap, the four Stokes
-   sums and their four sums of squares within ``pool_cuda.AGREE``;
-4. anchor: the flagship at 2^27 photons with the ids and seed of the
-   recorded TPU run (BENCH_r05.json ``detector_I_raw`` = 6354867.5):
-   detector I within 2e-3, no photon at the scattering cap;
-5. main path: ``python -m artes_tpu_torch.cli`` in spectrum mode on the
-   README quick-start input and on the nr=39 grid, 2^24 photons each:
-   finite spectra with I > 0 and |Q|, |U| <= I, run through the kernel.
+2. build: compiles ``artes_tpu_torch/csrc/pool_radial.cu`` and
+   ``probe_splat.cu`` with nvcc, both at once, and prints the ptxas
+   registers and spills of every kernel instantiation;
+3. kernel vs plain: every instantiation of the pool kernel (stellar,
+   thermal, image, thermal image) against its plain PyTorch version on the
+   card, 2^20 photons, seed 7, float32, on the cells of
+   ``cells.KERNEL_CELLS`` (flagship, nr=39 graded grid, 25x25 and 101x101
+   images, the bench's thermal shell with isotropic and biased emission,
+   the scattering thermal shell as spectrum and 25x25 image, crescent with
+   an off-axis star): counts per count column, per-pixel I and counts, the
+   Stokes sums and squares, the capped photons and both fluxes within
+   ``pool_cuda.AGREE``;
+4. probe splat: the splat micro-benchmark kernel and its loop-only
+   baseline against their plain versions at 625, 2025 and 10201 pixels
+   (counts equal, values within ``probe_splat.VALUE_RTOL``), and the
+   splat's cost a round net of the loop;
+5. anchors, through the kernel: (a) the flagship at 2^27 photons with the
+   ids and seed of the recorded TPU run (BENCH_r05.json ``detector_I_raw``
+   = 6354867.5): I within 2e-3, no photon at the scattering cap; (b) the
+   25x25 image at 2^24 photons summed over its pixels equals the spectrum
+   of the same photons (counts within 4, I within 1e-6); (c) a transparent
+   isothermal shell gives V kappa B / d^2 within 2% at 2^24 photons; (d)
+   the phase curve of a thin Rayleigh shell at 2^24 photons an angle
+   follows single scattering, (4/3) k P11(180 - alpha) within 5% and -Q/I
+   within 0.05 of sin^2 / (1 + cos^2), for alpha <= 160 deg;
+6. main path: ``python -m artes_tpu_torch.cli`` as a user runs it, one
+   process each, 2^24 photons: spectrum on the README quick-start input
+   and on the nr=39 grid, a 25x25 image of the quick-start input, its
+   73-angle phase curve, a thermal spectrum of the bench's thermal shell
+   and a thermal 25x25 image of the scattering thermal shell; then
+   ``python -m artes_tpu_torch.probe_splat``, the splat micro-benchmark's
+   own entry point. Each process starts with its launch counts at 0 and
+   prints them at its end; every kernel must have been launched.
 
 It then prints the card line, a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``. Nothing runs without a CUDA device.
@@ -25,14 +47,22 @@ It then prints the card line, a JSON line of the kernels and, last,
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_R05_DETECTOR_I_RAW = 6354867.5     # BENCH_r05.json, TPU v5e, 2^27 photons, seed 12
 SMOKE_PHOTONS = 1 << 24
+POOL_SOURCE = "artes_tpu_torch/csrc/pool_radial.cu"
+POOL_REPLACES = "artes_tpu/transport/pallas_stream.py:2049"
+# the cell whose kernel and plain times stand for each instantiation
+VARIANT_CELL = {"stellar": "flagship", "thermal": "thermal_iso", "image": "imaging25",
+                "thermal_image": "thermal_imaging25"}
+PROBE_SIZES = (625, 2025, 10201)
 
 
 def fail(msg):
@@ -79,49 +109,98 @@ def phase_env():
 
 def phase_build():
     from artes_tpu_torch import _build
+    names = ("pool_radial", "probe_splat")
     t0 = time.perf_counter()
-    path = _build.build("pool_radial")
-    say("build", f"pool_radial.cu built in {time.perf_counter() - t0:.1f} s -> "
-                 f"{os.path.relpath(path, HERE)}")
-    with open(path + ".log") as fh:
-        for line in fh:
-            if "registers" in line or "spill" in line:
-                say("build", "ptxas " + line.strip())
+    with ThreadPoolExecutor(len(names)) as ex:          # one nvcc a source, all at once
+        paths = dict(zip(names, ex.map(_build.build, names)))
+    say("build", f"{', '.join(n + '.cu' for n in names)} built in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        say("build", f"{name} -> {os.path.relpath(path, HERE)}")
+        with open(path + ".log") as fh:
+            for line in fh:
+                if "entry function" in line or "registers" in line or "spill" in line:
+                    say("build", "ptxas " + line.strip())
 
 
 def phase_kernel_vs_plain():
-    from artes_tpu_torch.cells import CELLS, spectrum_tables
+    """Each cell's kernel against its plain version; fails at the first cell
+    that disagrees, else returns per-cell rows."""
+    from artes_tpu_torch.cells import KERNEL_CELLS
     from artes_tpu_torch.transport import kernel, pool_cuda
     n, seed = 1 << 20, 7
     rows = {}
-    for name, make in CELLS.items():
-        tables, static = spectrum_tables(make(), "cuda")
+    for name in KERNEL_CELLS:
+        tables, static = KERNEL_CELLS[name]("cuda")
+        variant = pool_cuda.VARIANTS[pool_cuda.variant_of(static)]
         pool_cuda.run_stream_cuda(tables, static, n, seed)          # warm-up
         ms, out_k = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
         plain_ms, out_p = timed(lambda: kernel.run_stream(tables, static, n, seed, n), 1)
         dk, dp = out_k["detector"].double().cpu(), out_p["detector"].double().cpu()
         g = pool_cuda.gaps(out_k, out_p)
-        max_abs = float((dk[0, :, 0] - dp[0, :, 0]).abs().max())
+        max_abs = float((dk[..., 0] - dp[..., 0]).abs().max())
+        tot_k, tot_p = dk.sum(0), dp.sum(0)
         say("kernel-vs-plain",
-            f"{name}: N kernel {int(dk[0, 0, 2])} plain {int(dp[0, 0, 2])} dN/N {g['count']:.3e}; "
-            f"capped kernel {int(out_k['n_alive_at_cap'])} plain {int(out_p['n_alive_at_cap'])}; "
-            f"|dS|/I (I,Q,U,V) "
-            + " ".join(f"{x:.3e}" for x in g["stokes"]) + "; dS2/S2 (I,Q,U,V) "
-            + " ".join(f"{x:.3e}" for x in g["squares"])
-            + "; plain sums (I,Q,U,V) " + " ".join(f"{x:.7g}" for x in dp[0, :, 0].tolist())
+            f"{name} [{variant}, {dk.shape[0]} px]: N (I row) kernel {int(tot_k[0, 2])} plain "
+            f"{int(tot_p[0, 2])}, N (Q/U/V rows) kernel {int(tot_k[1, 2])} plain "
+            f"{int(tot_p[1, 2])}; capped kernel {int(out_k['n_alive_at_cap'])} plain "
+            f"{int(out_p['n_alive_at_cap'])}; flux emitted {float(out_k['flux_emitted']):.7g} / "
+            f"{float(out_p['flux_emitted']):.7g}, exit {float(out_k['flux_exit']):.7g} / "
+            f"{float(out_p['flux_exit']):.7g}; gaps "
+            + " ".join(f"{k}={v:.3e}" if isinstance(v, float) else
+                       f"{k}=" + ",".join(f"{x:.3e}" for x in v) for k, v in g.items())
+            + "; plain sums (I,Q,U,V) " + " ".join(f"{x:.7g}" for x in tot_p[:, 0].tolist())
             + f"; max|dIQUV| {max_abs:.6g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
             f"({n} photons)")
         if not (dk.isfinite().all() and pool_cuda.agrees(g)):
             fail(f"kernel disagrees with its plain version on {name} "
                  f"(limits {pool_cuda.AGREE})")
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=max_abs)
+        rows[name] = dict(variant=variant, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs)
     return rows
 
 
-def phase_anchor():
-    from artes_tpu_torch.cells import flagship, spectrum_tables
+def phase_probe():
+    import torch
+    from artes_tpu_torch import probe_splat as P
+    dev = torch.device("cuda")
+    rows = {}
+    for npix in PROBE_SIZES:
+        (vals, counts), (ref_vals, ref_counts) = (
+            P.splat(npix, device=dev), P.splat_plain(npix, device=dev))
+        rel = float(((vals - ref_vals).abs() / ref_vals.abs().clamp_min(1e-300)).max())
+        if not (torch.equal(counts, ref_counts) and rel <= P.VALUE_RTOL):
+            fail(f"probe_splat disagrees with its plain version at {npix} px: counts equal "
+                 f"{torch.equal(counts, ref_counts)}, value rel {rel:.3e}")
+        rows[npix] = dict(max_abs_err=float((vals - ref_vals).abs().max()))
+    sink, ref_sink = P.baseline(device=dev), P.baseline_plain(device=dev)
+    if not torch.equal(sink, ref_sink):
+        fail("probe_splat baseline disagrees with its plain version")
+    base_err = float((sink - ref_sink).abs().max())
+    base_us, net_us = P.us_per_round(PROBE_SIZES)
+    base_ms = base_us * P.N_ROUNDS * 1e-3
+    base_plain_ms, _ = timed(lambda: P.baseline_plain(device=dev), 1)
+    for npix in PROBE_SIZES:
+        plain_ms, _ = timed(lambda: P.splat_plain(npix, device=dev), 1)
+        rows[npix].update(ms=(net_us[npix] + base_us) * P.N_ROUNDS * 1e-3, plain_ms=plain_ms)
+        say("probe", f"npix {npix}: splat {net_us[npix]:.3f} us/round net of the loop "
+                     f"({P.LANES} peels a round, {P.NVALS} value + {P.NCNT} count atomics "
+                     f"each); kernel {rows[npix]['ms']:.3f} ms, plain {plain_ms:.1f} ms for "
+                     f"{P.N_ROUNDS} rounds; counts equal, max|dvalue| "
+                     f"{rows[npix]['max_abs_err']:.3g}")
+    say("probe", f"baseline loop {base_us:.4f} us/round; kernel {base_ms:.3f} ms, plain "
+                 f"{base_plain_ms:.1f} ms; sinks equal")
+    return rows, dict(ms=base_ms, plain_ms=base_plain_ms, max_abs_err=base_err)
+
+
+def phase_anchors():
+    import numpy as np
+    import torch
+    from artes_tpu.config import ArtesConfig, detector_setup
+    from artes_tpu_torch import cells, runner
     from artes_tpu_torch.transport import pool_cuda
-    tables, static = spectrum_tables(flagship(), "cuda")
+
+    # (a) the PR-1 flagship anchor against the recorded TPU tally
+    tables, static = cells.spectrum_tables(cells.flagship(), "cuda")
     n = 1 << 27
     ms, out = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, 12), 1)
     det = out["detector"].cpu()
@@ -135,46 +214,174 @@ def phase_anchor():
     if not (det.isfinite().all() and rel <= 2e-3 and n_cap == 0):
         fail("anchor run disagrees with the recorded TPU tally")
 
+    # (b) image = spectrum on the same photons
+    n = SMOKE_PHOTONS
+    img_tables, img_static = cells.imaging_tables(25, "cuda")
+    ms_img, img = timed(lambda: pool_cuda.run_stream_cuda(img_tables, img_static, n, 12), 1)
+    ms_spec, spec = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, 12), 1)
+    total, spec = img["detector"].cpu().sum(0), spec["detector"].cpu()[0]
+    d_n = (total[:, 2] - spec[:, 2]).abs().max().item()
+    rel_i = abs(float(total[0, 0] - spec[0, 0])) / float(spec[0, 0])
+    say("anchor", f"25x25 image = spectrum, 2^24 photons: counts {int(total[0, 2])} vs "
+                  f"{int(spec[0, 2])} (max |dN| {d_n:.0f}), I rel {rel_i:.3e}; image kernel "
+                  f"{ms_img:.1f} ms, spectrum kernel {ms_spec:.1f} ms")
+    if not (d_n <= 4 and rel_i <= 1e-6):
+        fail("the image summed over its pixels is not the spectrum")
+
+    # (c) transparent thermal shell: L / (4 pi d^2)
+    atm = cells.transparent_thermal_shell()
+    cfg = ArtesConfig()
+    cfg.mode = "spectrum"
+    cfg.photon_source = "planet"
+    det_s = detector_setup(cfg, float(atm.rfront[-1]))
+    res = runner.run_wavelength(atm, cfg, det_s, 0, n, seed=5, device="cuda")
+    ratio = res.photometry[0] / cells.thermal_shell_oracle(atm, cfg)
+    say("anchor", f"transparent thermal shell, 2^24 photons: I / (V kappa B / d^2) "
+                  f"{ratio:.5f}")
+    if not abs(ratio - 1.0) <= 0.02:
+        fail("the transparent thermal shell misses L / (4 pi d^2)")
+
+    # (d) thin Rayleigh shell: single-scattering phase curve
+    atm = cells.thin_rayleigh_shell()
+    cfg = ArtesConfig()
+    cfg.mode = "phase"
+    t0 = time.perf_counter()
+    results = runner.run_phase_curve(atm, cfg, n, seed=3, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    norm = cells.stellar_norm(cfg, atm) * np.pi
+    worst_i = worst_p = 0.0
+    for ang, _, r in results:
+        if ang > 160.0:
+            continue
+        intensity, pol = cells.thin_shell_phase_oracle(atm, ang)
+        p = r.photometry
+        worst_i = max(worst_i, abs(p[0] / norm / intensity - 1.0))
+        worst_p = max(worst_p, abs(-p[2] / p[0] - pol))
+    say("anchor", f"thin Rayleigh shell phase curve, {len(results)} angles x 2^24 photons "
+                  f"({wall:.1f} s wall): worst |I / single scattering - 1| {worst_i:.4f}, "
+                  f"worst |-Q/I - P(Theta)| {worst_p:.4f} for alpha <= 160 deg")
+    if not (worst_i <= 0.05 and worst_p <= 0.05):
+        fail("the thin-shell phase curve misses single scattering")
+
+
+LAUNCH_LINE = re.compile(r"CUDA kernel launches: pool_radial=(\d+) \((.*)\)")
+
+
+def _cli(root, env, atm_name, run, *keys):
+    """One CLI process; returns its output directory and its launches per
+    instantiation."""
+    from artes_tpu_torch.transport import pool_cuda
+    t0 = time.perf_counter()
+    args = [a for k in keys for a in ("-k", k)]
+    proc = subprocess.run(
+        [sys.executable, "-m", "artes_tpu_torch.cli", atm_name, str(SMOKE_PHOTONS),
+         "-o", run, "--root", root, *args],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"CLI {run} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    found = LAUNCH_LINE.search(proc.stdout)
+    if not found or int(found.group(1)) <= 0:
+        fail(f"CLI {run} did not launch the kernel:\n{proc.stdout}")
+    by = {k: int(v) for k, v in (kv.split("=") for kv in found.group(2).split())}
+    if sorted(by) != sorted(pool_cuda.VARIANTS):
+        fail(f"CLI {run} launch line names other instantiations: {found.group(0)}")
+    return os.path.join(root, "output", run, "output"), by, wall
+
 
 def phase_main_path():
-    """The CLI as a user runs it, one process per input. Each process
-    starts with ``pool_cuda.LAUNCHES`` at 0 and prints the count at its end;
-    the launches of the earlier phases, made in this process, are not in it."""
+    """The CLI as a user runs it, one process per run, then the probe's own
+    entry point. Each process starts with its launch counts at 0 and prints
+    them at its end; the launches of the earlier phases, made in this
+    process, are not in them."""
     import numpy as np
-    launches = 0
+    from artes_tpu.io.fitsio import read_fits
+    from artes_tpu_torch import cells
+    from artes_tpu_torch.transport import pool_cuda
+
+    launches = dict.fromkeys(pool_cuda.VARIANTS, 0)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     with tempfile.TemporaryDirectory(prefix="artes_smoke_") as root:
-        from artes_tpu.atmosphere import write_artifact
-        from artes_tpu_torch import cells
         cells.write_input(root, "demo")
-        h39 = os.path.join(root, "input", "h39")
-        os.makedirs(h39)
-        write_artifact(os.path.join(h39, "atmosphere.fits"), cells.hydrostatic39())
-        cells.write_artes_in(h39)
-        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        cells.write_artifact_input(root, "h39", cells.hydrostatic39())
+        cells.write_artifact_input(root, "thermal", cells.thermal_bench(),
+                                   ["photon:source=planet"])
+        cells.write_artifact_input(root, "thermal_scat", cells.thermal_scattering_shell(),
+                                   ["photon:source=planet"])
+
+        def count(by):
+            for k, v in by.items():
+                launches[k] += v
+
         for atm_name in ("demo", "h39"):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "artes_tpu_torch.cli", atm_name, str(SMOKE_PHOTONS),
-                 "-o", "smoke_" + atm_name, "--root", root],
-                cwd=root, env=env, capture_output=True, text=True, timeout=600)
-            wall = time.perf_counter() - t0
-            if proc.returncode != 0:
-                fail(f"CLI on {atm_name} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-            tag = "CUDA kernel launches: pool_radial="
-            counts = [int(line.split("=")[-1]) for line in proc.stdout.splitlines()
-                      if line.startswith(tag)]
-            if not counts or counts[0] <= 0:
-                fail(f"CLI on {atm_name} did not launch the kernel:\n{proc.stdout}")
-            launches += counts[0]
-            rows = np.atleast_2d(np.loadtxt(os.path.join(
-                root, "output", "smoke_" + atm_name, "output", "spectrum.dat")))
+            out, by, wall = _cli(root, env, atm_name, "spec_" + atm_name)
+            count(by)
+            rows = np.loadtxt(os.path.join(out, "spectrum.dat"), ndmin=2)
             i, q, u = rows[:, 1], rows[:, 2], rows[:, 3]
             if not (np.isfinite(rows).all() and (i > 0).all()
                     and (np.abs(q) <= i).all() and (np.abs(u) <= i).all()):
                 fail(f"spectrum.dat of {atm_name} is not physical: {rows}")
-            say("main-path", f"cli {atm_name} {SMOKE_PHOTONS} photons: I {i[0]:.6e} "
-                             f"Q {q[0]:.6e} U {u[0]:.6e} (-Q/I {-q[0] / i[0]:.5f}); "
-                             f"launches {counts[0]}; {wall:.1f} s wall incl. process start")
+            say("main-path", f"cli spectrum {atm_name} {SMOKE_PHOTONS} photons: I {i[0]:.6e} "
+                             f"Q {q[0]:.6e} U {u[0]:.6e} (-Q/I {-q[0] / i[0]:.5f}); launches "
+                             f"{by}; {wall:.1f} s wall incl. process start")
+
+        for atm_name, run, keys in (
+                ("demo", "image_demo", ["detector:type=imaging_mono", "detector:pixel=25"]),
+                ("thermal_scat", "image_thermal",
+                 ["detector:type=imaging_mono", "detector:pixel=25"])):
+            out, by, wall = _cli(root, env, atm_name, run, *keys)
+            count(by)
+            img = read_fits(os.path.join(out, "stokes.fits"))[0][1]     # (4, ny, nx)
+            i, q, u = img[0], img[1], img[2]
+            tol = 1e-6 * np.abs(i).max()
+            if not (img.shape == (4, 25, 25) and np.isfinite(img).all() and (i >= 0).all()
+                    and (np.abs(q) <= i + tol).all() and (np.abs(u) <= i + tol).all()):
+                fail(f"stokes.fits of {run} is not physical")
+            lit = i > 0
+            peak = float(np.max(-q[lit] / i[lit])) if lit.any() else 0.0
+            say("main-path", f"cli imaging_mono {run} 25x25 {SMOKE_PHOTONS} photons: "
+                             f"{int(lit.sum())} lit pixels, peak -Q/I {peak:.4f}, sum I "
+                             f"{float(i.sum()):.6e}; launches {by}; {wall:.1f} s wall")
+
+        out, by, wall = _cli(root, env, "demo", "phase_demo", "detector:type=phase")
+        count(by)
+        rows = np.loadtxt(os.path.join(out, "phase.dat"), ndmin=2)
+        if not (rows.shape == (73, 9) and np.isfinite(rows).all() and sum(by.values()) == 73):
+            fail(f"phase curve: {rows.shape} rows, launches {by}")
+        say("main-path", f"cli phase demo 73 x {SMOKE_PHOTONS} photons: I(0) {rows[0, 1]:.6e} "
+                         f"I(90) {rows[36, 1]:.6e} I(180) {rows[-1, 1]:.6e}; launches {by}; "
+                         f"{wall:.1f} s wall")
+
+        for atm_name, run, mode in (("thermal", "spec_thermal", "spectrum"),
+                                    ("thermal_scat", "image_thermal", None)):
+            if mode is not None:
+                out, by, wall = _cli(root, env, atm_name, run, f"detector:type={mode}")
+                count(by)
+            else:
+                out = os.path.join(root, "output", run, "output")
+            lum = np.loadtxt(os.path.join(out, "luminosity.dat"), ndmin=2)
+            if not (np.isfinite(lum).all() and lum[0, 1] > 0 and 0 <= lum[0, 2] <= lum[0, 1]):
+                fail(f"luminosity.dat of {run} is not physical: {lum}")
+            say("main-path", f"cli thermal {run}: emitted {lum[0, 1]:.6e} emergent "
+                             f"{lum[0, 2]:.6e} W/micron" + (f"; launches {by}; {wall:.1f} s wall"
+                                                             if mode else ""))
+
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "artes_tpu_torch.probe_splat"],
+                              cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"probe_splat exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        found = re.search(r"CUDA kernel launches: probe_splat=(\d+) probe_splat_baseline=(\d+)",
+                          proc.stdout)
+        if not found:
+            fail(f"probe_splat printed no launch counts:\n{proc.stdout}")
+        launches["probe_splat"], launches["probe_splat_baseline"] = map(int, found.groups())
+        say("main-path", "probe_splat: " + "; ".join(proc.stdout.strip().splitlines())
+            + f"; {time.perf_counter() - t0:.1f} s wall")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f"the main path never launched {missing}: {launches}")
     return launches
 
 
@@ -194,18 +401,31 @@ def main():
     phase_env()
     phase_build()
     rows = phase_kernel_vs_plain()
-    phase_anchor()
+    probe_rows, base_row = phase_probe()
+    phase_anchors()
     launches = phase_main_path()
 
-    flag = rows["flagship"]
+    kernels = []
+    for variant, cell in VARIANT_CELL.items():
+        mine = [r for r in rows.values() if r["variant"] == variant]
+        kernels.append({"name": f"pool_radial.{variant}", "route": "cuda",
+                        "source": POOL_SOURCE, "replaces": POOL_REPLACES,
+                        "launches": launches[variant],
+                        "max_abs_err": max(r["max_abs_err"] for r in mine),
+                        "ms": rows[cell]["ms"], "plain_ms": rows[cell]["plain_ms"]})
+    probe = probe_rows[PROBE_SIZES[0]]
+    kernels.append({"name": "probe_splat", "route": "cuda",
+                    "source": "artes_tpu_torch/csrc/probe_splat.cu",
+                    "replaces": "tools/probe_splat.py:108",
+                    "launches": launches["probe_splat"],
+                    "max_abs_err": max(r["max_abs_err"] for r in probe_rows.values()),
+                    "ms": probe["ms"], "plain_ms": probe["plain_ms"]})
+    kernels.append({"name": "probe_splat_baseline", "route": "cuda",
+                    "source": "artes_tpu_torch/csrc/probe_splat.cu",
+                    "replaces": "tools/probe_splat.py:134",
+                    "launches": launches["probe_splat_baseline"], **base_row})
     print(card_line())
-    print(json.dumps({"kernels": [{
-        "name": "pool_radial", "route": "cuda",
-        "source": "artes_tpu_torch/csrc/pool_radial.cu",
-        "replaces": "artes_tpu/transport/pallas_stream.py:558",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": flag["ms"], "plain_ms": flag["plain_ms"]}]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

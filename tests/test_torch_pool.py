@@ -5,7 +5,8 @@ same (seed, photon id) streams, on the flagship config and the graded nr=39
 grid that bench.py builds.
 
 * float64, 4096 photons: splat counts bit-equal, moments at rtol 1e-10,
-  error tallies and capped counts equal. The jitted JAX kernel evaluates
+  error tallies and capped counts equal (:func:`assert_matches_jax`, which
+  the thermal and imaging tests share). The jitted JAX kernel evaluates
   the azimuth Newton residual of ``sampling.sample_beta`` twice with
   different FMA contractions in one fusion, so for rare photons with
   unpolarized light its bracket test sees a residual of the other sign and
@@ -28,6 +29,7 @@ from artes_tpu.config import ArtesConfig, detector_setup
 from artes_tpu.runner import _kernel_static
 from artes_tpu.transport import kernel as JK
 from artes_tpu.transport.tables import build_tables
+from artes_tpu_torch import cells
 from artes_tpu_torch.cells import CELLS as CONFIGS
 from artes_tpu_torch.cells import spectrum_tables
 from artes_tpu_torch.transport import convert, pool_cuda
@@ -37,62 +39,95 @@ SEED = 7
 JAX_WIDTH = 1024
 
 
-def setup(name, dtype, **cfg_keys):
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module's tests, restored after: the plain
+    version runs many small tensor ops, for which threads cost more than
+    they give (several times the wall time with 8 threads)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def setup(name, dtype, crescent=False, **cfg_keys):
+    """JAX tables and static config of a CONFIGS name or an atmosphere, and
+    their carried-over port twins."""
     atm = CONFIGS[name]() if isinstance(name, str) else name
     cfg = ArtesConfig()
     cfg.mode = "spectrum"
     for k, v in cfg_keys.items():
         setattr(cfg, k, v)
     det = detector_setup(cfg, float(atm.rfront[-1]))
-    static = _kernel_static(cfg, det, atm, False)
+    static = _kernel_static(cfg, det, atm, crescent)
     jt = build_tables(atm, cfg, det, 0, dtype=getattr(jnp, dtype)).tables
     tt = convert.tables_from_jax(jt, dtype=getattr(torch, dtype))
     return jt, static, tt, convert.static_from_jax(static)
 
 
+def _tallies(out):
+    """(detector, [flux_emitted, flux_exit]) of a run_stream result, numpy."""
+    return (np.asarray(out["detector"]),
+            np.array([float(out["flux_emitted"]), float(out["flux_exit"])]))
+
+
 def _close(a, b):
-    return (np.array_equal(a[..., 2], b[..., 2])
-            and np.allclose(a[..., :2], b[..., :2], rtol=1e-10, atol=0.0))
+    return (np.array_equal(a[0][..., 2], b[0][..., 2])
+            and np.allclose(a[0][..., :2], b[0][..., :2], rtol=1e-10, atol=0.0)
+            and np.allclose(a[1], b[1], rtol=1e-10, atol=0.0))
 
 
-def _diverging(jax_det, port_det, lo, n):
+def _diverging(jax_run, port_run, lo, n):
     """Photon ids in [lo, lo+n) whose JAX and port tallies disagree."""
-    if _close(jax_det(lo, n), port_det(lo, n)):
+    if _close(jax_run(lo, n), port_run(lo, n)):
         return []
     if n == 1:
         return [lo]
     h = n // 2
-    return _diverging(jax_det, port_det, lo, h) + _diverging(jax_det, port_det, lo + h, n - h)
+    return _diverging(jax_run, port_run, lo, h) + _diverging(jax_run, port_run, lo + h, n - h)
+
+
+def assert_matches_jax(jt, static, tt, st, n, seed=SEED):
+    """The plain version against JAX ``run_stream`` at float64 on photons 0
+    .. n-1: every per-pixel, per-count-column count equal, moments and
+    fluxes at rtol 1e-10, error and capped tallies equal. At most two
+    photons may disagree with the jitted JAX kernel (its azimuth Newton
+    residual, see the module docstring); each must equal eager JAX."""
+    ref = JK.run_stream(jt, static, n, seed, JAX_WIDTH)
+    got = TK.run_stream(tt, st, n, seed, n)
+    assert int(got["n_error"]) == int(ref["n_error"]) == 0
+    np.testing.assert_array_equal(got["error_codes"].numpy(), np.asarray(ref["error_codes"]))
+    assert int(got["n_alive_at_cap"]) == int(ref["n_alive_at_cap"])
+    assert got["n_emitted"] == int(ref["n_emitted"]) == n
+    assert got["detector"].shape == (static.nx * static.ny, 4, 3)
+
+    def jax_run(lo, k):
+        return _tallies(JK.run_stream(jt, static, k, seed, JAX_WIDTH, 0, lo))
+
+    def port_run(lo, k):
+        return _tallies(TK.run_stream(tt, st, k, seed, k, 0, lo))
+
+    bad = _diverging(jax_run, port_run, 0, n)
+    assert len(bad) <= 2, f"{len(bad)} photons disagree with the jitted JAX kernel: {bad}"
+    for pid in bad:
+        with jax.disable_jit():
+            eager = _tallies(JK.run_stream(jt, static, 1, seed, 128, 0, pid))
+        assert _close(eager, port_run(pid, 1)), f"photon {pid} disagrees with eager JAX"
+    # every other photon: the totals without the replayed ones
+    ref_t, got_t = _tallies(ref), _tallies(got)
+    for pid in bad:
+        ref_t = tuple(r - x for r, x in zip(ref_t, jax_run(pid, 1)))
+        got_t = tuple(g - x for g, x in zip(got_t, port_run(pid, 1)))
+    np.testing.assert_array_equal(got_t[0][..., 2], ref_t[0][..., 2])
+    np.testing.assert_allclose(got_t[0][..., :2], ref_t[0][..., :2], rtol=1e-10, atol=0.0)
+    np.testing.assert_allclose(got_t[1], ref_t[1], rtol=1e-10, atol=0.0)
+    return got
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_plain_pool_matches_jax_f64(name):
     jt, static, tt, st = setup(name, "float64")
-    n = 4096
-    ref = JK.run_stream(jt, static, n, SEED, JAX_WIDTH)
-    got = TK.run_stream(tt, st, n, SEED, n)
-    assert int(got["n_error"]) == int(ref["n_error"]) == 0
-    np.testing.assert_array_equal(got["error_codes"].numpy(), np.asarray(ref["error_codes"]))
-    assert int(got["n_alive_at_cap"]) == int(ref["n_alive_at_cap"])
-    assert got["n_emitted"] == int(ref["n_emitted"]) == n
-
-    def jax_det(lo, k):
-        return np.asarray(JK.run_stream(jt, static, k, SEED, JAX_WIDTH, 0, lo)["detector"])
-
-    def port_det(lo, k):
-        return TK.run_stream(tt, st, k, SEED, k, 0, lo)["detector"].numpy()
-
-    bad = _diverging(jax_det, port_det, 0, n)
-    assert len(bad) <= 2, f"{len(bad)} photons disagree with the jitted JAX kernel: {bad}"
-    for pid in bad:
-        with jax.disable_jit():
-            eager = np.asarray(JK.run_stream(jt, static, 1, SEED, 128, 0, pid)["detector"])
-        assert _close(eager, port_det(pid, 1)), f"photon {pid} disagrees with eager JAX"
-    # every other photon: the totals without the replayed ones
-    ref_det = np.asarray(ref["detector"]) - sum(jax_det(p, 1) for p in bad)
-    got_det = got["detector"].numpy() - sum(port_det(p, 1) for p in bad)
-    np.testing.assert_array_equal(got_det[..., 2], ref_det[..., 2])
-    np.testing.assert_allclose(got_det[..., :2], ref_det[..., :2], rtol=1e-10, atol=0.0)
+    assert_matches_jax(jt, static, tt, st, 4096)
 
 
 # measured on the CPU at 2^14 photons, seed 7: flagship |dN|/N 9.0e-5,
@@ -117,20 +152,24 @@ def test_plain_pool_matches_jax_f32(name):
 def _unsupported():
     atm = presets.rayleigh_single_layer(tau=1.0)
     return {
-        "thermal": (presets.thermal_shell(), dict(photon_source="planet")),
         "surface": (atm, dict(surface_albedo=0.5)),
-        "multi-pixel": (atm, dict(mode="imaging_mono", npix=5)),
         "3-D": (presets.patchy_3d(), {}),
         "flow": (atm, dict(flow_global=True)),
+        "debug-stokes": (atm, dict(debug_stokes=True)),
     }
 
 
 def test_supports():
-    for name in CONFIGS:
-        _, _, tt, st = setup(name, "float32")
-        assert pool_cuda.supports(tt, st)
-        _, _, tt64, st64 = setup(name, "float64")
-        assert not pool_cuda.supports(tt64, st64)       # the kernel runs float32
+    ported = {"thermal": (presets.thermal_shell(), dict(photon_source="planet")),
+              "multi-pixel": (presets.rayleigh_single_layer(tau=1.0),
+                              dict(mode="imaging_mono", npix=5)),
+              "off-axis star": (presets.rayleigh_single_layer(tau=1.0),
+                                dict(stellar_direction=True, theta_star=1.2))}
+    for what, (atm, keys) in list(ported.items()) + [(n, (CONFIGS[n](), {})) for n in CONFIGS]:
+        _, _, tt, st = setup(atm, "float32", **keys)
+        assert pool_cuda.supports(tt, st), what
+        _, _, tt64, st64 = setup(atm, "float64", **keys)
+        assert not pool_cuda.supports(tt64, st64), what      # the kernel runs float32
     for what, (atm, keys) in _unsupported().items():
         _, _, tt, st = setup(atm, "float32", **keys)
         assert not pool_cuda.supports(tt, st), what
@@ -168,9 +207,41 @@ def test_agreement_check_holds_every_tally():
     assert not pool_cuda.agrees(pool_cuda.gaps(capped, out))
 
 
+def test_agreement_check_sees_pixels_and_columns():
+    """The gaps an image and a thermal run add: a transposed image, a birth
+    peel counted in every Stokes row, and the fluxes."""
+    n = 2048
+    out = TK.run_stream(*cells.imaging_tables(5, "cpu"), n, SEED, n)
+    det = out["detector"]
+    transposed = det.reshape(5, 5, 4, 3).transpose(0, 1).reshape(25, 4, 3)
+    g = pool_cuda.gaps(dict(out, detector=transposed), out)
+    assert g["count"] == g["stokes"][0] == 0.0          # the sums cannot see it
+    assert g["pixel_I"] > 0.1 and g["pixel_N"] > 0.1
+    assert not pool_cuda.agrees(g)
+
+    tables, static = cells.run_tables(cells.thermal_scattering_shell(), "cpu",
+                                      photon_source="planet")
+    th = TK.run_stream(tables, static, n, SEED, n)
+    all_rows = th["detector"].clone()
+    all_rows[:, 1:, 2] = all_rows[:, :1, 2]               # births in every row
+    g = pool_cuda.gaps(dict(th, detector=all_rows), th)
+    assert g["count"] == 0.0 and g["count_quv"] > 0.1 and not pool_cuda.agrees(g)
+    assert pool_cuda.agrees(pool_cuda.gaps(th, th))
+    g = pool_cuda.gaps(dict(th, flux_exit=th["flux_exit"] * 1.01), th)
+    assert g["flux_exit"] == pytest.approx(0.01) and not pool_cuda.agrees(g)
+
+    # a pure absorber has no Q, U, V peels: any there is an infinite gap
+    absorber = TK.run_stream(*cells.run_tables(cells.thermal_bench(), "cpu",
+                                               photon_source="planet"), 256, SEED, 256)
+    all_rows = absorber["detector"].clone()
+    all_rows[:, 1:, 2] = all_rows[:, :1, 2]
+    g = pool_cuda.gaps(dict(absorber, detector=all_rows), absorber)
+    assert g["count_quv"] == float("inf") and not pool_cuda.agrees(g)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     _, _, tt, st = setup("flagship", "float32")
-    before = pool_cuda.LAUNCHES
+    before = dict(pool_cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA device"):
         pool_cuda.run_stream_cuda(tt, st, 1024, SEED)
-    assert pool_cuda.LAUNCHES == before == 0
+    assert pool_cuda.LAUNCHES == before == dict.fromkeys(pool_cuda.VARIANTS, 0)

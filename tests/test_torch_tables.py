@@ -70,6 +70,31 @@ def test_build_tables_match(name, dtype, oblateness):
     assert_same(grid_ref, grid_got, name + ".grid")
 
 
+@pytest.mark.parametrize("thermal_weight", [True, False])
+@pytest.mark.parametrize("oblateness", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_thermal_build_tables_match(thermal_weight, oblateness, dtype):
+    """Thermal sources (emissivity CDF, cell weights, cell luminosity) with
+    the biased-emission and off-axis-star fields set."""
+    atm = presets.thermal_shell(tau_abs=0.8, nr=4)
+    cfg = _cfg(oblateness)
+    cfg.photon_source = "planet"
+    cfg.thermal_weight = thermal_weight
+    cfg.photon_bias = 0.6
+    cfg.stellar_direction = True
+    cfg.theta_star, cfg.phi_star = 1.2, 0.4
+    det = detector_setup(cfg, float(atm.rfront[-1]))
+    ref = JT.build_tables(atm, cfg, det, 0, dtype=getattr(jnp, dtype))
+    got = TT.build_tables(atm, cfg, det, 0, dtype=getattr(torch, dtype))
+    assert (got.r_scale, got.cell_depth, got.emissivity_total) == \
+        (ref.r_scale, ref.cell_depth, ref.emissivity_total)
+    assert got.emissivity_total > 0.0
+    np.testing.assert_array_equal(got.cell_luminosity, ref.cell_luminosity)
+    assert_same(ref.tables, got.tables, "thermal")
+    assert_same(ref.tables, convert.tables_from_jax(ref.tables, dtype=getattr(torch, dtype)),
+                "carried")
+
+
 @pytest.mark.parametrize("name", sorted(ATMOSPHERES))
 def test_cell_depth_match(name):
     atm = ATMOSPHERES[name]()
@@ -95,12 +120,20 @@ def test_tables_from_jax_round_trip(dtype):
 
 
 def test_thermal_tables_not_ported():
-    atm = presets.thermal_shell()
-    cfg = _cfg()
-    cfg.photon_source = "planet"
-    det = detector_setup(cfg, float(atm.rfront[-1]))
-    with pytest.raises(NotImplementedError, match="thermal"):
-        TT.build_tables(atm, cfg, det, 0)
+    """Thermal tables are ported (test_build_tables_match); what the tables
+    still cannot run is a 3-D grid, a Lambert surface, flow or
+    --debug-stokes, refused on every device by ``check_slice``."""
+    from artes_tpu_torch.transport import kernel as TK
+
+    for atm, keys in ((presets.patchy_3d(), {}), (flagship(), {"surface_albedo": 0.5}),
+                      (flagship(), {"flow_global": True}), (flagship(), {"debug_stokes": True})):
+        cfg = _cfg()
+        for k, v in keys.items():
+            setattr(cfg, k, v)
+        det = detector_setup(cfg, float(atm.rfront[-1]))
+        tables = TT.build_tables(atm, cfg, det, 0).tables
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TK.check_slice(tables, TRUN._kernel_static(cfg, det, atm, False))
 
 
 def test_flat_cell_and_closed_form_match():
