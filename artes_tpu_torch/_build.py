@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``build/artes_tpu_torch/lib<name>-<hash>.so`` beside the package (the build
-directory is ignored by git); the hash covers the source and the flags, so
-an edited kernel rebuilds and an unchanged one loads from disk. The compiler
+directory is ignored by git); the hash covers the source, the ``csrc``
+headers it includes and the flags, so an edited kernel or header rebuilds
+and an unchanged one loads from disk. The compiler
 is ``nvcc`` on ``PATH``, else ``$CUDA_HOME/bin/nvcc`` (PyTorch's lookup of
 the toolkit). A missing compiler or a failed build raises with nvcc's
 output: there is no fallback.
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -41,10 +43,25 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(filename: str, seen: set[str]) -> bytes:
+    """``csrc/<filename>`` followed by the ``csrc`` headers it includes with
+    quotes, each once, recursively."""
+    if filename in seen:
+        return b""
+    seen.add(filename)
+    with open(os.path.join(CSRC_DIR, filename), "rb") as fh:
+        text = fh.read()
+    return text + b"".join(_source_bytes(inc.decode(), seen) for inc in _INCLUDE.findall(text))
+
+
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (content-addressed)."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where ``csrc/<name>.cu`` builds to (addressed by the content of the
+    source, its headers and the flags)."""
+    digest = hashlib.sha256(_source_bytes(name + ".cu", set())
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 

@@ -16,6 +16,16 @@ Atmospheres:
   scattering at every phase angle) and :func:`thermal_shell_oracle`
   (L / (4 pi d^2)).
 
+* :func:`grid3d_2496`: the 39 x 8 x 8 patchy cloud deck of the bench
+  (bench.py:161-175), BASELINE #4's class of grid; :func:`patchy3d_small`
+  the 2 x 3 x 4 grid of tests/test_pallas_stream.py:197;
+  :func:`grid3d_thermal_atm` a self-luminous, half-scattering 3-D grid with
+  a patchy deck, whose theta faces include the equatorial plane and are not
+  mirrored about it;
+  :func:`uniform_3d` the flagship's opacity on a 3-D grid (every cell the
+  same), which must give the flagship's spectrum; :func:`blended_5184` a
+  grid of 5,184 cells whose every cell holds its own blend of two species.
+
 Configurations, as ``(TransportTables, KernelStatic)``:
 
 * :func:`run_tables`: any atmosphere under ``ArtesConfig`` keys;
@@ -39,9 +49,9 @@ import pathlib
 import numpy as np
 import torch
 
-from artes_tpu import presets
-from artes_tpu.constants import R_JUP
-from artes_tpu.opacity import isotropic, rayleigh
+from artes_tpu_torch import presets
+from artes_tpu_torch.constants import R_JUP
+from artes_tpu_torch.opacity import isotropic, rayleigh
 
 QUICKSTART_OPACITY = "opacity01: 1, 5e-4, 0, nr, 0, ntheta, 0, nphi"
 
@@ -68,6 +78,79 @@ def thermal_scattering_shell():
     density = (1.0 / 500e3) / ((tab.absorption[0] + tab.scattering[0]) / 10.0)
     return presets._from_table(tab, R_JUP + np.linspace(0.0, 500e3, 4), (0.0, 180.0), (),
                                density, temperature=900.0)
+
+
+def grid3d_2496():
+    theta = tuple(np.linspace(0.0, 180.0, 9))
+    phi = tuple(np.linspace(0.0, 360.0, 9)[:-1])
+    atm = presets.patchy_3d(tau_clear=0.2, tau_cloud=3.0, nr=39, theta_deg=theta, phi_deg=phi)
+    deck = np.zeros(39, bool)
+    deck[20:28] = True          # the patchy deck; a clear column above and below
+    clear = atm.k_sca.min(axis=(1, 2), keepdims=True)
+    atm.k_sca = np.where(deck[:, None, None, None], atm.k_sca, clear)
+    atm.refresh_derived()
+    return atm
+
+
+def patchy3d_small():
+    return presets.patchy_3d(0.5, 6.0)
+
+
+def _patch(atm, scale, shells):
+    """Scale the opacity of every other (theta, phi) zone of the radial
+    ``shells`` by ``scale``."""
+    zone = (np.add.outer(np.arange(atm.ntheta), np.arange(atm.nphi)) % 2 == 0)
+    factor = np.ones(atm.k_sca.shape)
+    factor[shells] = np.where(zone, scale, 1.0)[None, :, :, None]
+    atm.k_sca = atm.k_sca * factor
+    atm.k_abs = atm.k_abs * factor
+    atm.refresh_derived()
+    return atm
+
+
+def grid3d_thermal_atm():
+    """8 x 4 x 6 half-scattering cells at 900 K: a patchy deck in shells 2-5
+    under and over plain shells, so the opacity jumps at radial, theta and
+    phi faces alike; theta faces at 40, 90 (the plane) and 150 degrees, not
+    mirrored about the equator."""
+    tab = isotropic.generate([10.0], absorption=0.5, scattering=0.5)
+    density = (1.0 / 500e3) / ((tab.absorption[0] + tab.scattering[0]) / 10.0)
+    atm = presets._from_table(tab, R_JUP + np.linspace(0.0, 500e3, 9),
+                              (0.0, 40.0, 90.0, 150.0, 180.0),
+                              tuple(np.linspace(0.0, 360.0, 7)[:-1]), density, temperature=900.0)
+    return _patch(atm, 4.0, slice(2, 6))
+
+
+def uniform_3d():
+    return presets.rayleigh_single_layer(tau=5.0, theta_deg=tuple(np.linspace(0.0, 180.0, 7)),
+                                         phi_deg=tuple(np.linspace(0.0, 360.0, 6)[:-1]))
+
+
+def blended_5184(seed=11):
+    """12 x 18 x 24 cells, each its own blend of Rayleigh and forward-peaked
+    Henyey-Greenstein scattering (no two cells share a matrix) at its own
+    opacity."""
+    from artes_tpu_torch.opacity import henyey_greenstein
+
+    rs = np.random.default_rng(seed)
+    ray = rayleigh.generate([0.7])
+    hg = henyey_greenstein.generate([0.7], absorption=0.05, scattering=1.0, g1=0.7,
+                                    p_linear=0.3)
+    atm = presets._from_table(ray, R_JUP + np.linspace(0.0, 300e3, 13),
+                              tuple(np.linspace(0.0, 180.0, 19)),
+                              tuple(np.linspace(0.0, 360.0, 25)[:-1]), density_si=1.0)
+    shape = atm.k_sca.shape
+    mix = rs.uniform(0.0, 1.0, shape)
+    tau_cell = rs.uniform(0.02, 0.6, shape)          # optical depth across one shell
+    k_ext = tau_cell / 25e3
+    ssa = 1.0 - 0.05 * (1.0 - mix)
+    atm.k_sca = k_ext * ssa
+    atm.k_abs = k_ext * (1.0 - ssa)
+    m_ray = ray.scatter.transpose(2, 0, 1)[0]
+    m_hg = hg.scatter.transpose(2, 0, 1)[0]
+    atm.scatter = mix[..., None, None] * m_ray + (1.0 - mix[..., None, None]) * m_hg
+    atm.refresh_derived()
+    return atm
 
 
 # a 70 km core under a 70000 km shell: nothing occults the shell
@@ -106,7 +189,7 @@ def thin_shell_phase_oracle(atm, phase_deg):
 def stellar_norm(cfg, atm, wl_index=0):
     """Stellar flux normalisation of a planet of outer radius rfront[-1]
     (ARTES.f90:3984)."""
-    from artes_tpu.constants import PI, planck_lambda
+    from artes_tpu_torch.constants import PI, planck_lambda
 
     return (PI * planck_lambda(cfg.t_star, atm.wavelengths[wl_index]) * atm.rfront[-1] ** 2
             * cfg.r_star ** 2 / (cfg.orbit ** 2 * cfg.distance_planet ** 2))
@@ -115,7 +198,7 @@ def stellar_norm(cfg, atm, wl_index=0):
 def thermal_shell_oracle(atm, cfg, wl_index=0):
     """Flux of a transparent isothermal shell at the observer: V kappa B /
     d^2, i.e. L / (4 pi d^2) with L = 4 pi V kappa B."""
-    from artes_tpu.constants import planck_lambda
+    from artes_tpu_torch.constants import planck_lambda
 
     b = planck_lambda(float(atm.temperature[0, 0, 0]), atm.wavelengths[wl_index])
     return atm.cell_volume().sum() * atm.k_abs[0, 0, 0, wl_index] * b / cfg.distance_planet ** 2
@@ -127,7 +210,7 @@ CELLS = {"flagship": flagship, "hydrostatic39": hydrostatic39}
 def run_tables(atm, device, dtype=torch.float32, crescent=False, mode="spectrum", **keys):
     """``(TransportTables, KernelStatic)`` of ``atm`` under a default
     ``ArtesConfig`` in ``mode`` with the attributes ``keys`` set."""
-    from artes_tpu.config import ArtesConfig, detector_setup
+    from artes_tpu_torch.config import ArtesConfig, detector_setup
     from artes_tpu_torch.runner import _kernel_static
     from artes_tpu_torch.transport.tables import build_tables
 
@@ -172,6 +255,13 @@ KERNEL_CELLS = {
     "thermal_imaging25": lambda dev: imaging_tables(25, dev, atm=thermal_scattering_shell(),
                                                     photon_source="planet"),
     "crescent_offaxis": crescent_offaxis,
+    "grid3d_2496": lambda dev: spectrum_tables(grid3d_2496(), dev),
+    "grid3d_imaging25": lambda dev: imaging_tables(25, dev, atm=grid3d_2496()),
+    "grid3d_thermal": lambda dev: run_tables(grid3d_thermal_atm(), dev, photon_source="planet"),
+    "grid3d_thermal_imaging25": lambda dev: imaging_tables(25, dev, atm=grid3d_thermal_atm(),
+                                                           photon_source="planet"),
+    "patchy3d_small": lambda dev: spectrum_tables(patchy3d_small(), dev),
+    "blended_5184": lambda dev: spectrum_tables(blended_5184(), dev),
 }
 
 
@@ -189,8 +279,8 @@ def write_input(root, name="demo", wavelengths=(0.7,), radial="100",
                 opacity=QUICKSTART_OPACITY, fstop=None) -> pathlib.Path:
     """Write ``root/input/<name>/`` (Rayleigh opacity FITS, atmosphere.in,
     artes.in) and build its ``atmosphere.fits``; returns the directory."""
-    from artes_tpu.atmosphere import build_and_write
-    from artes_tpu.opacity.base import write_opacity_fits
+    from artes_tpu_torch.atmosphere import build_and_write
+    from artes_tpu_torch.opacity.base import write_opacity_fits
 
     d = pathlib.Path(root, "input", name)
     os.makedirs(d / "opacity")
@@ -206,7 +296,7 @@ def write_input(root, name="demo", wavelengths=(0.7,), radial="100",
 def write_artifact_input(root, name, atm, keys=()) -> pathlib.Path:
     """``root/input/<name>/`` holding ``atm`` as ``atmosphere.fits`` and an
     :func:`write_artes_in` file with ``keys``; returns the directory."""
-    from artes_tpu.atmosphere import write_artifact
+    from artes_tpu_torch.atmosphere import write_artifact
 
     d = pathlib.Path(root, "input", name)
     os.makedirs(d)

@@ -9,10 +9,13 @@ Usage (the contract of ``artes_tpu.cli``)::
 Reads ``input/<atmosphere>/artes.in`` and ``atmosphere.fits``, runs the
 detector mode it names (spectrum, imaging_mono, imaging_broad or phase) and
 writes ``output/<run>/{input,output,plot}`` with a snapshot of the inputs.
-``--device cuda`` (the default) runs the CUDA kernel and fails when there
-is no card; ``--device cpu`` runs the plain PyTorch version, the only one
-that runs ``--f64``. Configurations outside the ported slices raise
-``NotImplementedError``.
+``--device cuda`` (the default) runs the CUDA kernel of the grid (radial or
+3-D) and fails when there is no card; ``--device cpu`` runs the plain
+PyTorch version, the only one that runs ``--f64``, ``--debug-stokes`` and
+``photon:scattering=off``. Abandoned photons (3-D geometry errors, Stokes
+anomalies) are tallied per code in ``error.log`` with the state of the first
+and last ones in photon-id order. Configurations outside the ported slices
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import shutil
 import sys
 
+import numpy as np
 import torch
 
 
@@ -30,7 +34,7 @@ def build_main(argv=None):
     p.add_argument("atmosphere", help="name under input/")
     p.add_argument("--root", default=".")
     args = p.parse_args(argv)
-    from artes_tpu.atmosphere import build_and_write
+    from artes_tpu_torch.atmosphere import build_and_write
 
     atm = build_and_write(os.path.join(args.root, "input", args.atmosphere))
     print(f"atmosphere.fits written: nr={atm.nr} ntheta={atm.ntheta} "
@@ -57,11 +61,13 @@ def run_main(argv=None):
     p.add_argument("--progress", action="store_true",
                    help="per-chunk progress ticker on stderr")
     p.add_argument("--debug-stokes", action="store_true",
-                   help="Stokes-anomaly check after every scatter (not ported yet: raises)")
+                   help="Stokes-anomaly check I^2 >= Q^2+U^2+V^2 after every scatter "
+                        "(error 050); anomalous photons are abandoned and tallied "
+                        "(plain version: --device cpu)")
     args = p.parse_args(argv)
 
-    from artes_tpu.atmosphere import load_artifact
-    from artes_tpu.config import detector_setup, load_config, snapshot
+    from artes_tpu_torch.atmosphere import load_artifact
+    from artes_tpu_torch.config import detector_setup, load_config, snapshot
     from artes_tpu_torch import output as out
     from artes_tpu_torch import runner
     from artes_tpu_torch.transport import pool_cuda
@@ -148,12 +154,28 @@ def run_main(argv=None):
 
     # n_capped sums over every run (wavelength / phase angle), so the
     # denominator is the total emitted count
+    n_error = sum(res.n_error for res in runs)
+    error_codes = sum((res.error_codes for res in runs), np.zeros(4, np.int64))
+    if n_error or error_codes.any():
+        # per-code tallies mirroring the reference's numbered error log
+        # (ARTES.f90:3397-3416, :4218-4228)
+        entries = [(code, int(cnt)) for code, cnt in zip(
+            ("031/geometry no-candidate", "032/runaway traversal",
+             "034/degenerate surface bounce", "05x/peel walk"), error_codes) if cnt]
+        n_anomaly = sum(res.n_stokes_anomaly for res in runs)
+        if n_anomaly:
+            entries.append(("050/stokes anomaly", n_anomaly))
+        records = []
+        for res in runs:
+            if len(records) < 16:
+                records.extend(list(res.error_records))
+        out.write_error_log(dirs, entries, records[:16])
     report.truncation(sum(res.n_alive_at_cap for res in runs),
                       packages * max(len(runs), 1), cfg.max_scatter)
     if args.device == "cuda":
-        report.emit(f"CUDA kernel launches: pool_radial={sum(pool_cuda.LAUNCHES.values())} ("
+        report.emit(f"CUDA kernel launches: pool={sum(pool_cuda.LAUNCHES.values())} ("
                     + " ".join(f"{k}={v}" for k, v in pool_cuda.LAUNCHES.items()) + ")")
-    report.stage4()
+    report.stage4(n_error)
     out.send_completion_email(cfg, args.output)
     return 0
 

@@ -1,0 +1,709 @@
+// Photon transport on 3-D (r, theta, phi) grids: one hand-written CUDA kernel
+// for Hopper.
+//
+// Replaces the TPU kernel artes_tpu/transport/pallas_stream.py::_build_kernel
+// (the fused regeneration-pool Pallas kernel) in its 3-D, surfaceless,
+// flow-free specialisation: the jump environment (:683-723), cell_face
+// (:751-921), the marching loop behind the jump-walk exit precheck
+// (:934-1067), the jump tau walk of peels and prewalk (jumps.tau_walk_jumps),
+// locate_tp (:1423-1450), the per-code error tallies (:1819-1828) and the
+// per-lane forensics (:1830-1872). Its plain PyTorch version is
+// artes_tpu_torch/transport/kernel.py::run_stream on a grid with ntheta > 1
+// or nphi > 1.
+//
+// Four compile-time instantiations, pool_grid3d_kernel<THERMAL, IMAGE>, as
+// pool_radial.cu has, sharing its emission, sampling, peel and booking code
+// (pool_common.cuh).
+//
+// Design. One thread runs whole photons, grid-stride over the photon ids, on
+// the per-photon draw-site schedule of the JAX pool:
+//   emission: sites 0, 1 (stellar) or 0-5 (thermal);
+//   prewalk fused with the forced first interaction: one site;
+//   every scattering round: 5 sites (roulette, azimuth x2, zenith, tau);
+//   every pass of a march's crossing loop: 3 sites, reserved for the
+//     in-march Lambert draws whether or not a surface consumes them.
+// Peels, the prewalk and the exit precheck are jump walks: the closed-form
+// radial chords carry the baseline opacity kbar[shell], and every face the
+// ray crosses (nr-1 radial, NT-1 theta, NP phi faces, at run-time sizes)
+// adds its opacity jump from the per-face difference tables dr/dtt/dpp. No
+// array is sized per grid: the phi wedge of a crossing is counted by
+// re-evaluating the NP half-plane crossings. A photon whose sampled optical
+// depth exceeds the walk's exact total leaves without marching; the others
+// march cell_face cell by cell, at most max_crossings passes (error 032
+// beyond; 031 when no face is found, 034 at a degenerate floor bounce).
+// Tables are indexed per cell in global memory: no mixture dedup, no cell
+// cap.
+//
+// Errors. Per-code counts are per-thread counters reduced like the tallies.
+// Each erroring thread also appends one 16-float record (code, photon id as
+// its bit pattern, position, direction, cell, face, Stokes I, scatterings,
+// site 0: a transport march) with one atomicAdd on a counter into a bounded
+// buffer: a full buffer drops rows, never counts. The wrapper orders the rows
+// by photon id.
+//
+// What bounds it on an H100: arithmetic, divergence and table latency, not
+// memory bandwidth. Marches differ by tens of crossings between the photons
+// of a warp; a jump walk costs (2 nr + 2 NT + NP) crossings times NP plane
+// evaluations; the per-cell scatter tables (36 MB at 2,496 cells) are
+// gathered at random from L2. This version is the simple one.
+
+#include "pool_common.cuh"
+
+namespace {
+
+constexpr int N_OUT_I3 = 8;     // N_OUT_I + photons abandoned, codes 031, 032, 034
+constexpr int REC_W = 16;
+enum { M_ERROR = 3 };
+enum { C_ERR = 4, C_E031 = 5, C_E032 = 6, C_E034 = 7 };
+
+struct Grid3 {
+  const float* __restrict__ theta_tan;    // (nt+1,)
+  const float* __restrict__ theta_cos;    // (nt+1,)
+  const int* __restrict__ theta_flags;    // (nt+1,) bit 0 cone, bit 1 theta < pi/2
+  const float* __restrict__ phi_sin;      // (np,)
+  const float* __restrict__ phi_cos;      // (np,)
+  const float* __restrict__ phifront;     // (np,) face azimuths in [0, 2 pi)
+  const float* __restrict__ kbar;         // (nr,) baseline opacity
+  const float* __restrict__ dk;           // (ncell,) opacity - kbar
+  const float* __restrict__ dr;           // (nr-1, nt*np)
+  const float* __restrict__ dtt;          // (nt-1, nr*np)
+  const float* __restrict__ dpp;          // (np, nr*nt)
+  const float* __restrict__ rf2;          // (nr-1,) squared interior face radii
+  float* __restrict__ rec;                // (rec_cap, 16) error records
+  unsigned int* __restrict__ rec_count;
+  unsigned int rec_cap;
+  int nt, np, cell_depth, max_crossings;
+  float same_eps, sel2, boundary_tol;
+};
+
+// ----------------------------------------------------------- cell_face ----
+
+// stable quadratic roots, q-form (geometry._quadratic); absent roots are 0
+__device__ __forceinline__ void quadratic(float qa, float qb, float qc, float& s1, float& s2) {
+  const float disc = qb * qb - 4.0f * qa * qc;
+  const bool ok = disc >= 0.0f;
+  const float sd = sqrtf(ok ? disc : 0.0f);
+  const float q = qb == 0.0f ? -0.5f * sd : -0.5f * (qb + copysignf(sd, qb));
+  // the reference's 1e-100 floors are 0 in float32
+  s1 = (ok && fabsf(qa) > 0.0f) ? q / qa : 0.0f;
+  s2 = (ok && fabsf(q) > 0.0f) ? qc / q : 0.0f;
+}
+
+// the smallest root above eps, else 0 (geometry._pick_root)
+__device__ __forceinline__ float pick_root(float s1, float s2, float eps) {
+  const bool v1 = s1 > eps && s1 < BIG, v2 = s2 > eps && s2 < BIG;
+  return (v1 && v2) ? fminf(s1, s2) : (v1 ? s1 : (v2 ? s2 : 0.0f));
+}
+
+__device__ __forceinline__ float sphere_distance(const Ray& r, float r_face, float eps) {
+  float s1, s2;
+  quadratic(r.A, 2.0f * r.Bq, r.Cq - r_face * r_face, s1, s2);
+  return pick_root(s1, s2, eps);
+}
+
+// distance to a theta face: a cone with wrong-nappe rejection, or the z = 0
+// plane crossed in the direction `up` (geometry._cone_distance and its use)
+__device__ float theta_distance(const Scal& S, const float* p, const float* d, float tan_t,
+                                int flags, float eps, bool up) {
+  const float nz = d[2], z = p[2];
+  if (!(flags & 1)) {
+    const float s_plane = -z / (nz == 0.0f ? 1.0f : nz);
+    const bool moving = up ? nz > S.pos_eps : nz < -S.pos_eps;
+    return (s_plane > 0.0f && moving) ? s_plane : 0.0f;
+  }
+  const bool above = (flags & 2) != 0;
+  const float a2 = S.ob[0] * S.ob[0], b2 = S.ob[1] * S.ob[1], c2 = S.ob[2] * S.ob[2];
+  const float t2 = tan_t * tan_t;
+  const float qa = a2 * d[0] * d[0] + b2 * d[1] * d[1] - c2 * nz * nz * t2;
+  const float qb = 2.0f * (a2 * p[0] * d[0] + b2 * p[1] * d[1] - c2 * z * nz * t2);
+  const float qc = a2 * p[0] * p[0] + b2 * p[1] * p[1] - c2 * z * z * t2;
+  float s[2];
+  quadratic(qa, qb, qc, s[0], s[1]);
+  for (int i = 0; i < 2; ++i) {
+    const float z_test = z + s[i] * nz;
+    const bool wrong = (z_test > 0.0f && !above) || (z_test < 0.0f && above);
+    if (s[i] > S.pos_eps && wrong) s[i] = 0.0f;
+  }
+  return pick_root(s[0], s[1], eps);
+}
+
+// distance to a phi half-plane (geometry._phi_plane_distance)
+__device__ __forceinline__ float phi_distance(const Scal& S, const float* p, const float* d,
+                                              float sin_p, float cos_p, float eps) {
+  const float denom = S.ob[1] * d[1] * cos_p - S.ob[0] * d[0] * sin_p;
+  const float s = (S.ob[0] * p[0] * sin_p - S.ob[1] * p[1] * cos_p)
+      / (denom == 0.0f ? 1.0f : denom);
+  return (fabsf(denom) > 0.0f && s > eps && s < BIG) ? s : 0.0f;
+}
+
+struct Step {
+  float dist;
+  int axis, idx;          // next face
+  int cell[3];            // next cell
+  bool grid_exit, nocand, degen;
+};
+
+// one traversal step (geometry.cell_face): faces are (axis, index) with axis
+// 0 none, 1 radial, 2 theta, 3 phi
+__device__ void cell_face(const Tables& T, const Grid3& G, const Scal& S, const float* p,
+                          const float* d, const int* cell, const int* face, Step& out) {
+  const int cr = cell[0], ct = cell[1], cp = cell[2];
+  const int axis = face[0], fidx = face[1];
+  const bool cur_r = axis == 1, cur_t = axis == 2, cur_p = axis == 3;
+  const Ray ray = make_ray(S, p, d);
+  float dist[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};   // r, theta, phi in; then out
+
+  // radial: the inner sphere is skipped right after an outward crossing of
+  // it; the outer one takes the looser threshold after an inward crossing
+  if (!(cur_r && cr == fidx)) dist[0] = sphere_distance(ray, __ldg(T.rfront + cr), S.pos_eps);
+  dist[3] = sphere_distance(ray, __ldg(T.rfront + cr + 1),
+                            (cur_r && cr == fidx - 1) ? G.same_eps : S.pos_eps);
+
+  if (G.nt > 1) {
+    const int fl_in = __ldg(G.theta_flags + ct), fl_out = __ldg(G.theta_flags + ct + 1);
+    const bool t_in_same = cur_t && ct == fidx && !(fl_in & 2);
+    if (ct > 0 && (!cur_t || ct == fidx - 1 || t_in_same))
+      dist[1] = theta_distance(S, p, d, __ldg(G.theta_tan + ct), fl_in,
+                               t_in_same ? G.same_eps : S.pos_eps, true);
+    const bool t_out_same = cur_t && ct == fidx - 1 && (fl_out & 2);
+    if (ct + 1 < G.nt && (!cur_t || ct == fidx || t_out_same))
+      dist[4] = theta_distance(S, p, d, __ldg(G.theta_tan + ct + 1), fl_out,
+                               t_out_same ? G.same_eps : S.pos_eps, false);
+  }
+
+  int p_outer = 0;
+  if (G.np > 1) {
+    p_outer = cp + 1 == G.np ? 0 : cp + 1;
+    const bool p_inward = cur_p && (cp == fidx - 1 || (cp == G.np - 1 && fidx == 0));
+    const bool p_outward = cur_p && cp == fidx && !p_inward;
+    if (!cur_p || p_inward)
+      dist[2] = phi_distance(S, p, d, __ldg(G.phi_sin + cp), __ldg(G.phi_cos + cp), S.pos_eps);
+    if (!cur_p || p_outward)
+      dist[5] = phi_distance(S, p, d, __ldg(G.phi_sin + p_outer), __ldg(G.phi_cos + p_outer),
+                             S.pos_eps);
+  }
+
+  // two-tier selection, candidates in the reference's scan order
+  int best = 0;
+  float dmin = BIG;
+  for (int tier = 0; tier < 2 && dmin >= BIG; ++tier) {
+    const float tier_eps = tier == 0 ? S.sel1 : G.sel2;
+    best = 0;
+    for (int i = 0; i < 6; ++i) {
+      const float v = dist[i] > tier_eps ? dist[i] : BIG;
+      if (v < dmin) { dmin = v; best = i; }
+    }
+  }
+  const bool no_candidate = dmin >= BIG;
+  out.dist = no_candidate ? 0.0f : dmin;
+
+  // no-candidate rescue by position: on or over the outer face moving
+  // outward is a grid exit, on or under the floor moving inward a floor hit
+  bool on_outer = false, on_floor = false;
+  if (no_candidate) {
+    const float r_outer = __ldg(T.rfront + T.nr) * (1.0f - G.boundary_tol);
+    const float r_floor = __ldg(T.rfront + G.cell_depth) * (1.0f + G.boundary_tol);
+    on_outer = ray.Cq >= r_outer * r_outer && ray.Bq > 0.0f;
+    on_floor = !on_outer && ray.Cq <= r_floor * r_floor && ray.Bq < 0.0f && cr == G.cell_depth;
+  }
+  const bool rescued = on_outer || on_floor;
+  out.nocand = no_candidate && !rescued;
+
+  const int faces[6] = {cr, ct, cp, cr + 1, ct + 1, p_outer};
+  out.axis = rescued ? 1 : best % 3 + 1;
+  out.idx = on_outer ? T.nr : (on_floor ? G.cell_depth : faces[best]);
+  const bool outward = rescued ? on_outer : best >= 3;
+  out.cell[0] = out.axis == 1 ? (outward ? cr + 1 : cr - 1) : cr;
+  out.cell[1] = out.axis == 2 ? (outward ? ct + 1 : ct - 1) : ct;
+  int cp_next = outward ? cp + 1 : cp - 1;
+  cp_next = cp_next < 0 ? G.np - 1 : (cp_next >= G.np ? 0 : cp_next);
+  out.cell[2] = out.axis == 3 ? cp_next : cp;
+  out.grid_exit = out.axis == 1 && out.idx == T.nr;
+  out.degen = cur_r && fidx == G.cell_depth && out.axis == 1 && out.idx == G.cell_depth;
+}
+
+// theta band of cos(theta): interior faces whose cosine lies above it
+__device__ __forceinline__ int ct_at(const Grid3& G, float cos_t) {
+  int c = 0;
+  for (int j = 1; j < G.nt; ++j) c += cos_t < __ldg(G.theta_cos + j);
+  return c;
+}
+
+// (theta, phi) cell of a point (geometry.locate_cell; arctan2 phi binning)
+__device__ void locate_tp(const Grid3& G, float x, float y, float z, float r, int& ct, int& cp) {
+  ct = 0;
+  cp = 0;
+  if (G.nt > 1) {
+    // the reference's 1e-300 floor on r is 0 in float32
+    const float theta = acosf(fminf(fmaxf(z / fmaxf(r, 0.0f), -1.0f), 1.0f));
+    ct = ct_at(G, cosf(theta));
+  }
+  if (G.np > 1) {
+    float phi = atan2f(y, x);
+    if (phi < 0.0f) phi += TWO_PI_F;
+    for (int j = 1; j < G.np; ++j) cp += phi >= __ldg(G.phifront + j);
+    cp = min(cp, G.np - 1);
+  }
+}
+
+// re-locate a photon whose radius left its tracked shell by more than sel1:
+// all three indices from the position (geometry.heal_cell)
+__device__ void heal_cell(const Tables& T, const Grid3& G, const Scal& S, const float* p,
+                          int* cell) {
+  const float x = p[0] * S.ob[0], y = p[1] * S.ob[1], z = p[2] * S.ob[2];
+  const float rho = sqrtf(x * x + y * y + z * z);
+  const float r_lo = __ldg(T.rfront + min(max(cell[0], 0), T.nr - 1));
+  const float r_hi = __ldg(T.rfront + min(max(cell[0] + 1, 0), T.nr));
+  if (!(rho < r_lo - S.sel1 || rho > r_hi + S.sel1)) return;
+  int lo = 0, hi = T.nr + 1;            // count of faces with rfront <= rho
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(T.rfront + mid) <= rho) lo = mid + 1; else hi = mid;
+  }
+  cell[0] = min(max(lo - 1, 0), T.nr - 1);
+  locate_tp(G, x, y, z, rho, cell[1], cell[2]);
+}
+
+// ----------------------------------------------------------- jump walk ----
+
+// both roots of A s^2 + 2 Bh s + C = 0 (jumps._stable_roots)
+__device__ __forceinline__ bool stable_roots(float A, float Bh, float C, float& lo, float& hi) {
+  const float lin_eps = 1.0e-30f;
+  const float disc = Bh * Bh - A * C;
+  const bool ok = disc > 0.0f;
+  const float q = -(Bh + (Bh >= 0.0f ? 1.0f : -1.0f) * sqrtf(ok ? disc : 0.0f));
+  const bool a_small = fabsf(A) < lin_eps;
+  const float r1 = a_small ? BIG : q / A;
+  const float r2 = C / (q == 0.0f ? 1.0f : q);
+  const bool lin_ok = a_small && fabsf(Bh) >= lin_eps;
+  lo = lin_ok ? -C / (2.0f * Bh) : fminf(r1, r2);
+  hi = lin_ok ? BIG : fmaxf(r1, r2);
+  return ok || lin_ok;
+}
+
+// a ray for the jump walk: the sphere quadratic and what the crossings need
+struct JumpRay {
+  const float* p;
+  const float* d;
+  Ray r;
+  float ax, by, sq_c, s_end;
+  int cp0;
+  bool lz_pos;
+};
+
+// parameter of the crossing of phi half-plane j, BIG when there is none
+__device__ __forceinline__ float phi_crossing(const Grid3& G, const JumpRay& J, int j) {
+  const float sin_p = __ldg(G.phi_sin + j), cos_p = __ldg(G.phi_cos + j);
+  const float denom = J.by * J.d[1] * cos_p - J.ax * J.d[0] * sin_p;
+  const float s = (J.ax * J.p[0] * sin_p - J.by * J.p[1] * cos_p) / (denom == 0.0f ? 1.0f : denom);
+  const float xs = J.ax * (J.p[0] + s * J.d[0]), ys = J.by * (J.p[1] + s * J.d[1]);
+  const bool valid = fabsf(denom) > 0.0f && s > 0.0f && (xs * cos_p + ys * sin_p) > 0.0f;
+  return valid ? s : BIG;
+}
+
+// phi wedge at parameter t: the signed count of half-plane crossings at or
+// below t, wrapped (phi is monotone along a straight ray)
+__device__ int cp_at(const Grid3& G, const JumpRay& J, float t) {
+  if (G.np == 1) return 0;
+  int cnt = 0;
+  for (int j = 0; j < G.np; ++j) cnt += phi_crossing(G, J, j) <= t;
+  int cp = J.lz_pos ? J.cp0 + cnt : J.cp0 - cnt;
+  if (cp < 0) cp += G.np;
+  if (cp < 0) cp += G.np;
+  if (cp >= G.np) cp -= G.np;
+  if (cp >= G.np) cp -= G.np;
+  return cp;
+}
+
+// shell of a squared transformed radius: interior faces with rf^2 <= r2
+__device__ __forceinline__ int locate_m(const Tables& T, const Grid3& G, float r2) {
+  int lo = 0, hi = T.nr - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(G.rf2 + mid) <= r2) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// one crossing's term of the jump sum: delta * max(s_end - t, 0) for a
+// crossing at 0 < t < BIG
+__device__ __forceinline__ float jump_term(float delta, float s_end, float t) {
+  return delta * fmaxf(s_end - t, 0.0f);
+}
+
+// optical depth from (p, d) to the grid boundary or the photon floor
+// (jumps.tau_walk_jumps); `cell` is the caller's current cell
+__device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, const float* p,
+                                const float* d, const int* cell, bool& surface_hit) {
+  Tables Tb = T;
+  Tb.opacity = G.kbar;
+  const float tau_bar = tau_walk(Tb, S, p, d, surface_hit);
+  JumpRay J;
+  J.p = p;
+  J.d = d;
+  J.r = make_ray(S, p, d);
+  J.ax = S.ob[0];
+  J.by = S.ob[1];
+  J.sq_c = S.ob[2];
+  J.cp0 = cell[2];
+  J.lz_pos = (p[0] * d[1] - p[1] * d[0]) > 0.0f;
+  float s_surf;
+  floor_hit(J.r, S, s_surf);
+  J.s_end = surface_hit ? s_surf : face_out(J.r, __ldg(T.rfront + T.nr));
+  const float s_end = J.s_end;
+  const int nr = T.nr, NT = G.nt, NP = G.np;
+  const float pz = p[2], dz = d[2];
+
+  float dk_sum = __ldg(G.dk + (cell[0] * NT + cell[1]) * NP + cell[2]) * s_end;
+
+  // radial faces: inbound at e (shell j -> j-1), outbound at h
+  for (int j = 1; j < nr; ++j) {
+    const float rf = __ldg(T.rfront + j);
+    float lo, hi;
+    roots(J.r, rf, lo, hi);
+    const float inv_rf = 1.0f / rf;
+    const float* row = G.dr + (size_t)(j - 1) * NT * NP;
+    for (int k = 0; k < 2; ++k) {
+      const float t = fmaxf(k == 0 ? lo : hi, 0.0f);
+      if (!(t > 0.0f && t < BIG)) continue;
+      const int ct_i = ct_at(G, J.sq_c * (pz + t * dz) * inv_rf);
+      const int cp_i = cp_at(G, J, t);
+      const float delta = __ldg(row + ct_i * NP + cp_i);
+      dk_sum += jump_term(k == 0 ? -delta : delta, s_end, t);
+    }
+  }
+
+  // theta faces: the cone's low then high root, or the plane's one crossing
+  if (NT > 1) {
+    const float a2 = S.ob[0] * S.ob[0], b2 = S.ob[1] * S.ob[1], c2 = S.ob[2] * S.ob[2];
+    const float s_plane = fabsf(dz) > 0.0f ? -pz / dz : BIG;
+    for (int f = 1; f < NT; ++f) {
+      const float tan_t = __ldg(G.theta_tan + f);
+      const float tan2 = tan_t * tan_t;
+      const int flags = __ldg(G.theta_flags + f);
+      const bool is_cone = flags & 1, above = flags & 2;
+      const float qa = a2 * d[0] * d[0] + b2 * d[1] * d[1] - c2 * dz * dz * tan2;
+      const float qb = a2 * p[0] * d[0] + b2 * p[1] * d[1] - c2 * pz * dz * tan2;
+      const float qc = a2 * p[0] * p[0] + b2 * p[1] * p[1] - c2 * pz * pz * tan2;
+      float root[2];
+      const bool ok = stable_roots(qa, qb, qc, root[0], root[1]);
+      const float* row = G.dtt + (size_t)(f - 1) * nr * NP;
+      for (int k = 0; k < 2; ++k) {
+        const float z_r = pz + root[k] * dz;
+        const bool nappe_ok = above ? z_r > 0.0f : z_r < 0.0f;
+        const float t = is_cone ? ((ok && nappe_ok) ? root[k] : BIG) : (k == 0 ? s_plane : BIG);
+        if (!(t > 0.0f && t < BIG)) continue;
+        const float r2 = (J.r.A * t + 2.0f * J.r.Bq) * t + J.r.Cq;
+        // crossing direction: the sign of d(cos theta)/ds at t
+        const float u = J.sq_c * dz * r2 - J.sq_c * (pz + t * dz) * (J.r.A * t + J.r.Bq);
+        const int m_i = locate_m(T, G, r2);
+        const int cp_i = cp_at(G, J, t);
+        const float delta = __ldg(row + m_i * NP + cp_i);
+        dk_sum += jump_term(u < 0.0f ? delta : -delta, s_end, t);
+      }
+    }
+  }
+
+  // phi faces
+  if (NP > 1) {
+    for (int f = 0; f < NP; ++f) {
+      const float t = phi_crossing(G, J, f);
+      if (!(t > 0.0f && t < BIG)) continue;
+      const float r2 = (J.r.A * t + 2.0f * J.r.Bq) * t + J.r.Cq;
+      const int m_i = locate_m(T, G, r2);
+      const int ct_i = ct_at(G, J.sq_c * (pz + t * dz) / sqrtf(fmaxf(r2, 1.0e-30f)));
+      const float delta = __ldg(G.dpp + (size_t)f * nr * NT + m_i * NT + ct_i);
+      dk_sum += jump_term(J.lz_pos ? delta : -delta, s_end, t);
+    }
+  }
+  return fmaxf(tau_bar + dk_sum, 0.0f);
+}
+
+// --------------------------------------------------------------- march ----
+
+// error code of a failed march, as the forensics record names it
+__device__ __forceinline__ float error_code(bool e031, bool e034) {
+  return e031 ? 31.0f : (e034 ? 34.0f : 32.0f);
+}
+
+// march cell by cell until the running optical depth passes tau
+// (kernel._march_cells): updates pos, cell, face and the draw-site counter;
+// returns M_INTER, M_EXIT, M_FLOOR (absorbed at the photon floor) or
+// M_ERROR with the per-code flags set
+__device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float* pos,
+                           const float* dir, int* cell, int* face, float tau, uint32_t& ctr,
+                           bool& e031, bool& e032, bool& e034) {
+  e031 = e032 = e034 = false;
+  float tau_run = 0.0f;
+  for (int it = 0; it < G.max_crossings; ++it) {
+    Step st;
+    cell_face(T, G, S, pos, dir, cell, face, st);
+    const float k = __ldg(T.opacity + (cell[0] * G.nt + cell[1]) * G.np + cell[2]);
+    const float tau_cell = st.dist * k;
+    const bool interact = tau_run + tau_cell > tau;
+    const float step = interact ? (tau - tau_run) / (k == 0.0f ? 1.0f : k) : st.dist;
+    for (int i = 0; i < 3; ++i) pos[i] += step * dir[i];
+    ctr += 3;
+    e031 = st.nocand;
+    e034 = st.degen;
+    const bool err = st.nocand || st.degen;
+    if (interact) {
+      face[0] = face[1] = 0;
+      return err ? M_ERROR : M_INTER;
+    }
+    for (int i = 0; i < 3; ++i) cell[i] = st.cell[i];
+    face[0] = st.axis;
+    face[1] = st.idx;
+    if (err) return M_ERROR;
+    // without a Lambert surface the photon floor absorbs
+    if (st.axis == 1 && st.idx == G.cell_depth) return M_FLOOR;
+    if (st.grid_exit) return M_EXIT;
+    tau_run += tau_cell;
+  }
+  e032 = true;
+  return M_ERROR;
+}
+
+__device__ void record_error(const Grid3& G, float code, uint32_t pid, const float* pos,
+                             const float* dir, const int* cell, const int* face, float stokes_i,
+                             int n_scat, float site) {
+  const unsigned int slot = atomicAdd(G.rec_count, 1u);
+  if (slot >= G.rec_cap) return;
+  float* r = G.rec + (size_t)REC_W * slot;
+  r[0] = code;
+  r[1] = __uint_as_float(pid);
+  for (int i = 0; i < 3; ++i) {
+    r[2 + i] = pos[i];
+    r[5 + i] = dir[i];
+    r[8 + i] = (float)cell[i];
+  }
+  r[11] = (float)face[0];
+  r[12] = (float)face[1];
+  r[13] = stokes_i;
+  r[14] = (float)n_scat;
+  r[15] = site;
+}
+
+// ------------------------------------------------------------ emission ----
+
+// thermal birth (kernel._emit_thermal): the cell from the emissivity CDF
+// over all cells, a point inside it, an isotropic or Gordon-biased
+// direction; returns the initial Stokes I
+__device__ float emit_thermal(const Tables& T, const Grid3& G, const Scal& S, const float* u,
+                              bool biased, float* pos, float* dir, int* cell) {
+  const float u_r = fminf(fmaxf(u[1], U_CLIP_LO), U_CLIP_HI);
+  const float u_t = fminf(fmaxf(u[2], U_CLIP_LO), U_CLIP_HI);
+  const int ncell = T.nr * G.nt * G.np;
+  const float target = u[0] * __ldg(T.emis_cum + ncell - 1);
+  int lo = 0, hi = ncell;                // lower bound: first emis_cum >= target
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(T.emis_cum + mid) < target) lo = mid + 1; else hi = mid;
+  }
+  const int idx = min(lo, ncell - 1);
+  const int cr = idx / (G.nt * G.np), ct = (idx / G.np) % G.nt, cp = idx % G.np;
+  cell[0] = cr;
+  cell[1] = ct;
+  cell[2] = cp;
+  const float r0 = __ldg(T.rfront + cr), r1 = __ldg(T.rfront + cr + 1);
+  const float r = r0 + u_r * (r1 - r0);
+  const float c0 = __ldg(G.theta_cos + ct), c1 = __ldg(G.theta_cos + ct + 1);
+  const float cos_t = c0 + u_t * (c1 - c0);
+  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  float phi = TWO_PI_F * u[3];
+  if (G.np > 1) {
+    const float phi_lo = __ldg(G.phifront + cp);
+    const float phi_hi = cp == G.np - 1 ? TWO_PI_F : __ldg(G.phifront + cp + 1);
+    phi = phi_lo + u[3] * (phi_hi - phi_lo);
+  }
+  pos[0] = r * sin_t * cosf(phi) / S.ob[0];
+  pos[1] = r * sin_t * sinf(phi) / S.ob[1];
+  pos[2] = r * cos_t / S.ob[2];
+  return thermal_direction(S, u, biased, pos, dir) / __ldg(T.cell_weight + idx);
+}
+
+// -------------------------------------------------------------- kernel ----
+
+template <bool THERMAL, bool IMAGE>
+__global__ void __launch_bounds__(256)
+pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
+                   uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
+                   int flags, double* __restrict__ out_d, unsigned long long* __restrict__ out_i) {
+  const Scal S = load_scal(scal);
+  const bool crescent = (flags & F_CRESCENT) != 0;
+  const bool biased = (flags & F_BIASED) != 0;
+
+  // I, Q, U, V sums, their squares (spectrum only), flux emitted, flux exit
+  double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  // scatter peels, photons capped, photons emitted, birth peels, photons
+  // abandoned, codes 031 / 032 / 034
+  unsigned long long cnt[N_OUT_I3] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
+
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_photons; i += stride) {
+    const uint32_t pid = id_lo + (uint32_t)i;
+    cnt[2] += 1;
+    float d[6];
+    float pos[3], dir[3];
+    int cell[3], face[2];
+    float st[4] = {1.0f, 0.0f, 0.0f, 0.0f};
+    uint32_t ctr;
+
+    if constexpr (THERMAL) {
+      draws6(key_hi, pid, d);
+      st[0] = emit_thermal(T, G, S, d, biased, pos, dir, cell);
+      face[0] = face[1] = 0;
+      acc[8] += (double)st[0];
+      ctr = 6;
+      // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598)
+      bool surf;
+      const float tau_b = tau_walk_jumps(T, G, S, pos, S.det, cell, surf);
+      const int pix = pixel_of<IMAGE>(S, img, pos);
+      if (!surf && tau_b < 50.0f && pix >= 0) {
+        const float v = expf(-fminf(tau_b, 500.0f)) / FOUR_PI_F * st[0];
+        book<IMAGE, 1>(img, pix, &v, acc);
+        cnt[3] += 1;
+      }
+    } else {
+      draws(key_hi, pid, 0u, 2, d);
+      emit_stellar(S, d, crescent, pos, dir);
+      // the entry cell lies in the outermost shell, behind the outer face
+      const float x = pos[0] * S.ob[0], y = pos[1] * S.ob[1], z = pos[2] * S.ob[2];
+      cell[0] = T.nr - 1;
+      locate_tp(G, x, y, z, sqrtf(x * x + y * y + z * z), cell[1], cell[2]);
+      face[0] = 1;
+      face[1] = T.nr;
+      ctr = 2;
+    }
+
+    // prewalk along the photon's direction + forced first interaction; the
+    // prewalk's total is the exit precheck of the first march
+    bool path_surface;
+    float tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface);
+    draws(key_hi, pid, ctr, 1, d);
+    ctr += 1;
+    const bool thin = tau_path < 1.0e-6f;
+    if (thin && !path_surface) continue;       // vacuum, no surface
+    const bool forced = !thin && tau_path < 50.0f;
+    const float one_m_exp = 1.0f - expf(-tau_path);
+    float tau = forced ? -logf(1.0f - d[0] * one_m_exp) : -logf(1.0f - d[0]);
+    if (forced) st[0] *= one_m_exp;
+
+    // scattering rounds (ARTES.f90:786-951); round 0 is the first march
+    for (int n_scat = 0;; ++n_scat) {
+      int out;
+      if (tau >= tau_path) {
+        out = path_surface ? M_FLOOR : M_EXIT;    // cannot reach tau: no march
+      } else {
+        bool e031, e032, e034;
+        out = march_cells(T, G, S, pos, dir, cell, face, tau, ctr, e031, e032, e034);
+        if (out == M_ERROR) {
+          cnt[C_ERR] += 1;
+          cnt[C_E031] += e031;
+          cnt[C_E032] += e032;
+          cnt[C_E034] += e034;
+          record_error(G, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat, 0.0f);
+        }
+      }
+      if (out != M_INTER) {
+        if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
+        break;
+      }
+      if (n_scat > 0 && n_scat >= max_scatter) {
+        cnt[1] += 1;
+        break;
+      }
+
+      heal_cell(T, G, S, pos, cell);
+      const int cf = (cell[0] * G.nt + cell[1]) * G.np + cell[2];
+      draws(key_hi, pid, ctr, 5, d);
+      ctr += 5;
+      if (d[0] < S.fstop) break;                     // roulette
+      const float alb = __ldg(T.albedo + cf);
+      const float gamma = (alb < 1.0f && alb > 0.0f) ? alb / (1.0f - S.fstop) : 1.0f;
+      for (int k = 0; k < 4; ++k) st[k] *= gamma;
+      if (st[0] <= S.pmin) break;
+
+      float contrib[4];
+      peel_prep(T, S, dir, cf, st, contrib);
+      const int pix = pixel_of<IMAGE>(S, img, pos);
+      float beta, c2b, s2b, alpha, alpha_deg;
+      sample_beta(T, cf, st, d[1], d[2], beta, c2b, s2b);
+      sample_alpha(T, cf, st, c2b, s2b, d[3], alpha, alpha_deg);
+      float dir_new[3], m[16];
+      direction_cosine(alpha, beta, dir, dir_new);
+      matrix_at(T.scatter + (size_t)cf * N_ANGLE * 16, alpha_deg, m);
+      polarization_rotation(alpha, c2b, s2b, beta < PI_F ? 1.0f : -1.0f, st, m, dir[2],
+                            dir_new[2], false);
+      for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
+
+      bool peel_surface;
+      const float tau_peel = tau_walk_jumps(T, G, S, pos, S.det, cell, peel_surface);
+      if (!peel_surface && tau_peel < 50.0f && pix >= 0) {
+        const float w = expf(-fminf(tau_peel, 500.0f));
+        float v[4];
+        for (int k = 0; k < 4; ++k) v[k] = contrib[k] * w;
+        book<IMAGE, 4>(img, pix, v, acc);
+        cnt[0] += 1;
+      }
+
+      tau = -logf(1.0f - d[4]);
+      tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface);
+    }
+  }
+
+  reduce_block<N_OUT_D, N_OUT_I3>(acc, cnt, out_d, out_i);
+}
+
+using KernelFn = void (*)(Tables, Grid3, const float*, Image, uint32_t, uint32_t, uint32_t, int,
+                          int, double*, unsigned long long*);
+KernelFn variant_fn(int variant) {
+  switch (variant) {
+    case 0: return pool_grid3d_kernel<false, false>;
+    case 1: return pool_grid3d_kernel<true, false>;
+    case 2: return pool_grid3d_kernel<false, true>;
+    case 3: return pool_grid3d_kernel<true, true>;
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// C entry point for ctypes: launches the instantiation of `variant` (bit 0
+// thermal, bit 1 image) on `stream` and returns cudaGetLastError().
+// Per-cell tables are flat over (r, theta, phi). `tables` holds the 24 device
+// pointers in the order of the Tables then the Grid3 fields up to rec_count
+// (consts and scal after p_int, as the radial entry point has them, rec and rec_count last); `sizes`
+// holds {nr, nt, np, cell_depth, max_crossings, rec_cap, nx, ny}; `eps` holds
+// {same_eps, sel2, boundary_tol}. out_d: 10 doubles as the radial kernel's;
+// out_i: its 4 counters, then photons abandoned and codes 031 / 032 / 034.
+extern "C" int artes_pool_grid3d_launch(
+    const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
+    unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
+    double* img_sums, unsigned long long* img_counts, double* out_d, unsigned long long* out_i,
+    int blocks, int threads, void* stream) {
+  auto f = [&](int i) { return (const float*)tables[i]; };
+  Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
+  Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
+          f(19), f(20), f(21), (float*)tables[22], (unsigned int*)tables[23],
+          (unsigned int)sizes[5], sizes[1], sizes[2], sizes[3], sizes[4],
+          eps[0], eps[1], eps[2]};
+  Image img{img_sums, img_counts, sizes[6], sizes[7]};
+  const KernelFn fn = variant_fn(variant);
+  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(T, G, f(7), img, n_photons, key_hi, id_lo,
+                                                   max_scatter, flags, out_d, out_i);
+  return (int)cudaGetLastError();
+}
+
+// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, REC_W}.
+extern "C" int artes_pool_grid3d_layout(int* sizes) {
+  sizes[0] = N_SCAL;
+  sizes[1] = N_OUT_D;
+  sizes[2] = N_OUT_I3;
+  sizes[3] = N_IMG_D;
+  sizes[4] = N_IMG_I;
+  sizes[5] = REC_W;
+  return 0;
+}

@@ -19,9 +19,9 @@ import time
 
 import numpy as np
 
-from artes_tpu.config import ArtesConfig, DetectorSetup
-from artes_tpu.constants import PI, SIGMA_SB, planck_lambda
-from artes_tpu.io.fitsio import write_fits
+from artes_tpu_torch.config import ArtesConfig, DetectorSetup
+from artes_tpu_torch.constants import PI, SIGMA_SB, planck_lambda
+from artes_tpu_torch.io.fitsio import write_fits
 from artes_tpu_torch.runner import WavelengthResult, detector_errors
 
 
@@ -236,11 +236,13 @@ class RunReport:
             self.emit("WARNING: truncated fraction exceeds the MC error "
                       "scale — raise photon:max_scatter")
 
-    def stage4(self):
+    def stage4(self, n_error: int = 0):
         dt = time.time() - self.t_start
         h, rem = divmod(int(dt), 3600)
         m, s = divmod(rem, 60)
         self.emit(f"CPU time [hour:min:sec]: {h:02d}:{m:02d}:{s:02d}")
+        if n_error:
+            self.emit("WARNING: check error log!")
         self.emit("########################################################")
         if self._fh:
             self._fh.close()

@@ -8,8 +8,8 @@ photons in chunks of at most 2^30 with continuous 64-bit photon ids, so the
 (seed, id) -> photon stream mapping does not depend on the chunking.
 
 Dispatch follows the tables' device and nothing else: CUDA tables run the
-hand-written kernel (``pool_cuda.run_stream_cuda``), CPU tables the plain
-PyTorch version (``kernel.run_stream``). A configuration outside the slice
+hand-written kernel of their grid (``pool_cuda.run_stream_cuda``: radial or
+3-D), CPU tables the plain PyTorch version (``kernel.run_stream``). A configuration outside the slice
 raises ``NotImplementedError`` on every device; nothing falls back.
 """
 
@@ -21,10 +21,11 @@ import sys
 import numpy as np
 import torch
 
-from artes_tpu.config import ArtesConfig, DetectorSetup, detector_setup
-from artes_tpu.constants import PI, planck_lambda
+from artes_tpu_torch.config import ArtesConfig, DetectorSetup, detector_setup
+from artes_tpu_torch.constants import PI, planck_lambda
 from artes_tpu_torch.transport import pool_cuda
-from artes_tpu_torch.transport.kernel import KernelStatic, check_slice, run_stream
+from artes_tpu_torch.transport.kernel import (ERR_RECORD_K, ERR_RECORD_W, KernelStatic,
+                                              check_slice, run_stream, select_error_records)
 from artes_tpu_torch.transport.tables import PreparedWavelength, build_tables
 
 CHUNK = 1 << 30
@@ -69,10 +70,17 @@ class WavelengthResult:
     photometry: np.ndarray      # (11,) (ARTES.f90:977-1004)
     flux_emitted: float         # unitless Stokes-I tallies (thermal)
     flux_exit: float
-    n_error: int                # zero by construction: the closed form has no failure modes
+    n_error: int                # photons abandoned (3-D marches, Stokes anomalies)
     n_alive_at_cap: int
     cell_depth: int
     prep: PreparedWavelength
+    # [031 no candidate face, 032 runaway traversal, 034 degenerate floor
+    # bounce, peel walk], the reference's numbered error log
+    error_codes: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(4, np.int64))
+    n_stokes_anomaly: int = 0   # error 050 (--debug-stokes)
+    # the first and last ERR_RECORD_K error records in photon-id order
+    error_records: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros((0, ERR_RECORD_W)))
 
 
 def _kernel_static(cfg: ArtesConfig, det: DetectorSetup, atm, crescent: bool) -> KernelStatic:
@@ -124,7 +132,9 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
 
     detector = np.zeros((det.nx * det.ny, 4, 3), np.float64)
     flux_emitted = flux_exit = 0.0
-    n_alive = 0
+    n_alive = n_error = n_anom = 0
+    error_codes = np.zeros(4, np.int64)
+    records = []
     chunk = CHUNK
     if progress:
         chunk = min(chunk, max(1 << 20, -(-packages // 5)))
@@ -138,6 +148,10 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
         flux_emitted += float(out["flux_emitted"])
         flux_exit += float(out["flux_exit"])
         n_alive += int(out["n_alive_at_cap"])
+        n_error += int(out["n_error"])
+        n_anom += int(out["n_stokes_anomaly"])
+        error_codes += out["error_codes"].cpu().numpy()
+        records.append(out["error_records"])
         start += n
         if progress:
             print(f"  [{100 * start // packages:3d}%] {start:,} / {packages:,} photons",
@@ -151,8 +165,10 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
     scaled[..., 2] = det_img[..., 2]
     return WavelengthResult(
         detector=scaled, photometry=photometry_from_detector(scaled),
-        flux_emitted=flux_emitted, flux_exit=flux_exit, n_error=0, n_alive_at_cap=n_alive,
-        cell_depth=prep.cell_depth, prep=prep)
+        flux_emitted=flux_emitted, flux_exit=flux_exit, n_error=n_error,
+        n_alive_at_cap=n_alive, cell_depth=prep.cell_depth, prep=prep, error_codes=error_codes,
+        n_stokes_anomaly=n_anom,
+        error_records=select_error_records(records, ERR_RECORD_K).numpy())
 
 
 def photometry_from_detector(detector: np.ndarray) -> np.ndarray:

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from artes_tpu_torch.transport import jumps as J
 from artes_tpu_torch.transport.geometry import GridGeometry
 from artes_tpu_torch.transport.kernel import KernelStatic, TransportTables
 
@@ -40,7 +41,9 @@ def _convert(obj, cls, dtype, device, **extra):
 def tables_from_jax(tables, device="cpu", dtype=torch.float64) -> TransportTables:
     """This package's :class:`TransportTables` from a JAX one."""
     grid = _convert(tables.grid, GridGeometry, dtype, device)
-    return _convert(tables, TransportTables, dtype, device, grid=grid)
+    out = _convert(tables, TransportTables, dtype, device, grid=grid, jump=None)
+    out.jump = J.jump_tables_of(grid, out.opacity)
+    return out
 
 
 def static_from_jax(static) -> KernelStatic:

@@ -5,7 +5,8 @@ Counterpart of ``artes_tpu.transport.kernel``: the per-photon physics of
 written as batched tensor code that runs on any device and in float32 or
 float64. It is the plain version of the hand-written CUDA kernel
 ``csrc/pool_radial.cu`` (see ``pool_cuda``): the CPU tests hold it against
-the JAX package, and the card's smoke run holds the kernel against it.
+the JAX package, and the card's smoke run holds the kernel against it. On
+3-D grids it is the plain version of ``csrc/pool_grid3d.cu``.
 
 Photon streams are keyed by (seed, photon id, draw site), not by lane or
 round, so no regeneration pool is needed: :func:`run_stream` takes the ids
@@ -18,11 +19,24 @@ the events, draw sites and tallies are those of the JAX pool:
 * the next round fuses the forced-first-interaction prewalk with the first
   march and consumes one site;
 * every later (LIVE) round draws five sites: roulette, two azimuth draws,
-  the zenith draw and the optical depth.
+  the zenith draw and the optical depth;
+* on a 3-D grid a march advances the site counter by 3 for every cell
+  crossing it makes (the sites of the in-march Lambert draws, which are
+  reserved whether or not a surface consumes them).
 
-Slice: radial grids, stellar (any beam direction, crescent sampling) or
-thermal (isotropic or Gordon-biased) sources, any detector size, no surface,
-no flow (:func:`check_slice` names the ROADMAP slice of everything else).
+Radial grids take the closed-form walks of ``radial.py``, which cannot fail.
+3-D grids take the jump walks of ``jumps.py`` for peels, the prewalk and an
+exit precheck, and march ``geometry.cell_face`` cell by cell to the next
+interaction; that march can fail (error 031: no candidate face, 032: still
+marching after ``max_crossings``, 034: degenerate floor bounce), and each
+failure is tallied per code and kept as a 16-column record
+(:data:`ERR_RECORD_W`). Of all records of a run the first
+:data:`ERR_RECORD_K` and the last :data:`ERR_RECORD_K` in photon-id order
+are returned, a rule that does not depend on how photons are scheduled.
+
+Slice: radial and 3-D grids, stellar (any beam direction, crescent sampling)
+or thermal (isotropic or Gordon-biased) sources, any detector size, no
+surface, no flow (:func:`check_slice` names the ROADMAP slice of those).
 """
 
 from __future__ import annotations
@@ -34,13 +48,18 @@ import numpy as np
 import torch
 
 from artes_tpu_torch.transport import geometry as G
+from artes_tpu_torch.transport import jumps as J
 from artes_tpu_torch.transport import mueller as M
 from artes_tpu_torch.transport import radial as RAD
 from artes_tpu_torch.transport import rng as R
 from artes_tpu_torch.transport import sampling as S
 
 TWO_PI = 2.0 * math.pi
-ERR_RECORD_W = 16   # columns of an error record (artes_tpu.transport.kernel)
+# an error record: [code, photon id, pos x3, dir x3, cell x3, face x2,
+# Stokes I, scatterings so far, site] (artes_tpu.transport.kernel); site 0 is
+# the scatter march, 4 the Stokes anomaly of --debug-stokes
+ERR_RECORD_W = 16
+ERR_RECORD_K = 8    # records kept from each end of a run, in photon-id order
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,22 +106,17 @@ class TransportTables:
     photon_bias: torch.Tensor    # Gordon emission bias (thermal, biased)
     star_theta: torch.Tensor     # off-axis stellar beam angles [rad]
     star_phi: torch.Tensor
+    jump: J.JumpTables | None = None   # opacity-jump tables (3-D grids)
 
 
 def check_slice(tables: TransportTables, static: KernelStatic) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP slice of a config
     this package does not cover yet (the same rule on every device)."""
-    g = tables.grid
     later = [
-        (g.ntheta != 1 or g.nphi != 1,
-         "3-D grids: 3-D slice (ROADMAP queue 1 item 8)"),
         (static.has_surface or float(tables.surface_albedo) > 0.0,
          "Lambert surfaces: surface slice (ROADMAP queue 1 item 8)"),
         (static.track_flow,
          "flow diagnostics: flow slice (ROADMAP queue 1 item 8)"),
-        (static.debug_stokes or not static.photon_scattering,
-         "--debug-stokes and photon:scattering=off: 3-D slice with the "
-         "error forensics (ROADMAP queue 1 item 8)"),
     ]
     for unsupported, what in later:
         if unsupported:
@@ -162,7 +176,9 @@ def _emit(t: TransportTables, static: KernelStatic, k0, k1, dtype):
     """Stellar emission: a uniform parallel beam over the ellipsoid
     silhouette (ARTES.f90:1054-1077, re-derived as in the JAX package), on
     the crescent ring r > 0.9 when ``static.crescent`` (:1041-1049).
-    Consumes draw sites 0 and 1; returns ``pos, dirn, cr, counter``."""
+    Consumes draw sites 0 and 1; returns ``pos, dirn, cell, face`` with
+    the entry cell located in the outermost shell and the outer face as the
+    current face."""
     grid = t.grid
     dev = t.opacity.device
     u1, u2 = R.uniform_n_kk(k0, k1, 0, 2, dtype)
@@ -179,28 +195,39 @@ def _emit(t: TransportTables, static: KernelStatic, k0, k1, dtype):
     q = disk1[:, None] * e1s + disk2[:, None] * e2s - depth[:, None] * w_hat
     pos = q / s_diag
     dirn = u_hat.expand_as(pos).clone()
-    cr = G.locate_cell(grid, pos, torch.full_like(k1, grid.nr - 1))[..., 0]
-    return pos, dirn, cr, 2
+    cell = G.locate_cell(grid, pos, torch.full_like(k1, grid.nr - 1))
+    face = torch.tensor([1, grid.nr], dtype=k1.dtype, device=dev).expand(k1.shape[0], 2)
+    return pos, dirn, cell, face
 
 
 def _emit_thermal(t: TransportTables, static: KernelStatic, k0, k1, dtype):
     """Thermal emission (ARTES.f90:1124-1254): the cell from the cumulative
     emissivity CDF, a point inside it, an isotropic or Gordon-biased
-    direction. Consumes draw sites 0-5; returns ``pos, dirn, cr, w0`` with
-    ``w0`` the initial Stokes I, bias weight over cell weight."""
+    direction. Consumes draw sites 0-5; returns ``pos, dirn, cell, w0``
+    with ``w0`` the initial Stokes I, bias weight over cell weight."""
     grid = t.grid
     u_cell, u_r, u_t, u_p, u_a, u_b = R.uniform_n_kk(k0, k1, 0, 6, dtype)
     # birth points stay off the cell faces, as in the JAX package
     u_r = torch.clamp(u_r, 1.0e-4, 1.0 - 1.0e-4)
     u_t = torch.clamp(u_t, 1.0e-4, 1.0 - 1.0e-4)
     target = u_cell * t.emis_cum[-1]
-    cr = torch.clamp(torch.searchsorted(t.emis_cum, target, side="left"),
-                     0, t.emis_cum.shape[0] - 1)
+    idx = torch.clamp(torch.searchsorted(t.emis_cum, target, side="left"),
+                      0, t.emis_cum.shape[0] - 1)
+    cr = idx // (grid.ntheta * grid.nphi)
+    ct = (idx // grid.nphi) % grid.ntheta
+    cp = idx % grid.nphi
     rf, tc = grid.rfront, grid.theta_cos
     r = rf[cr] + u_r * (rf[cr + 1] - rf[cr])
-    cos_t = tc[0] + u_t * (tc[1] - tc[0])
+    cos_t = tc[ct] + u_t * (tc[ct + 1] - tc[ct])
     sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
-    phi = TWO_PI * u_p
+    if grid.nphi == 1:
+        phi = TWO_PI * u_p
+    else:
+        phifront = G.phi_fronts(grid)
+        phi_lo = phifront[cp]
+        phi_hi = torch.where(cp == grid.nphi - 1, TWO_PI,
+                             phifront[torch.clamp_max(cp + 1, grid.nphi - 1)])
+        phi = phi_lo + u_p * (phi_hi - phi_lo)
     pos = torch.stack([r * sin_t * torch.cos(phi) / grid.ob_ax,
                        r * sin_t * torch.sin(phi) / grid.ob_by,
                        r * cos_t / grid.ob_cz], dim=-1)
@@ -223,13 +250,13 @@ def _emit_thermal(t: TransportTables, static: KernelStatic, k0, k1, dtype):
         dirn = M.direction_cosine(torch.cos(math.pi - theta_s), beta, radial)
         bias_w = (math.pi * torch.sin(theta_s) * (1.0 + bias * torch.cos(theta_s))) / \
             (2.0 * torch.sqrt(1.0 - bias * bias))
-    return pos, dirn, cr, bias_w / t.cell_weight[cr]
+    return pos, dirn, torch.stack([cr, ct, cp], dim=-1), bias_w / t.cell_weight[idx]
 
 
 def _peel_photon_prep(t: TransportTables, static: KernelStatic, pos, dirn, cr, stokes):
     """The tau-independent part of the per-scatter peel (ARTES.f90:4763-4948):
     matrix at the detector angle, azimuth bookkeeping, Stokes rotation with
-    the detector Q sign flip, and the pixel. ``cr`` is the radial cell."""
+    the detector Q sign flip, and the pixel. ``cr`` is the flat cell index."""
     eps = 1.0e-10
     d = t.det_dir
     mu = dirn[..., 0] * d[0] + dirn[..., 1] * d[1] + dirn[..., 2] * d[2]
@@ -258,15 +285,104 @@ def _radial_lists(t: TransportTables):
             g.rfront, t.opacity, g.rfront[t.cell_depth], g.pos_eps)
 
 
-def _march_radial(t: TransportTables, pos, dirn, cr, tau, active, chords=None):
-    """Closed-form march to the sampled optical depth; returns the new
-    position and radial cell and the march outcome."""
-    a2, b2, c2, rf, kx, rfl, peps = _radial_lists(t)
-    mo = RAD.march(a2, b2, c2, rf, kx, rfl, peps, *pos.unbind(-1), *dirn.unbind(-1),
-                   tau, active, chords=chords)
-    moved = mo["inter"] | mo["surface"]
-    pos = torch.where(moved[:, None], pos + mo["s_stop"][:, None] * dirn, pos)
-    return pos, torch.where(mo["inter"], mo["cr"], cr), mo
+def _tau_walk(t: TransportTables, pos, dirn, cell):
+    """Optical depth from ``pos`` along ``dirn`` to the grid boundary or the
+    photon floor: the closed form on a radial grid, the jump walk on a 3-D
+    one. Returns ``(tau, surface, walk)``; ``walk`` lets :func:`_march`
+    along the same ray reuse the work."""
+    if t.jump is None:
+        a2, b2, c2, rf, kx, rfl, peps = _radial_lists(t)
+        chords = RAD.ray_chords(a2, b2, c2, rf, rfl, peps, *pos.unbind(-1), *dirn.unbind(-1))
+        return RAD.tau_from_chords(*chords, kx), chords[2], chords
+    w = J.tau_walk_jumps(t.grid, t.jump, t.grid.rfront[t.cell_depth],
+                         *pos.unbind(-1), *dirn.unbind(-1), *cell.unbind(-1))
+    return w["tau"], w["surface"], w
+
+
+def _march_cells(t: TransportTables, static: KernelStatic, pos, dirn, cell, face, tau,
+                 marching):
+    """March ``geometry.cell_face`` cell by cell until the running optical
+    depth passes ``tau`` (ARTES.f90:687-778 without its surface and flow
+    branches). Photons leave the loop at an interaction, at the grid's outer
+    face, at the photon floor (absorbed) or with an error; what still
+    marches after ``static.max_crossings`` crossings is error 032. Returns
+    the new ``pos, cell, face``, the outcome masks and ``crossings``, the
+    number of loop passes each photon made."""
+    g = t.grid
+    n = pos.shape[0]
+    dev = pos.device
+    pos, cell, face = pos.clone(), cell.clone(), face.clone()
+    flags = {k: torch.zeros(n, dtype=torch.bool, device=dev)
+             for k in ("inter", "exited", "e031", "e034", "e032")}
+    crossings = torch.zeros(n, dtype=torch.int64, device=dev)
+    idx = marching.nonzero()[:, 0]
+    tau_run = torch.zeros_like(tau[idx])
+    for _ in range(static.max_crossings):
+        if idx.numel() == 0:
+            break
+        p, d, c, f, tb = pos[idx], dirn[idx], cell[idx], face[idx], tau[idx]
+        out = G.cell_face(g, p, d, c, f, t.cell_depth)
+        dist = out["distance"]
+        k = t.opacity[flat_cell(g, c)]
+        tau_cell = dist * k
+        interact = tau_run + tau_cell > tb
+        s_int = (tb - tau_run) / torch.where(k == 0.0, 1.0, k)
+        pos[idx] = p + torch.where(interact, s_int, dist)[:, None] * d
+        crossing = ~interact
+        nf = out["next_face"]
+        # without a Lambert surface the photon floor absorbs
+        floor_hit = crossing & (nf[:, 0] == 1) & (nf[:, 1] == t.cell_depth)
+        cell[idx] = torch.where(crossing[:, None], out["cell_out"], c)
+        face[idx] = torch.where(crossing[:, None], nf, torch.zeros_like(f))
+        flags["inter"][idx] = interact
+        flags["exited"][idx] = crossing & out["grid_exit"] & ~floor_hit
+        flags["e031"][idx] = out["err_nocand"]
+        flags["e034"][idx] = out["err_degen"]
+        crossings[idx] += 1
+        still = crossing & ~out["grid_exit"] & ~floor_hit & ~out["error"]
+        idx = idx[still]
+        tau_run = (tau_run + tau_cell)[still]
+    flags["e032"][idx] = True
+    return pos, cell, face, flags, crossings
+
+
+def _march(t: TransportTables, static: KernelStatic, pos, dirn, cell, face, tau, active,
+           walk=None):
+    """Walk active photons to the sampled optical depth ``tau``. Returns a
+    dict: the new ``pos``, ``cell`` and ``face``; ``inter`` (interaction),
+    ``exited`` (left through the top), ``error`` and the per-code masks
+    ``e031``/``e032``/``e034``; ``sites``, the draw sites the march reserved.
+
+    A radial grid takes the closed form (no errors, no sites). A 3-D grid
+    first checks the sampled depth against the jump walk's exact total along
+    the ray: a photon that cannot reach it exits, or is absorbed at the
+    floor, without marching; the others march cell by cell, reserving three
+    draw sites per crossing. ``walk`` is :func:`_tau_walk`'s third result
+    for the same ray."""
+    if walk is None:
+        walk = _tau_walk(t, pos, dirn, cell)[2]
+    false = torch.zeros_like(active)
+    if t.jump is None:
+        a2, b2, c2, rf, kx, rfl, peps = _radial_lists(t)
+        mo = RAD.march(a2, b2, c2, rf, kx, rfl, peps, *pos.unbind(-1), *dirn.unbind(-1),
+                       tau, active, chords=walk)
+        moved = mo["inter"] | mo["surface"]
+        cell_new = torch.stack([mo["cr"], torch.zeros_like(mo["cr"]),
+                                torch.zeros_like(mo["cr"])], dim=-1)
+        return {"pos": torch.where(moved[:, None], pos + mo["s_stop"][:, None] * dirn, pos),
+                "cell": torch.where(mo["inter"][:, None], cell_new, cell),
+                "face": torch.where(mo["inter"][:, None], torch.zeros_like(face), face),
+                "inter": mo["inter"], "exited": mo["exited"], "error": false,
+                "e031": false, "e032": false, "e034": false,
+                "sites": torch.zeros_like(cell[:, 0])}
+    no_reach = active & (tau >= walk["tau"])
+    pos, cell, face, fl, crossings = _march_cells(t, static, pos, dirn, cell, face, tau,
+                                                  active & ~no_reach)
+    return {"pos": pos, "cell": cell, "face": face, "inter": fl["inter"],
+            "exited": fl["exited"] | (no_reach & walk["exited"]),
+            "error": fl["e031"] | fl["e034"] | fl["e032"],
+            "e031": fl["e031"], "e032": fl["e032"], "e034": fl["e034"],
+            "sites": 3 * crossings}
 
 
 def _book(det_sum, det_cnt, pix, val, ok, first_only=False):
@@ -293,8 +409,24 @@ def detector_from_tallies(det_sum, det_cnt):
     return torch.cat([det_sum, cnt.to(torch.float64).unsqueeze(-1)], dim=-1)
 
 
+def _error_rows(code, pid, pos, dirn, cell, face, stokes_i, n_scat, site):
+    """(n, ERR_RECORD_W) float64 error records from per-photon columns."""
+    cols = [code, pid, *pos.unbind(-1), *dirn.unbind(-1), *cell.unbind(-1),
+            *face.unbind(-1), stokes_i, n_scat,
+            torch.full_like(pid, site)]
+    return torch.stack([c.to(torch.float64) for c in cols], dim=-1).cpu()
+
+
+def select_error_records(rows, k: int = ERR_RECORD_K):
+    """The first ``k`` and the last ``k`` of the error records ``rows``, a
+    list of (n_i, ERR_RECORD_W) tensors that follow each other in photon-id
+    order; all of them when there are at most 2k."""
+    rec = torch.cat([torch.zeros((0, ERR_RECORD_W), dtype=torch.float64), *rows])
+    return rec if rec.shape[0] <= 2 * k else torch.cat([rec[:k], rec[-k:]])
+
+
 def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, seed: int,
-               width: int, id_hi: int = 0, id_lo: int = 0):
+               width: int, id_hi: int = 0, id_lo: int = 0, err_k: int = ERR_RECORD_K):
     """Transport photons ``id_lo .. id_lo + n_photons - 1`` (high id word
     ``id_hi``) and return the JAX ``run_stream`` tallies.
 
@@ -303,49 +435,73 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
     thermal birth peels, which the Q, U and V rows' counts do not.
     ``flux_emitted`` (sum of the emitted Stokes I) and ``flux_exit`` (sum of
     the Stokes I leaving through the top) are float64 and zero for stellar
-    sources. ``width`` is the number of photons emitted together.
+    sources. ``n_error`` counts abandoned photons, ``error_codes`` those of
+    codes [031, 032, 034, peel walk], ``n_stokes_anomaly`` those of code 050
+    (``static.debug_stokes``). ``error_records`` holds the first ``err_k``
+    and the last ``err_k`` error records in photon-id order (float64, on the
+    CPU) and ``n_error_records`` the number of events there were. ``width``
+    is the number of photons emitted together.
     """
     check_slice(tables, static)
     t = tables
     dt = t.opacity.dtype
     dev = t.opacity.device
     thermal = static.photon_source == 2
-    a2, b2, c2, rf, kx, rfl, peps = _radial_lists(t)
     k0 = R.key_hi(seed, id_hi)
-    det_dir = t.det_dir
     npix = static.nx * static.ny
     det_sum = torch.zeros((npix, 4, 2), dtype=torch.float64, device=dev)
     det_cnt = torch.zeros((npix, 2), dtype=torch.int64, device=dev)
     n_cap = torch.zeros((), dtype=torch.int64, device=dev)
+    n_anom = torch.zeros((), dtype=torch.int64, device=dev)
+    n_error = torch.zeros((), dtype=torch.int64, device=dev)
+    error_codes = torch.zeros(4, dtype=torch.int64, device=dev)
     flux_emitted = torch.zeros((), dtype=torch.float64, device=dev)
     flux_exit = torch.zeros((), dtype=torch.float64, device=dev)
+    records = []
+
+    def peel_weight(pos, cell):
+        """e^-tau toward the observer and whether the peel is booked."""
+        tau, surface, _ = _tau_walk(t, pos, t.det_dir.expand_as(pos), cell)
+        return torch.exp(-torch.clamp_max(tau, 500.0)), ~surface & (tau < 50.0)
+
+    def tally_march(mo, pid, dirn, stokes, n_scat):
+        """Error tallies, error records and the exit flux of one march."""
+        nonlocal flux_exit, n_error
+        err = mo["error"]
+        if bool(err.any()):
+            n_error += err.sum()
+            error_codes[:3] += torch.stack([mo["e031"].sum(), mo["e032"].sum(),
+                                            mo["e034"].sum()])
+            code = torch.where(mo["e031"], 31, torch.where(mo["e034"], 34, 32))[err]
+            records.append(_error_rows(code, pid[err], mo["pos"][err], dirn[err],
+                                       mo["cell"][err], mo["face"][err], stokes[err, 0],
+                                       n_scat[err], 0))
+        if thermal:
+            flux_exit += stokes[mo["exited"], 0].to(torch.float64).sum()
+        return mo["inter"] & ~err
 
     for start in range(0, int(n_photons), width):
         n = min(width, int(n_photons) - start)
         pid = id_lo + start + torch.arange(n, dtype=torch.int64, device=dev)
         stokes = torch.zeros((n, 4), dtype=dt, device=dev)
         if thermal:
-            pos, dirn, cr, w0 = _emit_thermal(t, static, k0, pid, dt)
+            pos, dirn, cell, w0 = _emit_thermal(t, static, k0, pid, dt)
+            face = torch.zeros((n, 2), dtype=torch.int64, device=dev)
             ctr = 6
             flux_emitted += w0.to(torch.float64).sum()
             stokes[:, 0] = w0
             # birth peel e^-tau/(4 pi) on Stokes I (ARTES.f90:4519-4598)
-            pw = RAD.tau_walk(a2, b2, c2, rf, kx, rfl, peps, *pos.unbind(-1),
-                              det_dir[0], det_dir[1], det_dir[2])
-            w_b = torch.exp(-torch.clamp_max(pw["tau"], 500.0)) / (4.0 * math.pi)
+            w_b, ok_b = peel_weight(pos, cell)
             _book(det_sum, det_cnt, _pixel_index(t, static, pos),
-                  (w_b * stokes[:, 0])[:, None], pw["exited"] & (pw["tau"] < 50.0),
-                  first_only=True)
+                  (w_b / (4.0 * math.pi) * stokes[:, 0])[:, None], ok_b, first_only=True)
         else:
-            pos, dirn, cr, ctr = _emit(t, static, k0, pid, dt)
+            pos, dirn, cell, face = _emit(t, static, k0, pid, dt)
+            ctr = 2
             stokes[:, 0] = 1.0
 
         # the prewalk along the photon's own direction, fused with the
         # forced first interaction (ARTES.f90:623-684) and its march
-        chords = RAD.ray_chords(a2, b2, c2, rf, rfl, peps,
-                                *pos.unbind(-1), *dirn.unbind(-1))
-        tau_first = RAD.tau_from_chords(*chords, kx)
-        pre_surface = chords[2]
+        tau_first, pre_surface, walk = _tau_walk(t, pos, dirn, cell)
         (u_tau,) = R.uniform_n_kk(k0, pid, ctr, 1, dt)
         thin = tau_first < 1.0e-6
         go = ~(thin & ~pre_surface)         # vacuum, no surface: dropped
@@ -354,66 +510,84 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
         tau = torch.where(forced, -torch.log(1.0 - u_tau * one_m_exp),
                           -torch.log(1.0 - u_tau))
         stokes = torch.where(forced[:, None], stokes * one_m_exp[:, None], stokes)
-        ctr = torch.full_like(pid, ctr + 1)
-        pos, cr, mo = _march_radial(t, pos, dirn, cr, tau, go, chords)
-        if thermal:
-            flux_exit += stokes[mo["exited"], 0].to(torch.float64).sum()
         n_scat = torch.zeros_like(pid)
+        mo = _march(t, static, pos, dirn, cell, face, tau, go, walk)
+        ctr = ctr + 1 + mo["sites"]
+        keep = tally_march(mo, pid, dirn, stokes, n_scat)
+        pos, cell, face = mo["pos"], mo["cell"], mo["face"]
+        if not static.photon_scattering:
+            keep = torch.zeros_like(keep)
 
-        keep = mo["inter"]
         while True:
-            pid, ctr, pos, dirn, cr, stokes, n_scat = (
-                v[keep] for v in (pid, ctr, pos, dirn, cr, stokes, n_scat))
+            pid, ctr, pos, dirn, cell, face, stokes, n_scat = (
+                v[keep] for v in (pid, ctr, pos, dirn, cell, face, stokes, n_scat))
             if pid.numel() == 0:
                 break
             # LIVE round (ARTES.f90:786-951)
-            cr = G.heal_cell(t.grid, pos, cr, torch.ones_like(pid, dtype=torch.bool))
+            cell = G.heal_cell(t.grid, pos, cell, torch.ones_like(pid, dtype=torch.bool))
+            cf = flat_cell(t.grid, cell)
             d0, d1, d2, d3, d4 = R.uniform_n_kk(k0, pid, ctr, 5, dt)
             killed = d0 < t.fstop
-            alb = t.albedo[cr]
+            alb = t.albedo[cf]
             gamma = torch.where((alb < 1.0) & (alb > 0.0), alb / (1.0 - t.fstop),
                                 torch.ones_like(alb))
             stokes = stokes * gamma[:, None]
             surv = ~killed & ~(stokes[:, 0] <= t.photon_minimum)
-            pid, ctr, pos, dirn, cr, stokes, n_scat, d1, d2, d3, d4 = (
-                v[surv] for v in (pid, ctr, pos, dirn, cr, stokes, n_scat, d1, d2, d3, d4))
+            pid, ctr, pos, dirn, cell, face, cf, stokes, n_scat, d1, d2, d3, d4 = (
+                v[surv] for v in (pid, ctr, pos, dirn, cell, face, cf, stokes, n_scat,
+                                  d1, d2, d3, d4))
 
-            peel_contrib, peel_pix = _peel_photon_prep(t, static, pos, dirn, cr, stokes)
-            beta, c2b, s2b = S.sample_beta(t.p_int[cr], stokes, d1, d2)
-            alpha, alpha_deg = S.sample_alpha_fused(t.alpha_prefix, cr, stokes,
+            peel_contrib, peel_pix = _peel_photon_prep(t, static, pos, dirn, cf, stokes)
+            beta, c2b, s2b = S.sample_beta(t.p_int[cf], stokes, d1, d2)
+            alpha, alpha_deg = S.sample_alpha_fused(t.alpha_prefix, cf, stokes,
                                                     (c2b, s2b), d3)
             dir_new = M.direction_cosine(alpha, beta, dirn)
-            scat_m = S.matrix_at_angle_deg(t.scatter_rows, cr, alpha_deg)
+            scat_m = S.matrix_at_angle_deg(t.scatter_rows, cf, alpha_deg)
             stokes = M.polarization_rotation(alpha, beta, stokes, scat_m, dirn, dir_new,
                                              peeling=False, beta_trig=(c2b, s2b))
+            dirn = dir_new
+            if static.debug_stokes:
+                # error 050 (ARTES.f90:830-835): I^2 < Q^2 + U^2 + V^2 after
+                # the Mueller update; the photon is abandoned before its
+                # peel and march, and recorded with the round's input state
+                anom = (stokes[:, 0] ** 2 * (1.0 + 1.0e-6)
+                        < (stokes[:, 1:] ** 2).sum(dim=-1))
+                if bool(anom.any()):
+                    n_anom += anom.sum()
+                    n_error += anom.sum()
+                    records.append(_error_rows(
+                        torch.full_like(pid[anom], 50), pid[anom], pos[anom], dirn[anom],
+                        cell[anom], face[anom], stokes[anom, 0], n_scat[anom], 4))
+                    ok = ~anom
+                    (pid, ctr, pos, dirn, cell, face, stokes, n_scat, d4, peel_contrib,
+                     peel_pix) = (v[ok] for v in (pid, ctr, pos, dirn, cell, face, stokes,
+                                                  n_scat, d4, peel_contrib, peel_pix))
             n_scat = n_scat + 1
 
-            pw = RAD.tau_walk(a2, b2, c2, rf, kx, rfl, peps, *pos.unbind(-1),
-                              det_dir[0], det_dir[1], det_dir[2])
-            _book(det_sum, det_cnt, peel_pix,
-                  peel_contrib * torch.exp(-torch.clamp_max(pw["tau"], 500.0))[:, None],
-                  pw["exited"] & (pw["tau"] < 50.0))
+            w_peel, ok_peel = peel_weight(pos, cell)
+            _book(det_sum, det_cnt, peel_pix, peel_contrib * w_peel[:, None], ok_peel)
 
             tau = -torch.log(1.0 - d4)
-            ctr = ctr + 5
-            pos, cr, mo = _march_radial(t, pos, dir_new, cr, tau,
-                                        torch.ones_like(pid, dtype=torch.bool))
-            if thermal:
-                flux_exit += stokes[mo["exited"], 0].to(torch.float64).sum()
-            dirn = dir_new
-            capped = mo["inter"] & (n_scat >= static.max_scatter)
+            mo = _march(t, static, pos, dirn, cell, face, tau,
+                        torch.ones_like(pid, dtype=torch.bool))
+            ctr = ctr + 5 + mo["sites"]
+            keep = tally_march(mo, pid, dirn, stokes, n_scat)
+            pos, cell, face = mo["pos"], mo["cell"], mo["face"]
+            capped = keep & (n_scat >= static.max_scatter)
             n_cap += capped.sum()
-            keep = mo["inter"] & ~capped
+            keep = keep & ~capped
 
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    rec = select_error_records(records, 1 << 62)
+    rec = rec[torch.argsort(rec[:, 1], stable=True)]
     return {
         "detector": detector_from_tallies(det_sum, det_cnt),
         "flux_emitted": flux_emitted,
         "flux_exit": flux_exit,
-        "n_error": zero,            # the closed form has no failure modes
-        "error_codes": torch.zeros(4, dtype=torch.int64, device=dev),
+        "n_error": n_error,
+        "error_codes": error_codes,
+        "n_stokes_anomaly": n_anom,
         "n_alive_at_cap": n_cap,
         "n_emitted": int(n_photons),
-        "error_records": torch.zeros((0, ERR_RECORD_W), dtype=torch.float64),
-        "n_error_records": 0,
+        "error_records": select_error_records([rec], err_k),
+        "n_error_records": rec.shape[0],
     }

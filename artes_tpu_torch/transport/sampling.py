@@ -52,7 +52,7 @@ def build_alpha_prefix(scatter_cell):
     ``scatter_cell``: (..., 180, 16) matrices. Returns (..., 4, 181) prefix
     sums over bins of P1k(i) * sinbeta(i) * pi/180 (ARTES.f90:1610-1623).
     """
-    from artes_tpu.atmosphere import SINBETA
+    from artes_tpu_torch.atmosphere import SINBETA
 
     w = SINBETA * DEG
     weighted = scatter_cell[..., :4] * w[..., :, None]

@@ -15,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from artes_tpu.constants import PI, planck_lambda
+from artes_tpu_torch.constants import PI, planck_lambda
+from artes_tpu_torch.transport import jumps as J
 from artes_tpu_torch.transport import sampling as S
 from artes_tpu_torch.transport.geometry import make_grid_geometry
 from artes_tpu_torch.transport.kernel import TransportTables
@@ -140,5 +141,6 @@ def build_tables(atm, cfg, det, wl_index: int, dtype=torch.float64,
         star_theta=t(cfg.theta_star),
         star_phi=t(cfg.phi_star),
     )
+    tables.jump = J.jump_tables_of(grid, tables.opacity)
     return PreparedWavelength(tables=tables, r_scale=r_scale, cell_depth=cell_depth,
                               emissivity_total=emis_total, cell_luminosity=lum)

@@ -7,23 +7,29 @@ Run from the root of a checkout, with no arguments:
 Phases, one line each; any failure exits non-zero before the result lines:
 
 1. env: torch, CUDA, nvcc, the card's name and power limit;
-2. build: compiles ``artes_tpu_torch/csrc/pool_radial.cu`` and
-   ``probe_splat.cu`` with nvcc, both at once, and prints the ptxas
-   registers and spills of every kernel instantiation;
-3. kernel vs plain: every instantiation of the pool kernel (stellar,
-   thermal, image, thermal image) against its plain PyTorch version on the
-   card, 2^20 photons, seed 7, float32, on the cells of
-   ``cells.KERNEL_CELLS`` (flagship, nr=39 graded grid, 25x25 and 101x101
-   images, the bench's thermal shell with isotropic and biased emission,
-   the scattering thermal shell as spectrum and 25x25 image, crescent with
-   an off-axis star): counts per count column, per-pixel I and counts, the
-   Stokes sums and squares, the capped photons and both fluxes within
-   ``pool_cuda.AGREE``;
+2. build: compiles ``artes_tpu_torch/csrc/pool_radial.cu``,
+   ``pool_grid3d.cu`` and ``probe_splat.cu`` with nvcc, all at once, and
+   prints the ptxas registers and spills of every kernel instantiation;
+3. kernel vs plain: every instantiation of both pool kernels (stellar,
+   thermal, image, thermal image; radial and 3-D) against its plain PyTorch
+   version on the card, seed 7, float32, on the cells of
+   ``cells.KERNEL_CELLS``. Radial cells at 2^20 photons (flagship, nr=39
+   graded grid, 25x25 and 101x101 images, the bench's thermal shell with
+   isotropic and biased emission, the scattering thermal shell as spectrum
+   and 25x25 image, crescent with an off-axis star) within
+   ``pool_cuda.AGREE``; 3-D cells at 2^18 photons, which the plain version's
+   cell-by-cell march affords (the bench's 39 x 8 x 8 patchy deck as
+   spectrum and 25x25 image, a self-luminous patchy 3-D grid as spectrum and
+   25x25 image, the 2 x 3 x 4 patchy grid, a grid of 5,184 cells each with
+   its own blend of two species) within ``pool_cuda.AGREE_3D``:
+   counts per count column, per-pixel I and counts, the Stokes sums and
+   squares, the capped photons, both fluxes, the abandoned photons and the
+   per-code error counts;
 4. probe splat: the splat micro-benchmark kernel and its loop-only
    baseline against their plain versions at 625, 2025 and 10201 pixels
    (counts equal, values within ``probe_splat.VALUE_RTOL``), and the
    splat's cost a round net of the loop;
-5. anchors, through the kernel: (a) the flagship at 2^27 photons with the
+5. anchors, through the kernels: (a) the flagship at 2^27 photons with the
    ids and seed of the recorded TPU run (BENCH_r05.json ``detector_I_raw``
    = 6354867.5): I within 2e-3, no photon at the scattering cap; (b) the
    25x25 image at 2^24 photons summed over its pixels equals the spectrum
@@ -31,17 +37,27 @@ Phases, one line each; any failure exits non-zero before the result lines:
    isothermal shell gives V kappa B / d^2 within 2% at 2^24 photons; (d)
    the phase curve of a thin Rayleigh shell at 2^24 photons an angle
    follows single scattering, (4/3) k P11(180 - alpha) within 5% and -Q/I
-   within 0.05 of sin^2 / (1 + cos^2), for alpha <= 160 deg;
+   within 0.05 of sin^2 / (1 + cos^2), for alpha <= 160 deg; (e) a 3-D
+   grid whose 30 cells all hold the flagship's opacity gives the
+   flagship's spectrum at 2^24 photons within Monte Carlo noise (I per
+   photon within ``UNIFORM_3D_REL``), abandoning at most
+   ``UNIFORM_3D_ERRORS`` of its photons;
 6. main path: ``python -m artes_tpu_torch.cli`` as a user runs it, one
    process each, 2^24 photons: spectrum on the README quick-start input
    and on the nr=39 grid, a 25x25 image of the quick-start input, its
    73-angle phase curve, a thermal spectrum of the bench's thermal shell
-   and a thermal 25x25 image of the scattering thermal shell; then
-   ``python -m artes_tpu_torch.probe_splat``, the splat micro-benchmark's
-   own entry point. Each process starts with its launch counts at 0 and
-   prints them at its end; every kernel must have been launched.
+   and a thermal 25x25 image of the scattering thermal shell; on 3-D
+   grids the spectrum and the 25x25 image of the 39 x 8 x 8 patchy deck
+   and of the self-luminous patchy grid, with ``error.log`` read back when
+   photons were abandoned; then ``python -m artes_tpu_torch.probe_splat``,
+   the splat micro-benchmark's own entry point. Each process starts with
+   its launch counts at 0 and prints them at its end; every kernel must
+   have been launched.
 
-It then prints the card line, a JSON line of the kernels and, last,
+Each kernel's bound is the larger of its bytes (every table read once, every
+tally written once) over 3.35 TB/s and a lower count of its float32
+operations over 67 TFLOP/s (``bound_ms``). It then prints the card line, a
+JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``. Nothing runs without a CUDA device.
 """
 
@@ -57,12 +73,22 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_R05_DETECTOR_I_RAW = 6354867.5     # BENCH_r05.json, TPU v5e, 2^27 photons, seed 12
 SMOKE_PHOTONS = 1 << 24
-POOL_SOURCE = "artes_tpu_torch/csrc/pool_radial.cu"
 POOL_REPLACES = "artes_tpu/transport/pallas_stream.py:2049"
 # the cell whose kernel and plain times stand for each instantiation
 VARIANT_CELL = {"stellar": "flagship", "thermal": "thermal_iso", "image": "imaging25",
-                "thermal_image": "thermal_imaging25"}
+                "thermal_image": "thermal_imaging25", "grid3d_stellar": "grid3d_2496",
+                "grid3d_thermal": "grid3d_thermal", "grid3d_image": "grid3d_imaging25",
+                "grid3d_thermal_image": "grid3d_thermal_imaging25"}
 PROBE_SIZES = (625, 2025, 10201)
+PHOTONS_RADIAL, PHOTONS_3D = 1 << 20, 1 << 18      # kernel vs plain, a cell
+# anchor (e): |I_3D / I_flagship - 1| per photon and the abandoned share, at
+# 2^24 photons (NVIDIA H100 80GB HBM3, 700 W; readings in PERF.md section 6)
+UNIFORM_3D_REL = 1.0e-3
+UNIFORM_3D_ERRORS = 1.0e-4
+# peaks of one H100 SXM (NVIDIA's data sheet): device memory, float32
+# outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67.0e12
 
 
 def fail(msg):
@@ -109,7 +135,7 @@ def phase_env():
 
 def phase_build():
     from artes_tpu_torch import _build
-    names = ("pool_radial", "probe_splat")
+    names = ("pool_radial", "pool_grid3d", "probe_splat")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:          # one nvcc a source, all at once
         paths = dict(zip(names, ex.map(_build.build, names)))
@@ -123,16 +149,66 @@ def phase_build():
                     say("build", "ptxas " + line.strip())
 
 
+def bound(n_bytes, n_ops):
+    """``(bound_ms, bound_by)``: the least time the card could take to move
+    ``n_bytes`` and do ``n_ops`` float32 operations."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# float32 operations counted by hand in csrc/pool_common.cuh: one scattering
+# round without its walks (peel_prep 170, sample_beta 215, sample_alpha 205,
+# direction_cosine 45, matrix_at 52, polarization_rotation 100), one
+# emission, one face root (a quadratic: 12), one cone face's root pair, one
+# phi half-plane crossing
+OPS_ROUND, OPS_EMIT, OPS_ROOT, OPS_CONE, OPS_PHI = 787, 40, 12, 30, 14
+
+
+def pool_bound(tables, static, out):
+    """Bound of one pool-kernel launch from what this run needed. Bytes: every
+    table once, every tally once. Operations, a lower count from the run's
+    own tallies: every emitted photon is born and walks its path once; every
+    booked scatter peel is one scattering round with its peel walk and, on a
+    3-D grid, the path total that its march is checked against (a round
+    whose peel is rejected, the march itself and the integer hashes of the
+    draws are left out). A radial walk
+    takes the roots of nr + 1 faces twice (in, out) and 3 operations a
+    segment; a 3-D jump walk adds the root pair of every cone face and the
+    crossing of every phi half-plane."""
+    import torch
+    g = tables.grid
+    tensors = [v for v in vars(tables).values() if isinstance(v, torch.Tensor)]
+    tensors += [v for v in vars(g).values() if isinstance(v, torch.Tensor)]
+    if tables.jump is not None:
+        tensors += [v for v in vars(tables.jump).values() if isinstance(v, torch.Tensor)]
+    npix = static.nx * static.ny
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors) + 8 * (10 + 8) \
+        + (npix * 8 * (8 + 2) if npix > 1 else 0)
+    walk = 2 * (g.nr + 1) * OPS_ROOT + 2 * g.nr * 3
+    walks_a_round = 1
+    if tables.jump is not None:
+        walk += (g.ntheta - 1) * OPS_CONE + g.nphi * OPS_PHI
+        walks_a_round = 2
+    rounds = int(out["detector"][:, 1, 2].sum())
+    n_ops = int(out["n_emitted"]) * (OPS_EMIT + walk) + rounds * (OPS_ROUND
+                                                                    + walks_a_round * walk)
+    return bound(n_bytes, n_ops)
+
+
 def phase_kernel_vs_plain():
     """Each cell's kernel against its plain version; fails at the first cell
     that disagrees, else returns per-cell rows."""
     from artes_tpu_torch.cells import KERNEL_CELLS
     from artes_tpu_torch.transport import kernel, pool_cuda
-    n, seed = 1 << 20, 7
+    seed = 7
     rows = {}
     for name in KERNEL_CELLS:
         tables, static = KERNEL_CELLS[name]("cuda")
-        variant = pool_cuda.VARIANTS[pool_cuda.variant_of(static)]
+        grid3d = tables.jump is not None
+        n = PHOTONS_3D if grid3d else PHOTONS_RADIAL
+        limits = pool_cuda.limits_of(tables)
+        variant = (pool_cuda.VARIANTS_3D if grid3d else pool_cuda.VARIANTS)[
+            pool_cuda.variant_of(static)]
         pool_cuda.run_stream_cuda(tables, static, n, seed)          # warm-up
         ms, out_k = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
         plain_ms, out_p = timed(lambda: kernel.run_stream(tables, static, n, seed, n), 1)
@@ -140,22 +216,30 @@ def phase_kernel_vs_plain():
         g = pool_cuda.gaps(out_k, out_p)
         max_abs = float((dk[..., 0] - dp[..., 0]).abs().max())
         tot_k, tot_p = dk.sum(0), dp.sum(0)
+        bound_ms, bound_by = pool_bound(tables, static, out_k)
         say("kernel-vs-plain",
             f"{name} [{variant}, {dk.shape[0]} px]: N (I row) kernel {int(tot_k[0, 2])} plain "
             f"{int(tot_p[0, 2])}, N (Q/U/V rows) kernel {int(tot_k[1, 2])} plain "
             f"{int(tot_p[1, 2])}; capped kernel {int(out_k['n_alive_at_cap'])} plain "
-            f"{int(out_p['n_alive_at_cap'])}; flux emitted {float(out_k['flux_emitted']):.7g} / "
+            f"{int(out_p['n_alive_at_cap'])}; abandoned kernel {int(out_k['n_error'])} "
+            f"{out_k['error_codes'].tolist()} plain {int(out_p['n_error'])} "
+            f"{out_p['error_codes'].tolist()}; flux emitted "
+            f"{float(out_k['flux_emitted']):.7g} / "
             f"{float(out_p['flux_emitted']):.7g}, exit {float(out_k['flux_exit']):.7g} / "
             f"{float(out_p['flux_exit']):.7g}; gaps "
             + " ".join(f"{k}={v:.3e}" if isinstance(v, float) else
                        f"{k}=" + ",".join(f"{x:.3e}" for x in v) for k, v in g.items())
             + "; plain sums (I,Q,U,V) " + " ".join(f"{x:.7g}" for x in tot_p[:, 0].tolist())
-            + f"; max|dIQUV| {max_abs:.6g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
-            f"({n} photons)")
-        if not (dk.isfinite().all() and pool_cuda.agrees(g)):
-            fail(f"kernel disagrees with its plain version on {name} "
-                 f"(limits {pool_cuda.AGREE})")
-        rows[name] = dict(variant=variant, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs)
+            + f"; max|dIQUV| {max_abs:.6g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({n} photons)")
+        if not (dk.isfinite().all() and pool_cuda.agrees(g, limits)):
+            fail(f"kernel disagrees with its plain version on {name} (limits {limits})")
+        if int(out_k["n_error_records"]) != int(out_k["n_error"]) or \
+                len(out_k["error_records"]) != min(int(out_k["n_error"]), 2 * kernel.ERR_RECORD_K):
+            fail(f"{name}: {int(out_k['n_error'])} photons abandoned but "
+                 f"{out_k['n_error_records']} error records")
+        rows[name] = dict(variant=variant, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+                          bound_ms=bound_ms, bound_by=bound_by)
     return rows
 
 
@@ -179,23 +263,50 @@ def phase_probe():
     base_us, net_us = P.us_per_round(PROBE_SIZES)
     base_ms = base_us * P.N_ROUNDS * 1e-3
     base_plain_ms, _ = timed(lambda: P.baseline_plain(device=dev), 1)
+    peels = P.N_ROUNDS * P.LANES
     for npix in PROBE_SIZES:
         plain_ms, _ = timed(lambda: P.splat_plain(npix, device=dev), 1)
-        rows[npix].update(ms=(net_us[npix] + base_us) * P.N_ROUNDS * 1e-3, plain_ms=plain_ms)
+        # bytes: the outputs once (the inputs are three scalars); operations:
+        # one add a feature a peel
+        bound_ms, bound_by = bound(npix * 8 * (P.NVALS + P.NCNT), peels * (P.NVALS + P.NCNT))
+        rows[npix].update(ms=(net_us[npix] + base_us) * P.N_ROUNDS * 1e-3, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
         say("probe", f"npix {npix}: splat {net_us[npix]:.3f} us/round net of the loop "
                      f"({P.LANES} peels a round, {P.NVALS} value + {P.NCNT} count atomics "
                      f"each); kernel {rows[npix]['ms']:.3f} ms, plain {plain_ms:.1f} ms for "
                      f"{P.N_ROUNDS} rounds; counts equal, max|dvalue| "
-                     f"{rows[npix]['max_abs_err']:.3g}")
+                     f"{rows[npix]['max_abs_err']:.3g}; bound {bound_ms:.4f} ms by {bound_by}")
+    # the library's call for the same sums: one index_add_ of all the peels'
+    # value features, materialised first (the kernel never stores them)
+    npix = PROBE_SIZES[0]
+    x, pix, vals = P._lanes(1, dev), [], []
+    _, scales = P._features(P.NVALS, P.NCNT, dev)
+    for _ in range(P.N_ROUNDS):
+        x = P._step(x)
+        pix.append((x >> 17) % npix)
+        vals.append(((x >> 8).to(torch.float32) * 2.0 ** -24)[:, None] * scales)
+    pix, vals = torch.cat(pix), torch.cat(vals).to(torch.float64)
+    target = torch.zeros((npix, P.NVALS), dtype=torch.float64, device=dev)
+    target.index_add_(0, pix, vals)                      # warm-up
+    library_ms, summed = timed(lambda: torch.zeros_like(target).index_add_(0, pix, vals), 5)
+    if not torch.allclose(summed, P.splat(npix, device=dev)[0], rtol=P.VALUE_RTOL, atol=0.0):
+        fail("index_add_ of the materialised peels is not the probe splat's sum")
+    del pix, vals
+    rows[npix]["library_ms"] = library_ms
+    say("probe", f"npix {npix}: one index_add_ of the {peels} materialised peels "
+                 f"{library_ms:.3f} ms")
     say("probe", f"baseline loop {base_us:.4f} us/round; kernel {base_ms:.3f} ms, plain "
                  f"{base_plain_ms:.1f} ms; sinks equal")
-    return rows, dict(ms=base_ms, plain_ms=base_plain_ms, max_abs_err=base_err)
+    # the loop alone: one multiply-add a lane a round, 8 bytes a lane out
+    bound_ms, bound_by = bound(8 * P.LANES, 2 * peels)
+    return rows, dict(ms=base_ms, plain_ms=base_plain_ms, max_abs_err=base_err,
+                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def phase_anchors():
     import numpy as np
     import torch
-    from artes_tpu.config import ArtesConfig, detector_setup
+    from artes_tpu_torch.config import ArtesConfig, detector_setup
     from artes_tpu_torch import cells, runner
     from artes_tpu_torch.transport import pool_cuda
 
@@ -227,6 +338,19 @@ def phase_anchors():
                   f"{ms_img:.1f} ms, spectrum kernel {ms_spec:.1f} ms")
     if not (d_n <= 4 and rel_i <= 1e-6):
         fail("the image summed over its pixels is not the spectrum")
+
+    # (e) a 3-D grid of equal cells is the flagship
+    u_tables, u_static = cells.spectrum_tables(cells.uniform_3d(), "cuda")
+    ms_u, uni = timed(lambda: pool_cuda.run_stream_cuda(u_tables, u_static, n, 12), 1)
+    i_u = float(uni["detector"].cpu()[0, 0, 0])
+    rel_u = abs(i_u - float(spec[0, 0])) / float(spec[0, 0])
+    share = int(uni["n_error"]) / n
+    say("anchor", f"uniform 3-D grid (1 x 6 x 5 cells) = flagship, 2^24 photons: I {i_u:.4f} vs "
+                  f"{float(spec[0, 0]):.4f} (rel {rel_u:.3e}); abandoned {int(uni['n_error'])} "
+                  f"{uni['error_codes'].tolist()} ({share:.3e} of the photons); 3-D kernel "
+                  f"{ms_u:.1f} ms, radial kernel {ms_spec:.1f} ms")
+    if not (rel_u <= UNIFORM_3D_REL and share <= UNIFORM_3D_ERRORS):
+        fail("the uniform 3-D grid misses the flagship's spectrum")
 
     # (c) transparent thermal shell: L / (4 pi d^2)
     atm = cells.transparent_thermal_shell()
@@ -265,7 +389,11 @@ def phase_anchors():
         fail("the thin-shell phase curve misses single scattering")
 
 
-LAUNCH_LINE = re.compile(r"CUDA kernel launches: pool_radial=(\d+) \((.*)\)")
+LAUNCH_LINE = re.compile(r"CUDA kernel launches: pool=(\d+) \((.*)\)")
+ERROR_TALLY = re.compile(r"^error (\d{3})/.* x(\d+)$")
+ERROR_RECORD = re.compile(r"^error (\d{3}) photon (\d+) at ([a-z ]+): pos=\((.*)\) dir=\((.*)\) "
+                          r"cell=\((-?\d+), (-?\d+), (-?\d+)\) face=\((\d+), (\d+)\) "
+                          r"I=(\S+) n_scat=(\d+)$")
 
 
 def _cli(root, env, atm_name, run, *keys):
@@ -285,9 +413,34 @@ def _cli(root, env, atm_name, run, *keys):
     if not found or int(found.group(1)) <= 0:
         fail(f"CLI {run} did not launch the kernel:\n{proc.stdout}")
     by = {k: int(v) for k, v in (kv.split("=") for kv in found.group(2).split())}
-    if sorted(by) != sorted(pool_cuda.VARIANTS):
+    if sorted(by) != sorted(pool_cuda.LAUNCHES):
         fail(f"CLI {run} launch line names other instantiations: {found.group(0)}")
     return os.path.join(root, "output", run, "output"), by, wall
+
+
+def _read_error_log(path):
+    """``(photons abandoned, records)`` of a run's ``error.log``: none when
+    the run abandoned no photon; else every line must parse, the tallies
+    come first and every record names a code it tallied."""
+    if not os.path.isfile(path):
+        return 0, 0
+    tallies, records = {}, 0
+    with open(path) as fh:
+        for line in fh.read().splitlines():
+            tally, record = ERROR_TALLY.match(line), ERROR_RECORD.match(line)
+            if tally and not records:
+                tallies[tally.group(1)] = int(tally.group(2))
+            elif record and record.group(1) in tallies and record.group(3) == "scatter march":
+                floats = [float(x) for x in (record.group(4) + "," + record.group(5)).split(",")]
+                if len(floats) != 6 or not all(abs(x) <= 1.0 + 1e-5 for x in floats):
+                    fail(f"{path}: a record's position or direction leaves the unit ball: "
+                         f"{line}")
+                records += 1
+            else:
+                fail(f"{path}: line not understood: {line}")
+    if not tallies or records != min(sum(tallies.values()), 16):
+        fail(f"{path}: tallies {tallies} but {records} records")
+    return sum(tallies.values()), records
 
 
 def phase_main_path():
@@ -296,11 +449,11 @@ def phase_main_path():
     them at its end; the launches of the earlier phases, made in this
     process, are not in them."""
     import numpy as np
-    from artes_tpu.io.fitsio import read_fits
+    from artes_tpu_torch.io.fitsio import read_fits
     from artes_tpu_torch import cells
     from artes_tpu_torch.transport import pool_cuda
 
-    launches = dict.fromkeys(pool_cuda.VARIANTS, 0)
+    launches = dict.fromkeys(pool_cuda.LAUNCHES, 0)
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     with tempfile.TemporaryDirectory(prefix="artes_smoke_") as root:
         cells.write_input(root, "demo")
@@ -308,6 +461,9 @@ def phase_main_path():
         cells.write_artifact_input(root, "thermal", cells.thermal_bench(),
                                    ["photon:source=planet"])
         cells.write_artifact_input(root, "thermal_scat", cells.thermal_scattering_shell(),
+                                   ["photon:source=planet"])
+        cells.write_artifact_input(root, "grid3d", cells.grid3d_2496())
+        cells.write_artifact_input(root, "grid3d_thermal", cells.grid3d_thermal_atm(),
                                    ["photon:source=planet"])
 
         def count(by):
@@ -367,6 +523,32 @@ def phase_main_path():
                              f"{lum[0, 2]:.6e} W/micron" + (f"; launches {by}; {wall:.1f} s wall"
                                                              if mode else ""))
 
+        # 3-D grids: spectrum and 25x25 image, stellar and thermal
+        image = ["detector:type=imaging_mono", "detector:pixel=25"]
+        for atm_name, run, keys, variant in (
+                ("grid3d", "spec_grid3d", [], "grid3d_stellar"),
+                ("grid3d", "image_grid3d", image, "grid3d_image"),
+                ("grid3d_thermal", "spec_grid3d_thermal", [], "grid3d_thermal"),
+                ("grid3d_thermal", "image_grid3d_thermal", image, "grid3d_thermal_image")):
+            out, by, wall = _cli(root, env, atm_name, run, *keys)
+            count(by)
+            if by[variant] != 1 or sum(by.values()) != 1:
+                fail(f"cli {run} did not run {variant} once: {by}")
+            if keys:
+                img = read_fits(os.path.join(out, "stokes.fits"))[0][1]
+                total_i, shape_ok = float(img[0].sum()), img.shape == (4, 25, 25)
+                finite = bool(np.isfinite(img).all() and (img[0] >= 0).all())
+            else:
+                rows = np.loadtxt(os.path.join(out, "spectrum.dat"), ndmin=2)
+                total_i, shape_ok = float(rows[0, 1]), rows.shape == (1, 5)
+                finite = bool(np.isfinite(rows).all())
+            if not (shape_ok and finite and total_i > 0.0):
+                fail(f"cli {run}: output is not physical (I {total_i})")
+            n_err, n_rec = _read_error_log(os.path.join(root, "output", run, "error.log"))
+            say("main-path", f"cli {run} {SMOKE_PHOTONS} photons: I {total_i:.6e}; abandoned "
+                             f"{n_err} photons, {n_rec} records in error.log; launches "
+                             f"{ {k: v for k, v in by.items() if v} }; {wall:.1f} s wall")
+
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "artes_tpu_torch.probe_splat"],
                               cwd=root, env=env, capture_output=True, text=True, timeout=300)
@@ -392,8 +574,7 @@ def main():
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA card")
-    if not (os.path.isdir(os.path.join(HERE, "artes_tpu_torch"))
-            and os.path.isdir(os.path.join(HERE, "artes_tpu"))):
+    if not os.path.isdir(os.path.join(HERE, "artes_tpu_torch")):
         fail("run chip_smoke.py from the root of a checkout of the repository")
     sys.modules["jax"] = None          # the port runs without JAX
     sys.path.insert(0, HERE)
@@ -408,18 +589,27 @@ def main():
     kernels = []
     for variant, cell in VARIANT_CELL.items():
         mine = [r for r in rows.values() if r["variant"] == variant]
-        kernels.append({"name": f"pool_radial.{variant}", "route": "cuda",
-                        "source": POOL_SOURCE, "replaces": POOL_REPLACES,
-                        "launches": launches[variant],
+        grid3d = variant.startswith("grid3d_")
+        kernels.append({"name": ("pool_grid3d." + variant[len("grid3d_"):] if grid3d
+                                 else "pool_radial." + variant),
+                        "route": "cuda",
+                        "source": "artes_tpu_torch/csrc/"
+                                  + ("pool_grid3d.cu" if grid3d else "pool_radial.cu"),
+                        "replaces": POOL_REPLACES, "launches": launches[variant],
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
-                        "ms": rows[cell]["ms"], "plain_ms": rows[cell]["plain_ms"]})
+                        "ms": rows[cell]["ms"], "plain_ms": rows[cell]["plain_ms"],
+                        "bound_ms": rows[cell]["bound_ms"], "bound_by": rows[cell]["bound_by"],
+                        # no single PyTorch call transports photons
+                        "library_ms": None})
     probe = probe_rows[PROBE_SIZES[0]]
     kernels.append({"name": "probe_splat", "route": "cuda",
                     "source": "artes_tpu_torch/csrc/probe_splat.cu",
                     "replaces": "tools/probe_splat.py:108",
                     "launches": launches["probe_splat"],
                     "max_abs_err": max(r["max_abs_err"] for r in probe_rows.values()),
-                    "ms": probe["ms"], "plain_ms": probe["plain_ms"]})
+                    "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+                    "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+                    "library_ms": probe["library_ms"]})
     kernels.append({"name": "probe_splat_baseline", "route": "cuda",
                     "source": "artes_tpu_torch/csrc/probe_splat.cu",
                     "replaces": "tools/probe_splat.py:134",

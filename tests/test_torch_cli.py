@@ -110,13 +110,14 @@ def test_device_cuda_without_card_raises(quickstart, monkeypatch):
 
 
 def test_unported_modes_raise(quickstart):
-    """3-D grids, a Lambert surface, flow diagnostics and --debug-stokes are
-    later slices: the CLI raises on them, naming the ROADMAP."""
+    """A Lambert surface and flow diagnostics are later slices: the CLI
+    raises on them, naming the ROADMAP, on radial and 3-D grids alike."""
     from artes_tpu import presets
     cells.write_artifact_input(quickstart, "patchy", presets.patchy_3d())
-    runs = {"3-D": ["patchy"], "surface": ["demo", "-k", "planet:surface_albedo=0.5"],
+    runs = {"surface": ["demo", "-k", "planet:surface_albedo=0.5"],
+            "3-D surface": ["patchy", "-k", "planet:surface_albedo=0.5"],
             "flow": ["demo", "-k", "output:flow_global=on"],
-            "debug-stokes": ["demo", "--debug-stokes"]}
+            "3-D flow": ["patchy", "-k", "output:flow_global=on"]}
     for what, args in runs.items():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main([args[0], "1024", "-o", "m", "--device", "cpu", "--root", str(quickstart),

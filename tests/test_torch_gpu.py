@@ -61,23 +61,68 @@ def test_cuda_wrapper_counts_launches_and_checks_inputs(cuda):
     assert pool_cuda.LAUNCHES == after
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(set(KERNEL_CELLS) - set(CELLS)))
-def test_cuda_instantiations_match_plain(cuda, name):
-    """Thermal, image and crescent/off-axis cells: every gap of
-    ``pool_cuda.gaps`` (per pixel, per count column, fluxes) within
-    ``pool_cuda.AGREE`` at 2^20 photons, each through its instantiation."""
-    tables, static = KERNEL_CELLS[name](cuda)
-    variant = pool_cuda.VARIANTS[pool_cuda.variant_of(static)]
+def held_against_plain(tables, static, n):
+    """Kernel and plain version on the same photons: one more launch of the
+    configuration's instantiation, every gap within the grid's limits."""
+    grid3d = tables.jump is not None
+    variant = (pool_cuda.VARIANTS_3D if grid3d else pool_cuda.VARIANTS)[
+        pool_cuda.variant_of(static)]
     before = pool_cuda.LAUNCHES[variant]
-    n = 1 << 20
     k = pool_cuda.run_stream_cuda(tables, static, n, SEED)
     p = kernel.run_stream(tables, static, n, SEED, n)
     assert pool_cuda.LAUNCHES[variant] == before + 1
     assert k["detector"].isfinite().all()
     assert k["detector"].shape == p["detector"].shape == (static.nx * static.ny, 4, 3)
     g = pool_cuda.gaps(k, p)
-    assert pool_cuda.agrees(g), g
+    assert pool_cuda.agrees(g, pool_cuda.limits_of(tables)), g
+    return k, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(set(KERNEL_CELLS) - set(CELLS)))
+def test_cuda_instantiations_match_plain(cuda, name):
+    """Thermal, image, crescent/off-axis and 3-D cells: every gap of
+    ``pool_cuda.gaps`` (per pixel, per count column, fluxes, abandoned
+    photons) within ``pool_cuda.AGREE`` at 2^20 photons on radial grids and
+    ``AGREE_3D`` at 2^18 on 3-D ones, the sizes the limits were set at, each
+    through its instantiation."""
+    tables, static = KERNEL_CELLS[name](cuda)
+    k, p = held_against_plain(tables, static, 1 << (20 if tables.jump is None else 18))
+    if tables.jump is not None:
+        # one record per abandoned photon, in photon-id order, each also an
+        # event of the plain version unless its trajectory flipped
+        n_err = int(k["n_error"])
+        assert k["n_error_records"] == n_err
+        rec = k["error_records"]
+        assert len(rec) == min(n_err, 2 * kernel.ERR_RECORD_K)
+        assert torch.equal(rec[:, 1], torch.sort(rec[:, 1]).values)
+        assert set(rec[:, 0].tolist()) <= {31.0, 32.0, 34.0} and (rec[:, 15] == 0).all()
+        shared = set(rec[:, 1].tolist()) & set(p["error_records"][:, 1].tolist())
+        assert len(shared) >= len(rec) // 2
+
+
+@pytest.mark.gpu
+def test_cuda_grid_of_5184_blended_cells(cuda):
+    """More cells than the TPU kernel's tables held (4,096), every cell its
+    own blend of two species: per-cell tables in global memory need no cell
+    cap and no mixture dedup. (Held against the plain version as the
+    ``blended_5184`` cell of ``test_cuda_instantiations_match_plain``.)"""
+    tables, static = KERNEL_CELLS["blended_5184"](cuda)
+    assert tables.opacity.shape[0] == 5184
+    assert len(torch.unique(tables.scatter_rows.reshape(5184, -1), dim=0)) == 5184
+    assert pool_cuda.supports(tables, static)
+    k = pool_cuda.run_stream_cuda(tables, static, 1 << 16, SEED)
+    assert int(k["n_emitted"]) == 1 << 16 and float(k["detector"][0, 0, 2]) > 1e4
+    assert k["detector"].isfinite().all()
+
+
+@pytest.mark.gpu
+def test_cuda_refuses_what_only_the_plain_version_runs(cuda):
+    import dataclasses
+    tables, static = KERNEL_CELLS["patchy3d_small"](cuda)
+    for keys in (dict(debug_stokes=True), dict(photon_scattering=False)):
+        with pytest.raises(NotImplementedError, match="--device cpu"):
+            pool_cuda.run_stream_cuda(tables, dataclasses.replace(static, **keys), 64, SEED)
 
 
 @pytest.mark.gpu

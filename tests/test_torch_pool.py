@@ -153,9 +153,7 @@ def _unsupported():
     atm = presets.rayleigh_single_layer(tau=1.0)
     return {
         "surface": (atm, dict(surface_albedo=0.5)),
-        "3-D": (presets.patchy_3d(), {}),
         "flow": (atm, dict(flow_global=True)),
-        "debug-stokes": (atm, dict(debug_stokes=True)),
     }
 
 
@@ -164,7 +162,8 @@ def test_supports():
               "multi-pixel": (presets.rayleigh_single_layer(tau=1.0),
                               dict(mode="imaging_mono", npix=5)),
               "off-axis star": (presets.rayleigh_single_layer(tau=1.0),
-                                dict(stellar_direction=True, theta_star=1.2))}
+                                dict(stellar_direction=True, theta_star=1.2)),
+              "3-D": (presets.patchy_3d(), {})}
     for what, (atm, keys) in list(ported.items()) + [(n, (CONFIGS[n](), {})) for n in CONFIGS]:
         _, _, tt, st = setup(atm, "float32", **keys)
         assert pool_cuda.supports(tt, st), what
@@ -244,4 +243,5 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     before = dict(pool_cuda.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA device"):
         pool_cuda.run_stream_cuda(tt, st, 1024, SEED)
-    assert pool_cuda.LAUNCHES == before == dict.fromkeys(pool_cuda.VARIANTS, 0)
+    assert pool_cuda.LAUNCHES == before == dict.fromkeys(
+        pool_cuda.VARIANTS + pool_cuda.VARIANTS_3D, 0)

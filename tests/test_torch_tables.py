@@ -33,8 +33,13 @@ ATMOSPHERES = {
 
 
 def assert_same(ref, got, where):
-    """Every dataclass field equal: tensors vs numpy exactly, scalars equal."""
+    """Every dataclass field equal: tensors vs numpy exactly, scalars equal.
+    The port's own ``jump`` tables (none on a radial grid) have no JAX field:
+    tests/test_torch_jumps.py holds them against ``kernel._jump_env``."""
     for f in dataclasses.fields(got):
+        if f.name == "jump":
+            assert (got.jump is None) == (got.grid.ntheta == 1 and got.grid.nphi == 1), where
+            continue
         r, g = getattr(ref, f.name), getattr(got, f.name)
         if dataclasses.is_dataclass(g):
             assert_same(r, g, f"{where}.{f.name}")
@@ -120,20 +125,28 @@ def test_tables_from_jax_round_trip(dtype):
 
 
 def test_thermal_tables_not_ported():
-    """Thermal tables are ported (test_build_tables_match); what the tables
-    still cannot run is a 3-D grid, a Lambert surface, flow or
-    --debug-stokes, refused on every device by ``check_slice``."""
+    """Thermal and 3-D tables are ported (test_build_tables_match,
+    test_torch_grid3d.py); what the tables still cannot run is a Lambert
+    surface or flow, refused on every device by ``check_slice``, which
+    lets 3-D grids and --debug-stokes through."""
     from artes_tpu_torch.transport import kernel as TK
 
-    for atm, keys in ((presets.patchy_3d(), {}), (flagship(), {"surface_albedo": 0.5}),
-                      (flagship(), {"flow_global": True}), (flagship(), {"debug_stokes": True})):
+    for atm, keys, ported in ((presets.patchy_3d(), {}, True),
+                              (flagship(), {"surface_albedo": 0.5}, False),
+                              (presets.patchy_3d(), {"surface_albedo": 0.5}, False),
+                              (flagship(), {"flow_global": True}, False),
+                              (flagship(), {"debug_stokes": True}, True)):
         cfg = _cfg()
         for k, v in keys.items():
             setattr(cfg, k, v)
         det = detector_setup(cfg, float(atm.rfront[-1]))
         tables = TT.build_tables(atm, cfg, det, 0).tables
+        static = TRUN._kernel_static(cfg, det, atm, False)
+        if ported:
+            TK.check_slice(tables, static)
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TK.check_slice(tables, TRUN._kernel_static(cfg, det, atm, False))
+            TK.check_slice(tables, static)
 
 
 def test_flat_cell_and_closed_form_match():
