@@ -10,6 +10,14 @@ Atmospheres:
   (bench.py:199-214), a pure absorber; :func:`thermal_scattering_shell`
   the half-scattering thermal shell of tests/test_pallas_stream.py:163-191,
   whose photons scatter and leave (``flux_exit`` > 0).
+* :func:`lambert_layer`: the thin Rayleigh layer over a Lambert surface of
+  tests/test_pallas_stream.py:251-276 (README's surface row), and as
+  :func:`lambert_thick` a five-shell layer of tau = 16 whose photons scatter
+  on to the default cap of ``photon:max_scatter``;
+  :func:`thermal_surface_shell` the half-scattering thermal shell over a
+  surface of tests/test_pallas_stream.py:404-429; :func:`lambert_sphere` the
+  transparent 10 km shell of tests/test_transport.py:141-159, whose
+  geometric albedo at full phase is 2/3 over a white surface.
 * :func:`thin_rayleigh_shell` and :func:`transparent_thermal_shell`: the
   optically thin shells of the analytic oracles of tests/test_transport.py,
   with their expectations :func:`thin_shell_phase_oracle` (single Rayleigh
@@ -35,7 +43,9 @@ Configurations, as ``(TransportTables, KernelStatic)``:
   :func:`crescent_offaxis` the crescent with an off-axis star of
   tests/test_pallas_stream.py:433-446.
 * :data:`KERNEL_CELLS`: every configuration ``chip_smoke.py`` holds the CUDA
-  kernel against its plain version on, one or more per instantiation.
+  kernel against its plain version on, one or more per instantiation;
+  :data:`FLOW_KEYS` switches both flow outputs on; :func:`gate_photons`
+  gives the photon count a cell is held at.
 
 :func:`write_input` writes an ``input/<name>/`` directory for the CLI; its
 defaults are the README quick-start input.
@@ -78,6 +88,32 @@ def thermal_scattering_shell():
     density = (1.0 / 500e3) / ((tab.absorption[0] + tab.scattering[0]) / 10.0)
     return presets._from_table(tab, R_JUP + np.linspace(0.0, 500e3, 4), (0.0, 180.0), (),
                                density, temperature=900.0)
+
+
+def lambert_layer(tau=0.5):
+    return presets.rayleigh_single_layer(tau=tau, nr=2)
+
+
+def lambert_thick():
+    """Conservative Rayleigh scattering of tau = 16 in five shells: over a
+    white surface about one photon in fifteen is still alive after the 256
+    scattering orders that ``photon:max_scatter`` allows by default."""
+    return presets.rayleigh_single_layer(tau=16.0, nr=5)
+
+
+def thermal_surface_shell():
+    atm = presets.thermal_shell(tau_abs=0.4, nr=3)
+    # some scattering, so that marches reach the surface
+    atm.k_sca[:] = 0.5 * atm.k_abs
+    atm.scatter[:] = presets.rayleigh_single_layer(nr=1).scatter[0, 0, 0]
+    atm.refresh_derived()
+    return atm
+
+
+def lambert_sphere():
+    """A transparent 10 km shell around a Jupiter-size surface."""
+    return presets._from_table(rayleigh.generate([0.7]), R_JUP + np.array([0.0, 1.0e4]),
+                               (0.0, 180.0), (), density_si=1.0e-12)
 
 
 def grid3d_2496():
@@ -242,6 +278,24 @@ def crescent_offaxis(device, dtype=torch.float32):
                       crescent=True, stellar_direction=True, theta_star=1.2, phi_star=0.4)
 
 
+FLOW_KEYS = dict(flow_global=True, flow_theta=True)
+SURFACE_MAX_SCATTER = 8
+# photons a cell when a kernel is held against its plain version, by the walks
+# the cell takes (``kernel.walk_mode``): what the plain version affords. Marched
+# grids of at most MARCH_SMALL_CELLS cells run the closed-form count.
+GATE_PHOTONS = {"closed": 1 << 20, "jumps": 1 << 18, "march": 1 << 16}
+MARCH_SMALL_CELLS = 4
+
+
+def gate_photons(tables, static) -> int:
+    """The photon count at which ``pool_cuda.AGREE*`` hold a configuration."""
+    from artes_tpu_torch.transport.kernel import walk_mode
+
+    mode = walk_mode(tables, static)
+    if mode == "march" and tables.opacity.shape[0] <= MARCH_SMALL_CELLS:
+        mode = "closed"
+    return GATE_PHOTONS[mode]
+
 KERNEL_CELLS = {
     "flagship": lambda dev: spectrum_tables(flagship(), dev),
     "hydrostatic39": lambda dev: spectrum_tables(hydrostatic39(), dev),
@@ -262,6 +316,37 @@ KERNEL_CELLS = {
                                                            photon_source="planet"),
     "patchy3d_small": lambda dev: spectrum_tables(patchy3d_small(), dev),
     "blended_5184": lambda dev: spectrum_tables(blended_5184(), dev),
+    # Lambert surfaces: marching walks on radial and 3-D grids
+    "lambert_tau05": lambda dev: run_tables(lambert_layer(), dev, surface_albedo=1.0),
+    "lambert_imaging25": lambda dev: imaging_tables(25, dev, atm=lambert_layer(),
+                                                    surface_albedo=0.8),
+    "thermal_surface": lambda dev: run_tables(thermal_surface_shell(), dev,
+                                              photon_source="planet", surface_albedo=0.7),
+    "thermal_surface_imaging25": lambda dev: imaging_tables(
+        25, dev, atm=thermal_surface_shell(), photon_source="planet", surface_albedo=0.7),
+    # every scattering order up to the default cap, on five shells
+    "lambert_thick": lambda dev: run_tables(lambert_thick(), dev, surface_albedo=1.0),
+    # scattering orders cut at SURFACE_MAX_SCATTER on the two 39-shell grids:
+    # the plain version marches every order through up to 200 passes
+    "hydrostatic39_surface": lambda dev: run_tables(hydrostatic39(), dev, surface_albedo=0.5,
+                                                    max_scatter=SURFACE_MAX_SCATTER),
+    "grid3d_2496_surface": lambda dev: run_tables(grid3d_2496(), dev, surface_albedo=0.5,
+                                                  max_scatter=SURFACE_MAX_SCATTER),
+    # flow diagnostics: the closed-form hook on radial grids, marching walks on 3-D ones
+    "hydrostatic39_flow": lambda dev: run_tables(hydrostatic39(), dev, **FLOW_KEYS),
+    "thermal_flow": lambda dev: run_tables(thermal_scattering_shell(), dev,
+                                           photon_source="planet", **FLOW_KEYS),
+    "imaging25_flow": lambda dev: imaging_tables(25, dev, **FLOW_KEYS),
+    "thermal_imaging25_flow": lambda dev: imaging_tables(
+        25, dev, atm=thermal_scattering_shell(), photon_source="planet", **FLOW_KEYS),
+    "grid3d_2496_flow": lambda dev: run_tables(grid3d_2496(), dev, **FLOW_KEYS),
+    "grid3d_thermal_flow": lambda dev: run_tables(grid3d_thermal_atm(), dev,
+                                                  photon_source="planet", **FLOW_KEYS),
+    "patchy3d_imaging25_surface_flow": lambda dev: imaging_tables(
+        25, dev, atm=patchy3d_small(), surface_albedo=0.5, **FLOW_KEYS),
+    "grid3d_thermal_surface_flow": lambda dev: imaging_tables(
+        25, dev, atm=grid3d_thermal_atm(), photon_source="planet", surface_albedo=0.5,
+        **FLOW_KEYS),
 }
 
 

@@ -9,13 +9,15 @@ Usage (the contract of ``artes_tpu.cli``)::
 Reads ``input/<atmosphere>/artes.in`` and ``atmosphere.fits``, runs the
 detector mode it names (spectrum, imaging_mono, imaging_broad or phase) and
 writes ``output/<run>/{input,output,plot}`` with a snapshot of the inputs.
-``--device cuda`` (the default) runs the CUDA kernel of the grid (radial or
-3-D) and fails when there is no card; ``--device cpu`` runs the plain
-PyTorch version, the only one that runs ``--f64``, ``--debug-stokes`` and
-``photon:scattering=off``. Abandoned photons (3-D geometry errors, Stokes
-anomalies) are tallied per code in ``error.log`` with the state of the first
-and last ones in photon-id order. Configurations outside the ported slices
-raise ``NotImplementedError``.
+``--device cuda`` (the default) runs the CUDA kernel of the configuration
+(radial, 3-D or marching) and fails when there is no card; ``--device cpu``
+runs the plain PyTorch version, the only one that runs ``--f64``,
+``--debug-stokes`` and ``photon:scattering=off``. ``output:flow_global`` and
+``output:flow_latitudinal`` leave ``flow_global.fits`` and
+``flow_latitudinal.fits`` in every mode but ``imaging_broad`` (the last
+wavelength's or phase angle's). Abandoned photons and failed peel walks
+(geometry errors, Stokes anomalies) are tallied per code in ``error.log``
+with the state of the first and last ones in photon-id order.
 """
 
 from __future__ import annotations
@@ -102,6 +104,14 @@ def run_main(argv=None):
     thermal = cfg.photon_source != "star"
     runs = []
 
+    def write_flow(res):
+        # (over)written per run, as the reference's write_output does
+        # (ARTES.f90:3713-3770)
+        if cfg.flow_global and res.flow_global is not None:
+            out.write_flow_global(dirs, res.flow_global, res.cell_depth)
+        if cfg.flow_theta and res.flow_theta is not None:
+            out.write_flow_latitudinal(dirs, res.flow_theta, res.flux_exit, res.cell_depth)
+
     if cfg.mode == "spectrum":
         det, results = runner.run_spectrum(atm, cfg, packages, **kw)
         report.stage2(cfg, atm, det, packages, 0, results[0].cell_depth)
@@ -110,6 +120,7 @@ def run_main(argv=None):
             out.write_spectrum_row(dirs, wl_m, res)
             out.write_optical_depth(dirs, atm, wl)
             out.write_cell_depth(dirs, wl_m, res.cell_depth)
+            write_flow(res)
             if thermal:
                 out.write_luminosity(dirs, wl_m, res, packages)
             else:
@@ -130,6 +141,7 @@ def run_main(argv=None):
             out.write_cell_luminosity(dirs, res.prep.cell_luminosity)
         else:
             out.write_normalization(dirs, cfg, atm, wl_m)
+        write_flow(res)
         runs.append(res)
         report.stage3(cfg, atm, res)
 
@@ -148,6 +160,7 @@ def run_main(argv=None):
             out.write_phase_row(dirs, ang, res)
             if not thermal and ang < 1.0:
                 out.write_normalization(dirs, cfg, atm, atm.wavelengths[0])
+            write_flow(res)
             runs.append(res)
             print(f"\rPhase angle: {ang:6.1f} degrees", end="", file=sys.stderr)
         print(file=sys.stderr)

@@ -1,9 +1,10 @@
 // Device code shared by the photon-transport kernels pool_radial.cu (radial
-// grids, closed-form walks) and pool_grid3d.cu (3-D grids, jump walks and the
-// marching cell_face walk): the table layouts, the threefry draw schedule,
+// grids, closed-form walks), pool_grid3d.cu (3-D grids, jump walks and the
+// marching cell_face walk) and pool_march.cu (Lambert surfaces and flow
+// diagnostics, marching walks): the table layouts, the threefry draw schedule,
 // the closed-form shell-chord optical depth, the Stokes algebra, the
-// scattering-angle samplers, the detector peel, the tallies' booking and
-// their block reduction. Every function lives in an anonymous namespace, so
+// scattering-angle samplers, the detector peel, the tallies' booking, the
+// flow diagnostics' accumulators and the block reduction. Every function lives in an anonymous namespace, so
 // each translation unit that includes this file gets its own copy.
 //
 // Formulas follow the XLA forms of artes_tpu/transport/kernel.py (acosf for
@@ -494,6 +495,48 @@ __device__ __forceinline__ Scal load_scal(const float* __restrict__ scal) {
 }
 
 static_assert(N_SCAL == S_BIAS + 1, "scalar layout");
+
+// ---------------------------------------------------------------- flow ----
+
+// the flow diagnostics (ARTES.f90:4992-5047): g is (ncell, 3), energy x
+// distance projected on the local (r, theta, phi) unit vectors; t is (ncell,
+// 4), the energy of full crossings up / down / south / north. Both double,
+// added into with atomics: the pointers lead into the block's shared memory
+// where the cells fit there (flow_begin, flushed once by flow_end), else
+// into the global result
+struct Flow {
+  double* g;
+  double* t;
+};
+
+__device__ __forceinline__ Flow flow_begin(double* flow_g, double* flow_t, double* shared,
+                                           int ncell, bool use_shared) {
+  if (!use_shared) return Flow{flow_g, flow_t};
+  for (int i = threadIdx.x; i < 7 * ncell; i += blockDim.x) shared[i] = 0.0;
+  __syncthreads();
+  return Flow{shared, shared + 3 * ncell};
+}
+
+__device__ __forceinline__ void flow_end(double* flow_g, double* flow_t, const double* shared,
+                                         int ncell, bool use_shared) {
+  if (!use_shared) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < 7 * ncell; i += blockDim.x) {
+    const double v = shared[i];
+    if (v != 0.0) atomicAdd(i < 3 * ncell ? flow_g + i : flow_t + (i - 3 * ncell), v);
+  }
+}
+
+__device__ __forceinline__ void flow_add_g(const Flow& fl, int cell, float wr, float wt,
+                                           float wp) {
+  atomicAdd(fl.g + 3 * cell, (double)wr);
+  atomicAdd(fl.g + 3 * cell + 1, (double)wt);
+  atomicAdd(fl.g + 3 * cell + 2, (double)wp);
+}
+
+__device__ __forceinline__ void flow_add_t(const Flow& fl, int cell, int column, float energy) {
+  atomicAdd(fl.t + 4 * cell + column, (double)energy);
+}
 
 // ---------------------------------------------------------- reduction ----
 

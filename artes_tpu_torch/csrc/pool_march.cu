@@ -1,0 +1,432 @@
+// Photon transport through Lambert surfaces and with flow diagnostics: one
+// hand-written CUDA kernel for Hopper, marching cell by cell on any grid.
+//
+// Replaces the TPU kernel artes_tpu/transport/pallas_stream.py::_build_kernel
+// (the fused regeneration-pool Pallas kernel) in its Lambert-surface
+// specialisation: the marching `march` with the in-loop Lambert draws
+// (:970-1067), the marching `tau_walk` of peels and prewalk (:1082-1117), the
+// surface peel (:1699-1710) and the peel and prewalk error tallies
+// (:1819-1828); and the flow booking (:1626-1665) on the grids that the TPU
+// kernel left to the XLA pool (3-D grids, and any grid with a surface). Its
+// plain PyTorch version is artes_tpu_torch/transport/kernel.py::run_stream in
+// walk mode "march" (_tau_walk_march, _march_cells).
+//
+// Eight compile-time instantiations, pool_march_kernel<THERMAL, IMAGE, FLOW>.
+// The surface albedo is a run-time scalar: at albedo 0 (3-D flow without a
+// surface) the floor absorbs through the same `u > albedo` test. A radial
+// grid runs with nt = np = 1.
+//
+// Design. One thread runs whole photons, grid-stride over the photon ids, on
+// the per-photon draw-site schedule of the JAX pool:
+//   emission: sites 0, 1 (stellar) or 0-5 (thermal);
+//   the forced first interaction: one site (the prewalk before it draws none);
+//   every scattering round: 5 sites (roulette, azimuth x2, zenith, tau);
+//   every pass of a transport march: 3 sites, the Lambert draws of a crossing
+//     onto the floor face, reserved on every pass.
+// There is no exit precheck: every photon marches to its end, so its site
+// counter advances as the JAX pool's does. A thread that reflects draws its
+// Lambertian direction about the ellipsoid normal, books the surface peel
+// (a marching walk from the cell above, e^-tau cos / pi on Stokes I alone,
+// counted in the Stokes-I row only) and goes on marching in the same loop
+// with the optical depth it has left: the TPU kernel's SURF_PEEL stage and
+// banked budget have no counterpart. Peels and the prewalk march cell_face
+// too, stop at the grid's edge, the floor face or an error, and fail when
+// still marching after max_crossings passes.
+//
+// Flow. Every pass of a transport march adds energy x step projected on the
+// local (r, theta, phi) unit vectors at the advanced position into the cell
+// the step was made in, and every full crossing of a radial or theta face
+// its energy (up / down / south / north): double atomics into the block's
+// shared memory where 7 ncell doubles fit there, flushed once a block, else
+// into the global result.
+//
+// Errors. A failed transport march (031, 032, 034) or prewalk (tallied under
+// 031) or thermal birth peel (tallied under "peel") abandons the photon; a
+// failed scatter peel loses its flux only. Records as pool_grid3d.cu's, with
+// the site: 0 a scatter march, 1 the first march, 2 the prewalk, 3 a scatter
+// peel (code 50; the walk's input position, cell and face). Birth peels leave
+// no record, as in the JAX pool.
+//
+// What bounds it on an H100: arithmetic, divergence and table latency, as
+// pool_grid3d.cu, with longer marches (escaping photons cross the whole grid)
+// and, with FLOW, four to five double atomics a pass. This version is the
+// simple one.
+
+#include "pool_geom3d.cuh"
+
+namespace {
+
+// N_OUT_I3 + scatter and birth peel walks failed, passes of cell_face made,
+// passes that booked flow
+constexpr int N_OUT_IM = 11;
+enum { C_EPEEL = 8, C_PASSES = 9, C_BOOKED = 10 };
+
+// outcome of a marching tau walk
+struct Walk {
+  float tau;
+  bool exited, surface, error;
+};
+
+// optical depth from (p, d), marched from `cell` with `face` as the current
+// face, to the grid's outer face (exited), the photon floor (surface) or a
+// cell_face error; still marching after max_crossings passes is an error
+// (kernel._tau_walk_march)
+__device__ Walk tau_walk_march(const Tables& T, const Grid3& G, const Scal& S, const float* p,
+                               const float* d, const int* cell0, const int* face0,
+                               unsigned long long& passes) {
+  float pos[3] = {p[0], p[1], p[2]};
+  int cell[3] = {cell0[0], cell0[1], cell0[2]};
+  int face[2] = {face0[0], face0[1]};
+  Walk w{0.0f, false, false, false};
+  for (int it = 0; it < G.max_crossings; ++it) {
+    Step st;
+    cell_face(T, G, S, pos, d, cell, face, st);
+    passes += 1;
+    w.tau += st.dist * __ldg(T.opacity + (cell[0] * G.nt + cell[1]) * G.np + cell[2]);
+    w.exited = st.grid_exit;
+    w.surface = st.axis == 1 && st.idx == G.cell_depth;
+    w.error = st.nocand || st.degen;
+    if (w.exited || w.surface || w.error) return w;
+    for (int i = 0; i < 3; ++i) {
+      pos[i] += st.dist * d[i];
+      cell[i] = st.cell[i];
+    }
+    face[0] = st.axis;
+    face[1] = st.idx;
+  }
+  w.error = true;
+  return w;
+}
+
+// unit normal of the ellipsoid through p: (x a^2, y b^2, z c^2) normalised
+__device__ __forceinline__ void surface_normal(const Scal& S, const float* p, float* n) {
+  for (int k = 0; k < 3; ++k) n[k] = p[k] * (S.ob[k] * S.ob[k]);
+  const float inv = 1.0f / fmaxf(sqrtf(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]), 1.0e-30f);
+  for (int k = 0; k < 3; ++k) n[k] *= inv;
+}
+
+// flow diagnostics of one pass (kernel._flow_book): the step's projections
+// at the advanced position p into cell cf, and a full crossing's energy
+__device__ void flow_book(const Flow& fl, const Grid3& G, const float* p, const float* d,
+                          float energy, float step, int cf, const Step& st, const int* cell,
+                          bool crossing) {
+  const float r = sqrtf(p[0] * p[0] + p[1] * p[1] + p[2] * p[2]);
+  const float theta = acosf(fminf(fmaxf(p[2] / fmaxf(r, 1.0e-30f), -1.0f), 1.0f));
+  const float phi = atan2f(p[1], p[0]);
+  const float s_t = sinf(theta), c_t = cosf(theta), s_p = sinf(phi), c_p = cosf(phi);
+  const float w = energy * step;
+  flow_add_g(fl, cf, (s_t * c_p * d[0] + s_t * s_p * d[1] + c_t * d[2]) * w,
+             (c_t * c_p * d[0] + c_t * s_p * d[1] - s_t * d[2]) * w,
+             (-s_p * d[0] + c_p * d[1]) * w);
+  if (crossing && (st.axis == 1 || st.axis == 2)) {
+    const bool outward = st.axis == 2 ? st.cell[1] > cell[1] : st.cell[0] > cell[0];
+    flow_add_t(fl, cf, st.axis == 1 ? (outward ? 0 : 1) : (outward ? 2 : 3), energy);
+  }
+}
+
+// march cell by cell until the running optical depth passes tau
+// (kernel._march_cells): the surface event at a crossing onto the floor face,
+// its peel, and the flow booking; updates pos, dir, cell, face, the Stokes
+// vector and the draw-site counter; returns M_INTER, M_EXIT, M_FLOOR
+// (absorbed at the floor) or M_ERROR with the per-code flags set
+template <bool IMAGE, bool FLOW>
+__device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float surface_albedo,
+                           const Image& img, const Flow& fl, uint32_t key_hi, uint32_t pid,
+                           float* pos, float* dir, int* cell, int* face, float* stokes,
+                           float tau, uint32_t& ctr, double* acc, unsigned long long* cnt,
+                           bool& e031, bool& e032, bool& e034) {
+  e031 = e032 = e034 = false;
+  float tau_run = 0.0f;
+  for (int it = 0; it < G.max_crossings; ++it) {
+    Step st;
+    cell_face(T, G, S, pos, dir, cell, face, st);
+    cnt[C_PASSES] += 1;
+    const int cf = (cell[0] * G.nt + cell[1]) * G.np + cell[2];
+    const float k = __ldg(T.opacity + cf);
+    const float tau_cell = st.dist * k;
+    const bool interact = tau_run + tau_cell > tau;
+    const float step = interact ? (tau - tau_run) / (k == 0.0f ? 1.0f : k) : st.dist;
+    for (int i = 0; i < 3; ++i) pos[i] += step * dir[i];
+    if constexpr (FLOW) {
+      flow_book(fl, G, pos, dir, stokes[0], step, cf, st, cell, !interact);
+      cnt[C_BOOKED] += 1;
+    }
+    const uint32_t site = ctr;
+    ctr += 3;
+    e031 = st.nocand;
+    e034 = st.degen;
+    const bool err = st.nocand || st.degen;
+    if (interact) {
+      face[0] = face[1] = 0;
+      return err ? M_ERROR : M_INTER;
+    }
+    for (int i = 0; i < 3; ++i) cell[i] = st.cell[i];
+    face[0] = st.axis;
+    face[1] = st.idx;
+    const bool floor_face = st.axis == 1 && st.idx == G.cell_depth;
+    bool absorbed = false;
+    if (floor_face) {
+      // the surface event (ARTES.f90:755-774) on this pass's own three draws
+      float u[3];
+      draws(key_hi, pid, site, 3, u);
+      absorbed = u[0] > surface_albedo;
+      if (!absorbed && !err) {
+        float normal[3];
+        surface_normal(S, pos, normal);
+        cell[0] += 1;                 // back into the cell above the surface
+        const float cos_det = normal[0] * S.det[0] + normal[1] * S.det[1] + normal[2] * S.det[2];
+        if (cos_det > 0.0f) {
+          // surface peel e^-tau cos / pi on Stokes I (ARTES.f90:4600-4708)
+          const Walk w = tau_walk_march(T, G, S, pos, S.det, cell, face, cnt[C_PASSES]);
+          const int pix = pixel_of<IMAGE>(S, img, pos);
+          if (w.exited && !w.error && w.tau < 50.0f && pix >= 0) {
+            const float v = expf(-fminf(w.tau, 500.0f)) * cos_det / PI_F * stokes[0];
+            book<IMAGE, 1>(img, pix, &v, acc);
+            cnt[3] += 1;
+          }
+        }
+        float lambert[3];
+        direction_cosine(sqrtf(u[1]), TWO_PI_F * u[2], normal, lambert);
+        for (int i = 0; i < 3; ++i) dir[i] = lambert[i];
+        stokes[1] = stokes[2] = stokes[3] = 0.0f;
+      }
+    }
+    if (err) return M_ERROR;
+    if (absorbed) return M_FLOOR;
+    if (st.grid_exit) return M_EXIT;
+    tau_run += tau_cell;
+  }
+  e032 = true;
+  return M_ERROR;
+}
+
+// -------------------------------------------------------------- kernel ----
+
+// two blocks of 256 threads an SM hold ptxas to 128 registers a thread, as
+// it chooses for the other pool kernels
+template <bool THERMAL, bool IMAGE, bool FLOW>
+__global__ void __launch_bounds__(256, 2)
+pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
+                  uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
+                  int flags, float surface_albedo, double* __restrict__ out_d,
+                  unsigned long long* __restrict__ out_i, double* flow_g, double* flow_t,
+                  int flow_shared) {
+  extern __shared__ double flow_sh[];
+  const int ncell = T.nr * G.nt * G.np;
+  Flow fl{nullptr, nullptr};
+  if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_sh, ncell, flow_shared != 0);
+  const Scal S = load_scal(scal);
+  const bool crescent = (flags & F_CRESCENT) != 0;
+  const bool biased = (flags & F_BIASED) != 0;
+
+  // I, Q, U, V sums, their squares (spectrum only), flux emitted, flux exit
+  double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  // scatter peels, photons capped, photons emitted, birth and surface peels,
+  // photons abandoned, codes 031 / 032 / 034, peel walks failed, passes,
+  // passes that booked flow
+  unsigned long long cnt[N_OUT_IM] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull,
+                                      0ull, 0ull, 0ull, 0ull, 0ull};
+
+  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
+  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_photons; i += stride) {
+    const uint32_t pid = id_lo + (uint32_t)i;
+    cnt[2] += 1;
+    float d[6];
+    float pos[3], dir[3];
+    int cell[3], face[2];
+    float st[4] = {1.0f, 0.0f, 0.0f, 0.0f};
+    uint32_t ctr;
+
+    if constexpr (THERMAL) {
+      draws6(key_hi, pid, d);
+      st[0] = emit_thermal(T, G, S, d, biased, pos, dir, cell);
+      face[0] = face[1] = 0;
+      acc[8] += (double)st[0];
+      ctr = 6;
+      // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598); a
+      // failed walk abandons the photon
+      const Walk w = tau_walk_march(T, G, S, pos, S.det, cell, face, cnt[C_PASSES]);
+      if (w.error) {
+        cnt[C_ERR] += 1;
+        cnt[C_EPEEL] += 1;
+        continue;
+      }
+      const int pix = pixel_of<IMAGE>(S, img, pos);
+      if (w.exited && w.tau < 50.0f && pix >= 0) {
+        const float v = expf(-fminf(w.tau, 500.0f)) / FOUR_PI_F * st[0];
+        book<IMAGE, 1>(img, pix, &v, acc);
+        cnt[3] += 1;
+      }
+    } else {
+      draws(key_hi, pid, 0u, 2, d);
+      emit_stellar(S, d, crescent, pos, dir);
+      // the entry cell lies in the outermost shell, behind the outer face
+      const float x = pos[0] * S.ob[0], y = pos[1] * S.ob[1], z = pos[2] * S.ob[2];
+      cell[0] = T.nr - 1;
+      locate_tp(G, x, y, z, sqrtf(x * x + y * y + z * z), cell[1], cell[2]);
+      face[0] = 1;
+      face[1] = T.nr;
+      ctr = 2;
+    }
+
+    // prewalk along the photon's direction, then the forced first interaction
+    const Walk pre = tau_walk_march(T, G, S, pos, dir, cell, face, cnt[C_PASSES]);
+    if (pre.error) {
+      cnt[C_ERR] += 1;
+      cnt[C_E031] += 1;
+      record_error(G, 31.0f, pid, pos, dir, cell, face, st[0], 0, 2.0f);
+      continue;
+    }
+    draws(key_hi, pid, ctr, 1, d);
+    ctr += 1;
+    const bool thin = pre.tau < 1.0e-6f;
+    if (thin && !pre.surface) continue;       // vacuum, no surface
+    const bool forced = !thin && pre.tau < 50.0f;
+    const float one_m_exp = 1.0f - expf(-pre.tau);
+    float tau = forced ? -logf(1.0f - d[0] * one_m_exp) : -logf(1.0f - d[0]);
+    if (forced) st[0] *= one_m_exp;
+
+    // scattering rounds (ARTES.f90:786-951); round 0 is the first march. A
+    // scatter peel that failed is recorded after the round's march, with the
+    // walk's input state, unless that march failed too
+    bool peel_failed = false;
+    float peel_pos[3] = {0.0f, 0.0f, 0.0f};
+    int peel_cell[3] = {0, 0, 0}, peel_face[2] = {0, 0};
+    for (int n_scat = 0;; ++n_scat) {
+      bool e031, e032, e034;
+      const int out = march_cells<IMAGE, FLOW>(T, G, S, surface_albedo, img, fl, key_hi, pid, pos,
+                                               dir, cell, face, st, tau, ctr, acc, cnt, e031,
+                                               e032, e034);
+      if (out == M_ERROR) {
+        cnt[C_ERR] += 1;
+        cnt[C_E031] += e031;
+        cnt[C_E032] += e032;
+        cnt[C_E034] += e034;
+        record_error(G, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat,
+                     n_scat == 0 ? 1.0f : 0.0f);
+      } else if (peel_failed) {
+        record_error(G, 50.0f, pid, peel_pos, dir, peel_cell, peel_face, st[0], n_scat, 3.0f);
+      }
+      peel_failed = false;
+      if (out != M_INTER) {
+        if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
+        break;
+      }
+      if (n_scat > 0 && n_scat >= max_scatter) {
+        cnt[1] += 1;
+        break;
+      }
+
+      heal_cell(T, G, S, pos, cell);
+      const int cf = (cell[0] * G.nt + cell[1]) * G.np + cell[2];
+      draws(key_hi, pid, ctr, 5, d);
+      ctr += 5;
+      if (d[0] < S.fstop) break;                     // roulette
+      const float alb = __ldg(T.albedo + cf);
+      const float gamma = (alb < 1.0f && alb > 0.0f) ? alb / (1.0f - S.fstop) : 1.0f;
+      for (int k = 0; k < 4; ++k) st[k] *= gamma;
+      if (st[0] <= S.pmin) break;
+
+      float contrib[4];
+      peel_prep(T, S, dir, cf, st, contrib);
+      const int pix = pixel_of<IMAGE>(S, img, pos);
+      float beta, c2b, s2b, alpha, alpha_deg;
+      sample_beta(T, cf, st, d[1], d[2], beta, c2b, s2b);
+      sample_alpha(T, cf, st, c2b, s2b, d[3], alpha, alpha_deg);
+      float dir_new[3], m[16];
+      direction_cosine(alpha, beta, dir, dir_new);
+      matrix_at(T.scatter + (size_t)cf * N_ANGLE * 16, alpha_deg, m);
+      polarization_rotation(alpha, c2b, s2b, beta < PI_F ? 1.0f : -1.0f, st, m, dir[2],
+                            dir_new[2], false);
+      for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
+
+      const Walk peel = tau_walk_march(T, G, S, pos, S.det, cell, face, cnt[C_PASSES]);
+      if (peel.error) {
+        cnt[C_EPEEL] += 1;
+        peel_failed = true;
+        for (int k = 0; k < 3; ++k) {
+          peel_pos[k] = pos[k];
+          peel_cell[k] = cell[k];
+        }
+        peel_face[0] = face[0];
+        peel_face[1] = face[1];
+      } else if (peel.exited && peel.tau < 50.0f && pix >= 0) {
+        const float w = expf(-fminf(peel.tau, 500.0f));
+        float v[4];
+        for (int k = 0; k < 4; ++k) v[k] = contrib[k] * w;
+        book<IMAGE, 4>(img, pix, v, acc);
+        cnt[0] += 1;
+      }
+
+      tau = -logf(1.0f - d[4]);
+    }
+  }
+
+  if constexpr (FLOW) flow_end(flow_g, flow_t, flow_sh, ncell, flow_shared != 0);
+  reduce_block<N_OUT_D, N_OUT_IM>(acc, cnt, out_d, out_i);
+}
+
+using KernelFn = void (*)(Tables, Grid3, const float*, Image, uint32_t, uint32_t, uint32_t, int,
+                          int, float, double*, unsigned long long*, double*, double*, int);
+// the instantiation of a variant: bit 0 thermal, bit 1 image, bit 2 flow
+KernelFn variant_fn(int variant) {
+  switch (variant) {
+    case 0: return pool_march_kernel<false, false, false>;
+    case 1: return pool_march_kernel<true, false, false>;
+    case 2: return pool_march_kernel<false, true, false>;
+    case 3: return pool_march_kernel<true, true, false>;
+    case 4: return pool_march_kernel<false, false, true>;
+    case 5: return pool_march_kernel<true, false, true>;
+    case 6: return pool_march_kernel<false, true, true>;
+    case 7: return pool_march_kernel<true, true, true>;
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// C entry point for ctypes: launches the instantiation of `variant` (bit 0
+// thermal, bit 1 image, bit 2 flow) on `stream` and returns
+// cudaGetLastError(). Per-cell tables are flat over (r, theta, phi). `tables`
+// holds the 24 device pointers of pool_grid3d's entry point, in its order;
+// the six jump tables (16-21) are not read and may be null. `sizes` holds
+// {nr, nt, np, cell_depth, max_crossings, rec_cap, nx, ny}; `eps` holds
+// {same_eps, sel2, boundary_tol, surface_albedo}. out_d: 10 doubles as the
+// radial kernel's; out_i: pool_grid3d's 8 counters, then the scatter and
+// birth peel walks that failed, the passes of cell_face made and the passes
+// that booked flow. The flow
+// diagnostics go into flow_g (ncell, 3) and flow_t (ncell, 4), summed per
+// block in `flow_shared_bytes` of shared memory when that is not 0.
+extern "C" int artes_pool_march_launch(
+    const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
+    unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
+    double* img_sums, unsigned long long* img_counts, double* out_d, unsigned long long* out_i,
+    double* flow_g, double* flow_t, int flow_shared_bytes, int blocks, int threads,
+    void* stream) {
+  auto f = [&](int i) { return (const float*)tables[i]; };
+  Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
+  Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
+          f(19), f(20), f(21), (float*)tables[22], (unsigned int*)tables[23],
+          (unsigned int)sizes[5], sizes[1], sizes[2], sizes[3], sizes[4],
+          eps[0], eps[1], eps[2]};
+  Image img{img_sums, img_counts, sizes[6], sizes[7]};
+  const KernelFn fn = variant_fn(variant);
+  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1 ||
+      flow_shared_bytes < 0 || flow_shared_bytes > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  fn<<<blocks, threads, flow_shared_bytes, (cudaStream_t)stream>>>(
+      T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, eps[3], out_d, out_i,
+      flow_g, flow_t, flow_shared_bytes);
+  return (int)cudaGetLastError();
+}
+
+// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_IM, N_IMG_D, N_IMG_I, REC_W}.
+extern "C" int artes_pool_march_layout(int* sizes) {
+  sizes[0] = N_SCAL;
+  sizes[1] = N_OUT_D;
+  sizes[2] = N_OUT_IM;
+  sizes[3] = N_IMG_D;
+  sizes[4] = N_IMG_I;
+  sizes[5] = REC_W;
+  return 0;
+}

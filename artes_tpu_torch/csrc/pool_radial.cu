@@ -1,12 +1,12 @@
 // Photon transport on radial grids: one hand-written CUDA kernel for Hopper.
 //
 // Replaces the TPU kernel artes_tpu/transport/pallas_stream.py::_build_kernel
-// (the fused regeneration-pool Pallas kernel) in its RADIAL, surfaceless,
-// flow-free specialisations: stellar or thermal sources, a single pixel (a
-// Stokes spectrum) or an nx x ny image. Its plain PyTorch version is
-// artes_tpu_torch/transport/kernel.py::run_stream.
+// (the fused regeneration-pool Pallas kernel) in its RADIAL, surfaceless
+// specialisations: stellar or thermal sources, a single pixel (a Stokes
+// spectrum) or an nx x ny image, with or without flow diagnostics. Its plain
+// PyTorch version is artes_tpu_torch/transport/kernel.py::run_stream.
 //
-// Four compile-time instantiations, pool_radial_kernel<THERMAL, IMAGE>,
+// Eight compile-time instantiations, pool_radial_kernel<THERMAL, IMAGE, FLOW>,
 // dispatched from the one C entry point, so the stellar spectrum keeps its
 // own register budget:
 //   THERMAL: emission from the emissivity CDF (sites 0-5, isotropic or
@@ -18,6 +18,12 @@
 //     MXU one-hot splat, :1711-1779). Double and 64-bit atomics are exact
 //     per add, so the TPU's bf16 hi/lo split and count-row collapse have
 //     no counterpart.
+//   FLOW: every shell segment a march walks books energy x length on the
+//     local (r, theta, phi) unit vectors at the segment's end, and every
+//     full crossing its energy up or down (the flow hook of radial.march,
+//     pallas_stream.py:1626-1665, :1970-1988): double atomics into the
+//     block's shared memory, 7 nr sums flushed once a block, or into the
+//     global result where the shells do not fit there.
 // Crescent sampling and the off-axis stellar beam are runtime scalars.
 //
 // Design. One thread per photon, grid-stride over the photon ids: a thread
@@ -54,13 +60,54 @@ namespace {
 
 // ------------------------------------------------- closed-form radial ----
 
+// the ray-constant coefficients of the flow projections (radial.march's
+// flow hook): along p + t d, r^2 and rho^2 = x^2 + y^2 are quadratics of t
+struct FlowRay {
+  float pd, p2, pdxy, pq2, dq2, lz, pz, dz;
+};
+
+__device__ __forceinline__ FlowRay make_flow_ray(const float* p, const float* d) {
+  FlowRay f;
+  f.pd = p[0] * d[0] + p[1] * d[1] + p[2] * d[2];
+  f.p2 = p[0] * p[0] + p[1] * p[1] + p[2] * p[2];
+  f.pdxy = p[0] * d[0] + p[1] * d[1];
+  f.pq2 = p[0] * p[0] + p[1] * p[1];
+  f.dq2 = d[0] * d[0] + d[1] * d[1];
+  f.lz = p[0] * d[1] - p[1] * d[0];
+  f.pz = p[2];
+  f.dz = d[2];
+  return f;
+}
+
+// book one walked segment of shell m that ends at parameter t after the
+// length dist: the projections at its end and, for a full crossing, the
+// energy in column 0 (outward) or 1 (inward); counts the segment in n_booked
+__device__ __forceinline__ void book_segment(const Flow& fl, const FlowRay& f, int m, float energy,
+                                             float dist, float t, bool crossed, int column,
+                                             unsigned long long& n_booked) {
+  const float r2 = t * (t + 2.0f * f.pd) + f.p2;
+  const float rho2 = (f.dq2 * t + 2.0f * f.pdxy) * t + f.pq2;
+  const float inv_r = rsqrtf(fmaxf(r2, 1.0e-30f));
+  const float inv_rho = rsqrtf(fmaxf(rho2, 1.0e-30f));
+  const float w = energy * dist;
+  const float tnum = (f.pz + t * f.dz) * (f.pdxy + t * f.dq2) - rho2 * f.dz;
+  flow_add_g(fl, m, (f.pd + t) * inv_r * w, tnum * (inv_rho * inv_r) * w, f.lz * inv_rho * w);
+  if (crossed) flow_add_t(fl, m, column, energy);
+  n_booked += 1;
+}
+
 // march to the optical depth tau_budget (radial.march): M_INTER at an
 // interaction, with the path length s_stop and the shell cr; M_EXIT when the
 // photon leaves the grid through the top, M_FLOOR when it reaches the floor
-// (absorbed)
+// (absorbed). FLOW books every segment walked, of a photon of Stokes I
+// `energy`, and counts them in n_booked
+template <bool FLOW>
 __device__ int march(const Tables& T, const Scal& S, const float* p, const float* d,
-                      float tau_budget, float& s_stop, int& cr) {
+                      float tau_budget, float& s_stop, int& cr, float energy, const Flow& fl,
+                      unsigned long long& n_booked) {
   const Ray r = make_ray(S, p, d);
+  FlowRay f;
+  if constexpr (FLOW) f = make_flow_ray(p, d);
   float s_surf;
   const bool surface_hit = floor_hit(r, S, s_surf);
   float cum = 0.0f;
@@ -74,7 +121,14 @@ __device__ int march(const Tables& T, const Scal& S, const float* p, const float
     if (c_new > tau_budget) {
       s_stop = start + (tau_budget - cum) / (k == 0.0f ? 1.0f : k);
       cr = m;
+      if constexpr (FLOW) {
+        if (seg > 0.0f) book_segment(fl, f, m, energy, s_stop - start, s_stop, false, 1,
+                                    n_booked);
+      }
       return M_INTER;
+    }
+    if constexpr (FLOW) {
+      if (seg > 0.0f) book_segment(fl, f, m, energy, seg, start + seg, true, 1, n_booked);
     }
     cum = c_new;
     e_hi = e_lo;
@@ -84,11 +138,19 @@ __device__ int march(const Tables& T, const Scal& S, const float* p, const float
   for (int m = 0; m < T.nr; ++m) {
     const float h_hi = face_out(r, __ldg(T.rfront + m + 1));
     const float k = __ldg(T.opacity + m);
-    const float c_new = cum + k * fmaxf(h_hi - h_lo, 0.0f);
+    const float seg = fmaxf(h_hi - h_lo, 0.0f);
+    const float c_new = cum + k * seg;
     if (c_new > tau_budget) {
       s_stop = h_lo + (tau_budget - cum) / (k == 0.0f ? 1.0f : k);
       cr = m;
+      if constexpr (FLOW) {
+        if (seg > 0.0f) book_segment(fl, f, m, energy, s_stop - h_lo, s_stop, false, 0,
+                                    n_booked);
+      }
       return M_INTER;
+    }
+    if constexpr (FLOW) {
+      if (seg > 0.0f) book_segment(fl, f, m, energy, seg, h_lo + seg, true, 0, n_booked);
     }
     cum = c_new;
     h_lo = h_hi;
@@ -141,19 +203,25 @@ __device__ float emit_thermal(const Tables& T, const Scal& S, const float* u, bo
 
 // ------------------------------------------------------------- kernel ----
 
-template <bool THERMAL, bool IMAGE>
+template <bool THERMAL, bool IMAGE, bool FLOW>
 __global__ void __launch_bounds__(256)
 pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t n_photons,
                    uint32_t key_hi, uint32_t id_lo, int max_scatter, int flags,
-                   double* __restrict__ out_d, unsigned long long* __restrict__ out_i) {
+                   double* __restrict__ out_d, unsigned long long* __restrict__ out_i,
+                   double* flow_g, double* flow_t, int flow_shared) {
+  extern __shared__ double flow_sh[];
+  Flow fl{nullptr, nullptr};
+  if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_sh, T.nr, flow_shared != 0);
   const Scal S = load_scal(scal);
   const bool crescent = (flags & F_CRESCENT) != 0;
   const bool biased = (flags & F_BIASED) != 0;
 
   // I, Q, U, V sums, their squares (spectrum only), flux emitted, flux exit
   double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  // scatter peels, photons capped, photons emitted, birth peels
-  unsigned long long cnt[N_OUT_I] = {0ull, 0ull, 0ull, 0ull};
+  // scatter peels, photons capped, photons emitted, birth peels; with FLOW
+  // also the segments that booked flow
+  constexpr int NI = N_OUT_I + (FLOW ? 1 : 0);
+  unsigned long long cnt[NI] = {0ull, 0ull, 0ull, 0ull};
 
   // 64-bit index: a 32-bit one would wrap past n_photons near 2^32
   const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
@@ -198,7 +266,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
     if (forced) st[0] *= one_m_exp;
     float s_stop;
     int cr;
-    const int first = march(T, S, pos, dir, tau, s_stop, cr);
+    const int first = march<FLOW>(T, S, pos, dir, tau, s_stop, cr, st[0], fl, cnt[NI - 1]);
     if (first != M_INTER) {
       if (THERMAL && first == M_EXIT) acc[9] += (double)st[0];
       continue;
@@ -240,7 +308,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
 
       tau = -logf(1.0f - d[4]);
       for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
-      const int out = march(T, S, pos, dir, tau, s_stop, cr);
+      const int out = march<FLOW>(T, S, pos, dir, tau, s_stop, cr, st[0], fl, cnt[NI - 1]);
       if (out != M_INTER) {
         if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
         break;
@@ -253,19 +321,24 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
     }
   }
 
-  reduce_block<N_OUT_D, N_OUT_I>(acc, cnt, out_d, out_i);
+  if constexpr (FLOW) flow_end(flow_g, flow_t, flow_sh, T.nr, flow_shared != 0);
+  reduce_block<N_OUT_D, NI>(acc, cnt, out_d, out_i);
 }
 
 
-// the instantiation of a variant: bit 0 thermal, bit 1 image
+// the instantiation of a variant: bit 0 thermal, bit 1 image, bit 2 flow
 using KernelFn = void (*)(Tables, const float*, Image, uint32_t, uint32_t, uint32_t, int, int,
-                          double*, unsigned long long*);
+                          double*, unsigned long long*, double*, double*, int);
 KernelFn variant_fn(int variant) {
   switch (variant) {
-    case 0: return pool_radial_kernel<false, false>;
-    case 1: return pool_radial_kernel<true, false>;
-    case 2: return pool_radial_kernel<false, true>;
-    case 3: return pool_radial_kernel<true, true>;
+    case 0: return pool_radial_kernel<false, false, false>;
+    case 1: return pool_radial_kernel<true, false, false>;
+    case 2: return pool_radial_kernel<false, true, false>;
+    case 3: return pool_radial_kernel<true, true, false>;
+    case 4: return pool_radial_kernel<false, false, true>;
+    case 5: return pool_radial_kernel<true, false, true>;
+    case 6: return pool_radial_kernel<false, true, true>;
+    case 7: return pool_radial_kernel<true, true, true>;
     default: return nullptr;
   }
 }
@@ -273,25 +346,32 @@ KernelFn variant_fn(int variant) {
 }  // namespace
 
 // C entry point for ctypes: launches the instantiation of `variant` (bit 0
-// thermal, bit 1 image) on `stream` and returns cudaGetLastError().
+// thermal, bit 1 image, bit 2 flow) on `stream` and returns
+// cudaGetLastError().
 // out_d: 10 doubles (I, Q, U, V sums and their squares, zero for an image;
 // flux emitted; flux exit); out_i: 4 counters (scatter peels, photons capped
-// at max_scatter, photons emitted, birth peels). An image (nx * ny pixels)
-// is added into img_sums (npix, 8) and img_counts (npix, 2).
+// at max_scatter, photons emitted, birth peels, and with flow a fifth: the
+// segments that booked flow). An image (nx * ny pixels)
+// is added into img_sums (npix, 8) and img_counts (npix, 2); the flow
+// diagnostics into flow_g (nr, 3) and flow_t (nr, 4), summed per block in
+// `flow_shared_bytes` of shared memory when that is not 0.
 extern "C" int artes_pool_radial_launch(
     const float* rfront, const float* opacity, const float* albedo, const float* scatter,
     const float* prefix, const float* p_int, const float* consts, const float* scal,
     const float* emis_cum, const float* cell_weight, int nr, unsigned int n_photons,
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags, int nx,
     int ny, double* img_sums, unsigned long long* img_counts, double* out_d,
-    unsigned long long* out_i, int blocks, int threads, void* stream) {
+    unsigned long long* out_i, double* flow_g, double* flow_t, int flow_shared_bytes,
+    int blocks, int threads, void* stream) {
   Tables T{rfront, opacity, albedo, scatter, prefix, p_int, consts, emis_cum, cell_weight, nr};
   Image img{img_sums, img_counts, nx, ny};
   const KernelFn fn = variant_fn(variant);
-  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1)
+  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1 ||
+      flow_shared_bytes < 0 || flow_shared_bytes > 48 * 1024)
     return (int)cudaErrorInvalidValue;
-  fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(T, scal, img, n_photons, key_hi, id_lo,
-                                                   max_scatter, flags, out_d, out_i);
+  fn<<<blocks, threads, flow_shared_bytes, (cudaStream_t)stream>>>(
+      T, scal, img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, flow_g, flow_t,
+      flow_shared_bytes);
   return (int)cudaGetLastError();
 }
 

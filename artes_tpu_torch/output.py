@@ -3,10 +3,9 @@
 Counterpart of ``artes_tpu.output`` (the reference's ``write_output``,
 ARTES.f90:3472-3772, the run report, :3843-4152, and ``plot.dat``,
 :1328-1348): spectrum, phase, photometry, luminosity, optical depth, cell
-depth and normalization tables, the Stokes, error and cell-luminosity FITS
-images, the banner/log report and the error log. File formats and units
-match the reference and the JAX package. The flow FITS files wait for the
-flow slice.
+depth and normalization tables, the Stokes, error, cell-luminosity and flow
+FITS images, the banner/log report and the error log. File formats and
+units match the reference and the JAX package.
 """
 
 from __future__ import annotations
@@ -106,6 +105,31 @@ def write_luminosity(dirs: OutputDirs, wavelength_m: float, res: WavelengthResul
 def write_cell_luminosity(dirs: OutputDirs, lum):
     """cell_luminosity.fits (ARTES.f90:3658), NAXIS order (nphi, ntheta, nr)."""
     write_fits(dirs.path("cell_luminosity.fits"), [(None, np.asarray(lum).transpose(2, 1, 0))])
+
+
+def write_flow_global(dirs: OutputDirs, flow, cell_depth: int = 0):
+    """flow_global.fits: per-cell unit flow vectors (ARTES.f90:3715-3742).
+
+    ``flow``: (nr, ntheta, nphi, 3) summed energy x distance projections,
+    zeroed below the photon floor and normalised per cell; NAXIS order
+    (nphi, ntheta, nr, 3)."""
+    f = np.array(flow, np.float64)
+    f[:cell_depth] = 0.0
+    norm = np.linalg.norm(f, axis=-1, keepdims=True)
+    f = np.where(norm > 0, f / np.maximum(norm, 1e-300), 0.0)
+    write_fits(dirs.path("flow_global.fits"), [(None, f.transpose(2, 1, 0, 3))])
+
+
+def write_flow_latitudinal(dirs: OutputDirs, flow, flux_exit: float, cell_depth: int = 0):
+    """flow_latitudinal.fits: (nr, ntheta, nphi, 4) boundary-crossing
+    tallies [up, down, south, north], zeroed below the photon floor and
+    normalised to the emergent flux when that is positive
+    (ARTES.f90:3744-3770)."""
+    f = np.array(flow, np.float64)
+    f[:cell_depth] = 0.0
+    if flux_exit > 0:
+        f = f / flux_exit
+    write_fits(dirs.path("flow_latitudinal.fits"), [(None, f.transpose(2, 1, 0, 3))])
 
 
 def write_normalization(dirs: OutputDirs, cfg: ArtesConfig, atm, wavelength_m: float):
@@ -255,8 +279,7 @@ _ERR_SITES = {0: "scatter march", 1: "first walk", 2: "prewalk",
 
 def write_error_log(dirs: OutputDirs, entries, records=None):
     """error.log: numbered error tallies plus captured error-event state
-    dumps (ARTES.f90:3397-3416). Nothing on the closed-form radial path
-    records an error, so the spectrum CLI does not call it yet."""
+    dumps (ARTES.f90:3397-3416)."""
     path = os.path.join(dirs.base, "error.log")
     with open(path, "a") as fh:
         for code, count in entries:

@@ -8,9 +8,9 @@ photons in chunks of at most 2^30 with continuous 64-bit photon ids, so the
 (seed, id) -> photon stream mapping does not depend on the chunking.
 
 Dispatch follows the tables' device and nothing else: CUDA tables run the
-hand-written kernel of their grid (``pool_cuda.run_stream_cuda``: radial or
-3-D), CPU tables the plain PyTorch version (``kernel.run_stream``). A configuration outside the slice
-raises ``NotImplementedError`` on every device; nothing falls back.
+hand-written kernel of their configuration (``pool_cuda.run_stream_cuda``:
+radial, 3-D or marching), CPU tables the plain PyTorch version
+(``kernel.run_stream``). Nothing falls back.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from artes_tpu_torch.config import ArtesConfig, DetectorSetup, detector_setup
 from artes_tpu_torch.constants import PI, planck_lambda
 from artes_tpu_torch.transport import pool_cuda
 from artes_tpu_torch.transport.kernel import (ERR_RECORD_K, ERR_RECORD_W, KernelStatic,
-                                              check_slice, run_stream, select_error_records)
+                                              run_stream, select_error_records)
 from artes_tpu_torch.transport.tables import PreparedWavelength, build_tables
 
 CHUNK = 1 << 30
@@ -70,7 +70,7 @@ class WavelengthResult:
     photometry: np.ndarray      # (11,) (ARTES.f90:977-1004)
     flux_emitted: float         # unitless Stokes-I tallies (thermal)
     flux_exit: float
-    n_error: int                # photons abandoned (3-D marches, Stokes anomalies)
+    n_error: int                # photons abandoned (marches, prewalks, Stokes anomalies)
     n_alive_at_cap: int
     cell_depth: int
     prep: PreparedWavelength
@@ -81,6 +81,9 @@ class WavelengthResult:
     # the first and last ERR_RECORD_K error records in photon-id order
     error_records: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros((0, ERR_RECORD_W)))
+    # flow diagnostics (output:flow_global / flow_latitudinal), else None
+    flow_global: np.ndarray | None = None   # (nr, ntheta, nphi, 3)
+    flow_theta: np.ndarray | None = None    # (nr, ntheta, nphi, 4)
 
 
 def _kernel_static(cfg: ArtesConfig, det: DetectorSetup, atm, crescent: bool) -> KernelStatic:
@@ -119,7 +122,6 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
         raise ValueError(f"unsupported device {device}")
     prep = build_tables(atm, cfg, det, wl_index, dtype=dtype, device=device)
     static = _kernel_static(cfg, det, atm, crescent)
-    check_slice(prep.tables, static)
 
     if device.type == "cuda":
         def kern(n, id_hi, id_lo):
@@ -131,6 +133,9 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
             return run_stream(prep.tables, static, n, seed, width, id_hi, id_lo)
 
     detector = np.zeros((det.nx * det.ny, 4, 3), np.float64)
+    shape3 = (atm.nr, atm.ntheta, atm.nphi)
+    flow_g = np.zeros(shape3 + (3,), np.float64) if static.track_flow else None
+    flow_t = np.zeros(shape3 + (4,), np.float64) if static.track_flow else None
     flux_emitted = flux_exit = 0.0
     n_alive = n_error = n_anom = 0
     error_codes = np.zeros(4, np.int64)
@@ -145,6 +150,9 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
         n = min(chunk, packages - start, (1 << 32) - (start & 0xFFFFFFFF))
         out = kern(n, start >> 32, start & 0xFFFFFFFF)
         detector += out["detector"].cpu().numpy().astype(np.float64)
+        if static.track_flow:
+            flow_g += out["flow_global"].cpu().numpy().reshape(flow_g.shape)
+            flow_t += out["flow_theta"].cpu().numpy().reshape(flow_t.shape)
         flux_emitted += float(out["flux_emitted"])
         flux_exit += float(out["flux_exit"])
         n_alive += int(out["n_alive_at_cap"])
@@ -168,7 +176,8 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
         flux_emitted=flux_emitted, flux_exit=flux_exit, n_error=n_error,
         n_alive_at_cap=n_alive, cell_depth=prep.cell_depth, prep=prep, error_codes=error_codes,
         n_stokes_anomaly=n_anom,
-        error_records=select_error_records(records, ERR_RECORD_K).numpy())
+        error_records=select_error_records(records, ERR_RECORD_K).numpy(),
+        flow_global=flow_g, flow_theta=flow_t)
 
 
 def photometry_from_detector(detector: np.ndarray) -> np.ndarray:

@@ -20,23 +20,37 @@ the events, draw sites and tallies are those of the JAX pool:
   march and consumes one site;
 * every later (LIVE) round draws five sites: roulette, two azimuth draws,
   the zenith draw and the optical depth;
-* on a 3-D grid a march advances the site counter by 3 for every cell
-  crossing it makes (the sites of the in-march Lambert draws, which are
-  reserved whether or not a surface consumes them).
+* a march through ``geometry.cell_face`` advances the site counter by 3 for
+  every pass of its loop: the sites of the in-march Lambert draws, reserved
+  whether or not a surface consumes them.
 
-Radial grids take the closed-form walks of ``radial.py``, which cannot fail.
-3-D grids take the jump walks of ``jumps.py`` for peels, the prewalk and an
-exit precheck, and march ``geometry.cell_face`` cell by cell to the next
-interaction; that march can fail (error 031: no candidate face, 032: still
-marching after ``max_crossings``, 034: degenerate floor bounce), and each
-failure is tallied per code and kept as a 16-column record
-(:data:`ERR_RECORD_W`). Of all records of a run the first
+Three kinds of walk, chosen by :func:`walk_mode` as the JAX package chooses:
+
+* ``closed``: radial grids without a Lambert surface take the closed-form
+  walks of ``radial.py``, which cannot fail; flow diagnostics ride the
+  ``flow`` hook of ``radial.march``;
+* ``jumps``: 3-D grids without a surface and without flow take the jump
+  walks of ``jumps.py`` for peels, the prewalk and an exit precheck, and
+  march ``cell_face`` cell by cell to the next interaction;
+* ``march``: any grid with a Lambert surface, and 3-D grids with flow, march
+  ``cell_face`` for everything: peels and the prewalk (:func:`_tau_walk_march`)
+  and the transport march, with no exit precheck. The Lambert event, its
+  surface peel and the flow booking are branches of that march
+  (:func:`_march_cells`).
+
+A march can fail (error 031: no candidate face, 032: still marching after
+``max_crossings``, 034: degenerate floor bounce), and so can a marching peel
+or prewalk. A failed transport march, a failed prewalk (tallied under 031)
+and a failed thermal birth peel abandon the photon; a failed scatter peel
+drops that peel's flux only. Failures are tallied per code and kept as
+16-column records (:data:`ERR_RECORD_W`), apart from birth peels, which the
+JAX package does not record either. Of all records of a run the first
 :data:`ERR_RECORD_K` and the last :data:`ERR_RECORD_K` in photon-id order
 are returned, a rule that does not depend on how photons are scheduled.
 
-Slice: radial and 3-D grids, stellar (any beam direction, crescent sampling)
-or thermal (isotropic or Gordon-biased) sources, any detector size, no
-surface, no flow (:func:`check_slice` names the ROADMAP slice of those).
+Covers radial and 3-D grids, stellar (any beam direction, crescent sampling)
+or thermal (isotropic or Gordon-biased) sources, any detector size, Lambert
+surfaces and the flow diagnostics ``flow_global`` and ``flow_theta``.
 """
 
 from __future__ import annotations
@@ -57,7 +71,8 @@ from artes_tpu_torch.transport import sampling as S
 TWO_PI = 2.0 * math.pi
 # an error record: [code, photon id, pos x3, dir x3, cell x3, face x2,
 # Stokes I, scatterings so far, site] (artes_tpu.transport.kernel); site 0 is
-# the scatter march, 4 the Stokes anomaly of --debug-stokes
+# the scatter march, 1 the first march (marching walks only), 2 the prewalk,
+# 3 a scatter peel (code 50), 4 the Stokes anomaly of --debug-stokes
 ERR_RECORD_W = 16
 ERR_RECORD_K = 8    # records kept from each end of a run, in photon-id order
 
@@ -106,21 +121,19 @@ class TransportTables:
     photon_bias: torch.Tensor    # Gordon emission bias (thermal, biased)
     star_theta: torch.Tensor     # off-axis stellar beam angles [rad]
     star_phi: torch.Tensor
-    jump: J.JumpTables | None = None   # opacity-jump tables (3-D grids)
+    jump: J.JumpTables | None = None   # opacity-jump tables (3-D grids that take jump walks)
 
 
-def check_slice(tables: TransportTables, static: KernelStatic) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP slice of a config
-    this package does not cover yet (the same rule on every device)."""
-    later = [
-        (static.has_surface or float(tables.surface_albedo) > 0.0,
-         "Lambert surfaces: surface slice (ROADMAP queue 1 item 8)"),
-        (static.track_flow,
-         "flow diagnostics: flow slice (ROADMAP queue 1 item 8)"),
-    ]
-    for unsupported, what in later:
-        if unsupported:
-            raise NotImplementedError(f"not ported yet: {what}")
+def walk_mode(tables: TransportTables, static: KernelStatic) -> str:
+    """``"closed"``, ``"jumps"`` or ``"march"``: the walks a configuration
+    takes (``radial.use_closed_form`` and ``_use_jumps`` of the JAX
+    package)."""
+    if RAD.use_closed_form(tables.grid, static):
+        return "closed"
+    radial_grid = tables.grid.ntheta == 1 and tables.grid.nphi == 1
+    if not radial_grid and not static.track_flow and not static.has_surface:
+        return "jumps"
+    return "march"
 
 
 def flat_cell(grid: G.GridGeometry, cell):
@@ -299,90 +312,211 @@ def _tau_walk(t: TransportTables, pos, dirn, cell):
     return w["tau"], w["surface"], w
 
 
-def _march_cells(t: TransportTables, static: KernelStatic, pos, dirn, cell, face, tau,
-                 marching):
-    """March ``geometry.cell_face`` cell by cell until the running optical
-    depth passes ``tau`` (ARTES.f90:687-778 without its surface and flow
-    branches). Photons leave the loop at an interaction, at the grid's outer
-    face, at the photon floor (absorbed) or with an error; what still
-    marches after ``static.max_crossings`` crossings is error 032. Returns
-    the new ``pos, cell, face``, the outcome masks and ``crossings``, the
-    number of loop passes each photon made."""
+def _tau_walk_march(t: TransportTables, static: KernelStatic, pos, dirn, cell, face, active):
+    """Optical depth of active photons from ``pos`` along ``dirn``, marched
+    through ``geometry.cell_face`` from ``cell`` with ``face`` as the
+    current face (the peel walk and prewalk of ARTES.f90:623-656,
+    :4542-4569). A photon stops at the grid's outer face (``exited``), at
+    the photon floor (``surface``) or on a ``cell_face`` error (``error``);
+    ``capped`` marks those still marching after ``static.max_crossings``
+    passes. Returns a dict of ``tau`` and the four masks."""
     g = t.grid
     n = pos.shape[0]
     dev = pos.device
-    pos, cell, face = pos.clone(), cell.clone(), face.clone()
+    tau = torch.zeros(n, dtype=pos.dtype, device=dev)
+    flags = {k: torch.zeros(n, dtype=torch.bool, device=dev)
+             for k in ("exited", "surface", "error", "capped")}
+    idx = active.nonzero()[:, 0]
+    p, c, f = pos[idx], cell[idx], face[idx]
+    d = dirn[idx] if dirn.dim() == 2 else dirn.expand_as(p)
+    for _ in range(static.max_crossings):
+        if idx.numel() == 0:
+            break
+        out = G.cell_face(g, p, d, c, f, t.cell_depth)
+        tau[idx] += out["distance"] * t.opacity[flat_cell(g, c)]
+        nf = out["next_face"]
+        hit = (nf[:, 0] == 1) & (nf[:, 1] == t.cell_depth)
+        flags["exited"][idx] = out["grid_exit"]
+        flags["surface"][idx] = hit
+        flags["error"][idx] = out["error"]
+        still = ~(out["grid_exit"] | out["error"] | hit)
+        idx = idx[still]
+        p = (p + out["distance"][:, None] * d)[still]
+        d, c, f = d[still], out["cell_out"][still], nf[still]
+    flags["capped"][idx] = True
+    return {"tau": tau, **flags}
+
+
+def _flow_book(flow, g: G.GridGeometry, pos, dirn, energy, step, cf, out, cell, crossing):
+    """Flow diagnostics of one pass of the marching loop (ARTES.f90:711-744,
+    :4992-5047) into ``flow``, the float64 triple ``(ncell, 3)``, ``(ncell,
+    4)`` and ``(ncell,)``: energy x step projected on the local (r, theta,
+    phi) unit vectors at the advanced position ``pos``, booked into the cell
+    the step was made in (``cf``); for a full crossing of a radial or theta
+    face, the energy in column 0 up / 1 down / 2 south / 3 north of that
+    cell; and energy x step itself, the unsigned total the projections are
+    parts of."""
+    flow_g, flow_t, flow_path = flow
+    x, y, z = pos.unbind(-1)
+    r = torch.sqrt(x * x + y * y + z * z)
+    theta = torch.arccos(torch.clamp(z / torch.clamp_min(r, 1e-300), -1.0, 1.0))
+    phi = torch.arctan2(y, x)
+    st, ct, sp, cp = torch.sin(theta), torch.cos(theta), torch.sin(phi), torch.cos(phi)
+    dx, dy, dz = dirn.unbind(-1)
+    proj = torch.stack([st * cp * dx + st * sp * dy + ct * dz,
+                        ct * cp * dx + ct * sp * dy - st * dz,
+                        -sp * dx + cp * dy], dim=-1) * (energy * step)[:, None]
+    flow_g.index_add_(0, cf, proj.to(torch.float64))
+    flow_path.index_add_(0, cf, (energy * step).to(torch.float64))
+    axis = out["next_face"][:, 0]
+    outward = torch.where(axis == 2, out["cell_out"][:, 1] > cell[:, 1],
+                          out["cell_out"][:, 0] > cell[:, 0])
+    column = torch.where(axis == 1, torch.where(outward, 0, 1), torch.where(outward, 2, 3))
+    ok = crossing & ((axis == 1) | (axis == 2))
+    flow_t.index_put_((cf[ok], column[ok]), energy[ok].to(torch.float64), accumulate=True)
+
+
+def _surface_normal(g: G.GridGeometry, pos):
+    """Unit normal of the ellipsoid through ``pos``: (x a^2, y b^2, z c^2)
+    normalised."""
+    scale = torch.tensor([g.ob_ax * g.ob_ax, g.ob_by * g.ob_by, g.ob_cz * g.ob_cz],
+                         dtype=pos.dtype, device=pos.device)
+    normal = pos * scale
+    return normal / torch.clamp_min(torch.sqrt((normal * normal).sum(-1, keepdim=True)), 1e-300)
+
+
+def _march_cells(t: TransportTables, static: KernelStatic, k0, pid, ctr, pos, dirn, cell, face,
+                 stokes, tau, marching, book_first=None, flow=None):
+    """March ``geometry.cell_face`` cell by cell until the running optical
+    depth passes ``tau`` (ARTES.f90:687-778). Photons leave the loop at an
+    interaction, at the grid's outer face, absorbed at the photon floor or
+    with an error; what still marches after ``static.max_crossings`` passes
+    is error 032.
+
+    At a crossing onto the floor face the pass's own three draws (site
+    ``ctr`` + 3 x passes made) decide the surface event (:755-774): the
+    photon is absorbed when the first exceeds the surface albedo, else it is
+    reflected unless ``cell_face`` erred: a Lambertian direction about the
+    ellipsoid normal, Q = U = V = 0, the cell above the surface, and the
+    same march goes on with the optical depth it has left. A reflection
+    visible from the observer peels ``e^-tau cos / pi`` on Stokes I through
+    ``book_first(pos, value, ok)`` (:4600-4708). With ``flow`` every pass
+    books its flow diagnostics (:func:`_flow_book`).
+
+    Returns a dict of the new ``pos``, ``dirn``, ``cell``, ``face`` and
+    ``stokes``, the outcome masks ``inter``, ``exited``, ``e031``, ``e034``
+    and ``e032``, and ``crossings``, the passes each photon made."""
+    g = t.grid
+    n = pos.shape[0]
+    dev = pos.device
+    pos, dirn, cell, face, stokes = (v.clone() for v in (pos, dirn, cell, face, stokes))
     flags = {k: torch.zeros(n, dtype=torch.bool, device=dev)
              for k in ("inter", "exited", "e031", "e034", "e032")}
     crossings = torch.zeros(n, dtype=torch.int64, device=dev)
     idx = marching.nonzero()[:, 0]
     tau_run = torch.zeros_like(tau[idx])
-    for _ in range(static.max_crossings):
+    for it in range(static.max_crossings):
         if idx.numel() == 0:
             break
         p, d, c, f, tb = pos[idx], dirn[idx], cell[idx], face[idx], tau[idx]
         out = G.cell_face(g, p, d, c, f, t.cell_depth)
         dist = out["distance"]
-        k = t.opacity[flat_cell(g, c)]
+        cf = flat_cell(g, c)
+        k = t.opacity[cf]
         tau_cell = dist * k
         interact = tau_run + tau_cell > tb
         s_int = (tb - tau_run) / torch.where(k == 0.0, 1.0, k)
-        pos[idx] = p + torch.where(interact, s_int, dist)[:, None] * d
+        step = torch.where(interact, s_int, dist)
+        p = p + step[:, None] * d
+        pos[idx] = p
         crossing = ~interact
+        if flow is not None:
+            _flow_book(flow, g, p, d, stokes[idx, 0], step, cf, out, c, crossing)
         nf = out["next_face"]
-        # without a Lambert surface the photon floor absorbs
         floor_hit = crossing & (nf[:, 0] == 1) & (nf[:, 1] == t.cell_depth)
-        cell[idx] = torch.where(crossing[:, None], out["cell_out"], c)
+        absorbed = torch.zeros_like(floor_hit)
+        cell_after = out["cell_out"]
+        if bool(floor_hit.any()):
+            u_s, u_l1, u_l2 = R.uniform_n_kk(k0, pid[idx], ctr[idx] + 3 * it, 3, p.dtype)
+            absorbed = floor_hit & (u_s > t.surface_albedo)
+            reflected = floor_hit & ~absorbed & ~out["error"]
+            if bool(reflected.any()):
+                rf = reflected.nonzero()[:, 0]
+                p_r = p[rf]
+                normal = _surface_normal(g, p_r)
+                cos = (normal * t.det_dir).sum(-1)
+                visible = cos > 0.0
+                above = cell_after[rf] + torch.tensor([1, 0, 0], dtype=c.dtype, device=dev)
+                walk = _tau_walk_march(t, static, p_r, t.det_dir, above, nf[rf], visible)
+                weight = torch.exp(-torch.clamp_max(walk["tau"], 500.0)) * cos / math.pi
+                ok = (visible & walk["exited"] & (walk["tau"] < 50.0) & ~walk["error"])
+                book_first(p_r, weight * stokes[idx[rf], 0], ok)
+                stokes[idx[rf], 1:] = 0.0
+                dirn[idx[rf]] = M.direction_cosine(torch.sqrt(u_l1[rf]), TWO_PI * u_l2[rf],
+                                                   normal)
+                cell_after = cell_after.clone()
+                cell_after[rf, 0] += 1
+        cell[idx] = torch.where(crossing[:, None], cell_after, c)
         face[idx] = torch.where(crossing[:, None], nf, torch.zeros_like(f))
         flags["inter"][idx] = interact
         flags["exited"][idx] = crossing & out["grid_exit"] & ~floor_hit
         flags["e031"][idx] = out["err_nocand"]
         flags["e034"][idx] = out["err_degen"]
         crossings[idx] += 1
-        still = crossing & ~out["grid_exit"] & ~floor_hit & ~out["error"]
+        still = crossing & ~out["grid_exit"] & ~absorbed & ~out["error"]
         idx = idx[still]
         tau_run = (tau_run + tau_cell)[still]
     flags["e032"][idx] = True
-    return pos, cell, face, flags, crossings
+    return {"pos": pos, "dirn": dirn, "cell": cell, "face": face, "stokes": stokes,
+            "crossings": crossings, **flags}
 
 
-def _march(t: TransportTables, static: KernelStatic, pos, dirn, cell, face, tau, active,
-           walk=None):
+def _march(t: TransportTables, static: KernelStatic, k0, pid, ctr, pos, dirn, cell, face,
+           stokes, tau, active, walk=None, book_first=None, flow=None):
     """Walk active photons to the sampled optical depth ``tau``. Returns a
-    dict: the new ``pos``, ``cell`` and ``face``; ``inter`` (interaction),
-    ``exited`` (left through the top), ``error`` and the per-code masks
-    ``e031``/``e032``/``e034``; ``sites``, the draw sites the march reserved.
+    dict: the new ``pos``, ``dirn``, ``cell``, ``face`` and ``stokes``;
+    ``inter`` (interaction), ``exited`` (left through the top), ``error``
+    and the per-code masks ``e031``/``e032``/``e034``; ``sites``, the draw
+    sites the march reserved.
 
-    A radial grid takes the closed form (no errors, no sites). A 3-D grid
-    first checks the sampled depth against the jump walk's exact total along
-    the ray: a photon that cannot reach it exits, or is absorbed at the
-    floor, without marching; the others march cell by cell, reserving three
-    draw sites per crossing. ``walk`` is :func:`_tau_walk`'s third result
-    for the same ray."""
-    if walk is None:
-        walk = _tau_walk(t, pos, dirn, cell)[2]
+    ``closed`` walks take the closed form (no errors, no sites; ``flow``
+    rides its hook). ``jumps`` walks first check the sampled depth against
+    the jump walk's exact total along the ray: a photon that cannot reach it
+    exits, or is absorbed at the floor, without marching; the others march
+    cell by cell. ``march`` walks march every photon to its end, through the
+    surface event and the flow booking of :func:`_march_cells`. A cell-by-cell
+    march reserves three draw sites per pass. ``walk`` is :func:`_tau_walk`'s
+    third result for the same ray (``closed`` and ``jumps``)."""
+    mode = walk_mode(t, static)
     false = torch.zeros_like(active)
-    if t.jump is None:
+    if mode == "closed":
+        if walk is None:
+            walk = _tau_walk(t, pos, dirn, cell)[2]
         a2, b2, c2, rf, kx, rfl, peps = _radial_lists(t)
         mo = RAD.march(a2, b2, c2, rf, kx, rfl, peps, *pos.unbind(-1), *dirn.unbind(-1),
-                       tau, active, chords=walk)
+                       tau, active, chords=walk, energy=stokes[:, 0], flow=flow)
         moved = mo["inter"] | mo["surface"]
         cell_new = torch.stack([mo["cr"], torch.zeros_like(mo["cr"]),
                                 torch.zeros_like(mo["cr"])], dim=-1)
         return {"pos": torch.where(moved[:, None], pos + mo["s_stop"][:, None] * dirn, pos),
+                "dirn": dirn, "stokes": stokes,
                 "cell": torch.where(mo["inter"][:, None], cell_new, cell),
                 "face": torch.where(mo["inter"][:, None], torch.zeros_like(face), face),
                 "inter": mo["inter"], "exited": mo["exited"], "error": false,
                 "e031": false, "e032": false, "e034": false,
                 "sites": torch.zeros_like(cell[:, 0])}
-    no_reach = active & (tau >= walk["tau"])
-    pos, cell, face, fl, crossings = _march_cells(t, static, pos, dirn, cell, face, tau,
-                                                  active & ~no_reach)
-    return {"pos": pos, "cell": cell, "face": face, "inter": fl["inter"],
-            "exited": fl["exited"] | (no_reach & walk["exited"]),
-            "error": fl["e031"] | fl["e034"] | fl["e032"],
-            "e031": fl["e031"], "e032": fl["e032"], "e034": fl["e034"],
-            "sites": 3 * crossings}
+    no_reach = false
+    if mode == "jumps":
+        if walk is None:
+            walk = _tau_walk(t, pos, dirn, cell)[2]
+        no_reach = active & (tau >= walk["tau"])
+    mo = _march_cells(t, static, k0, pid, ctr, pos, dirn, cell, face, stokes, tau,
+                      active & ~no_reach, book_first, flow)
+    if mode == "jumps":
+        mo["exited"] = mo["exited"] | (no_reach & walk["exited"])
+    mo["error"] = mo["e031"] | mo["e034"] | mo["e032"]
+    mo["sites"] = 3 * mo.pop("crossings")
+    return mo
 
 
 def _book(det_sum, det_cnt, pix, val, ok, first_only=False):
@@ -432,23 +566,29 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
 
     The detector is ``(nx*ny, 4, 3)`` float64 [sum, sum of squares, count];
     counts are summed as integers, and the Stokes-I row's count includes the
-    thermal birth peels, which the Q, U and V rows' counts do not.
-    ``flux_emitted`` (sum of the emitted Stokes I) and ``flux_exit`` (sum of
-    the Stokes I leaving through the top) are float64 and zero for stellar
-    sources. ``n_error`` counts abandoned photons, ``error_codes`` those of
-    codes [031, 032, 034, peel walk], ``n_stokes_anomaly`` those of code 050
-    (``static.debug_stokes``). ``error_records`` holds the first ``err_k``
-    and the last ``err_k`` error records in photon-id order (float64, on the
-    CPU) and ``n_error_records`` the number of events there were. ``width``
-    is the number of photons emitted together.
+    thermal birth peels and the surface peels, which the Q, U and V rows'
+    counts do not. ``flux_emitted`` (sum of the emitted Stokes I) and
+    ``flux_exit`` (sum of the Stokes I leaving through the top) are float64
+    and zero for stellar sources. ``flow_global`` (ncell, 3) and
+    ``flow_theta`` (ncell, 4) are the float64 flow diagnostics and
+    ``flow_path`` (ncell,) the energy x distance booked per cell, which a
+    comparison of two ``flow_global`` is scaled by; ``None`` without
+    ``static.track_flow``. ``n_error`` counts abandoned photons,
+    ``error_codes`` the events of codes [031, 032, 034, peel walk],
+    ``n_stokes_anomaly`` those of code 050 (``static.debug_stokes``).
+    ``error_records`` holds the first ``err_k`` and the last ``err_k`` error
+    records in photon-id order (float64, on the CPU) and ``n_error_records``
+    the number of events recorded. ``width`` is the number of photons
+    emitted together.
     """
-    check_slice(tables, static)
     t = tables
     dt = t.opacity.dtype
     dev = t.opacity.device
     thermal = static.photon_source == 2
+    marching = walk_mode(t, static) == "march"
     k0 = R.key_hi(seed, id_hi)
     npix = static.nx * static.ny
+    ncell = t.opacity.shape[0]
     det_sum = torch.zeros((npix, 4, 2), dtype=torch.float64, device=dev)
     det_cnt = torch.zeros((npix, 2), dtype=torch.int64, device=dev)
     n_cap = torch.zeros((), dtype=torch.int64, device=dev)
@@ -457,14 +597,34 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
     error_codes = torch.zeros(4, dtype=torch.int64, device=dev)
     flux_emitted = torch.zeros((), dtype=torch.float64, device=dev)
     flux_exit = torch.zeros((), dtype=torch.float64, device=dev)
+    flow = None
+    if static.track_flow:
+        flow = tuple(torch.zeros(shape, dtype=torch.float64, device=dev)
+                     for shape in ((ncell, 3), (ncell, 4), (ncell,)))
     records = []
 
-    def peel_weight(pos, cell):
-        """e^-tau toward the observer and whether the peel is booked."""
-        tau, surface, _ = _tau_walk(t, pos, t.det_dir.expand_as(pos), cell)
-        return torch.exp(-torch.clamp_max(tau, 500.0)), ~surface & (tau < 50.0)
+    def book_first(pos, value, ok):
+        _book(det_sum, det_cnt, _pixel_index(t, static, pos), value[:, None], ok,
+              first_only=True)
 
-    def tally_march(mo, pid, dirn, stokes, n_scat):
+    def tau_walk(pos, dirn, cell, face):
+        """``(tau, surface, exited, error, walk)`` of the configuration's
+        walk to the grid's edge; a marching walk still going at the cap has
+        erred."""
+        if marching:
+            w = _tau_walk_march(t, static, pos, dirn, cell, face,
+                                torch.ones_like(cell[:, 0], dtype=torch.bool))
+            return w["tau"], w["surface"], w["exited"], w["error"] | w["capped"], None
+        tau, surface, walk = _tau_walk(t, pos, dirn.expand_as(pos), cell)
+        return tau, surface, ~surface, torch.zeros_like(surface), walk
+
+    def peel_weight(pos, cell, face):
+        """e^-tau toward the observer, whether the peel is booked, and
+        whether its walk failed."""
+        tau, _, exited, err, _ = tau_walk(pos, t.det_dir, cell, face)
+        return torch.exp(-torch.clamp_max(tau, 500.0)), exited & ~err & (tau < 50.0), err
+
+    def tally_march(mo, pid, n_scat, site):
         """Error tallies, error records and the exit flux of one march."""
         nonlocal flux_exit, n_error
         err = mo["error"]
@@ -473,11 +633,11 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
             error_codes[:3] += torch.stack([mo["e031"].sum(), mo["e032"].sum(),
                                             mo["e034"].sum()])
             code = torch.where(mo["e031"], 31, torch.where(mo["e034"], 34, 32))[err]
-            records.append(_error_rows(code, pid[err], mo["pos"][err], dirn[err],
-                                       mo["cell"][err], mo["face"][err], stokes[err, 0],
-                                       n_scat[err], 0))
+            records.append(_error_rows(code, pid[err], mo["pos"][err], mo["dirn"][err],
+                                       mo["cell"][err], mo["face"][err], mo["stokes"][err, 0],
+                                       n_scat[err], site))
         if thermal:
-            flux_exit += stokes[mo["exited"], 0].to(torch.float64).sum()
+            flux_exit += mo["stokes"][mo["exited"], 0].to(torch.float64).sum()
         return mo["inter"] & ~err
 
     for start in range(0, int(n_photons), width):
@@ -487,22 +647,40 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
         if thermal:
             pos, dirn, cell, w0 = _emit_thermal(t, static, k0, pid, dt)
             face = torch.zeros((n, 2), dtype=torch.int64, device=dev)
-            ctr = 6
+            ctr = torch.full_like(pid, 6)
             flux_emitted += w0.to(torch.float64).sum()
             stokes[:, 0] = w0
-            # birth peel e^-tau/(4 pi) on Stokes I (ARTES.f90:4519-4598)
-            w_b, ok_b = peel_weight(pos, cell)
-            _book(det_sum, det_cnt, _pixel_index(t, static, pos),
-                  (w_b / (4.0 * math.pi) * stokes[:, 0])[:, None], ok_b, first_only=True)
+            # birth peel e^-tau/(4 pi) on Stokes I (ARTES.f90:4519-4598); a
+            # failed walk abandons the photon
+            w_b, ok_b, err_b = peel_weight(pos, cell, face)
+            book_first(pos, w_b / (4.0 * math.pi) * stokes[:, 0], ok_b)
+            if bool(err_b.any()):
+                n_error += err_b.sum()
+                error_codes[3] += err_b.sum()
+                pid, ctr, pos, dirn, cell, face, stokes = (
+                    v[~err_b] for v in (pid, ctr, pos, dirn, cell, face, stokes))
         else:
             pos, dirn, cell, face = _emit(t, static, k0, pid, dt)
-            ctr = 2
+            ctr = torch.full_like(pid, 2)
             stokes[:, 0] = 1.0
 
-        # the prewalk along the photon's own direction, fused with the
-        # forced first interaction (ARTES.f90:623-684) and its march
-        tau_first, pre_surface, walk = _tau_walk(t, pos, dirn, cell)
+        # the prewalk along the photon's own direction, then the forced
+        # first interaction (ARTES.f90:623-684) and its march; a failed
+        # prewalk abandons the photon under code 031
+        n_scat = torch.zeros_like(pid)
+        tau_first, pre_surface, _, pre_err, walk = tau_walk(pos, dirn, cell, face)
+        if bool(pre_err.any()):
+            n_error += pre_err.sum()
+            error_codes[0] += pre_err.sum()
+            records.append(_error_rows(torch.full_like(pid[pre_err], 31), pid[pre_err],
+                                       pos[pre_err], dirn[pre_err], cell[pre_err],
+                                       face[pre_err], stokes[pre_err, 0], n_scat[pre_err], 2))
+            ok = ~pre_err
+            pid, ctr, pos, dirn, cell, face, stokes, n_scat, tau_first, pre_surface = (
+                v[ok] for v in (pid, ctr, pos, dirn, cell, face, stokes, n_scat, tau_first,
+                                pre_surface))
         (u_tau,) = R.uniform_n_kk(k0, pid, ctr, 1, dt)
+        ctr = ctr + 1
         thin = tau_first < 1.0e-6
         go = ~(thin & ~pre_surface)         # vacuum, no surface: dropped
         forced = go & ~thin & (tau_first < 50.0)
@@ -510,11 +688,12 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
         tau = torch.where(forced, -torch.log(1.0 - u_tau * one_m_exp),
                           -torch.log(1.0 - u_tau))
         stokes = torch.where(forced[:, None], stokes * one_m_exp[:, None], stokes)
-        n_scat = torch.zeros_like(pid)
-        mo = _march(t, static, pos, dirn, cell, face, tau, go, walk)
-        ctr = ctr + 1 + mo["sites"]
-        keep = tally_march(mo, pid, dirn, stokes, n_scat)
-        pos, cell, face = mo["pos"], mo["cell"], mo["face"]
+        mo = _march(t, static, k0, pid, ctr, pos, dirn, cell, face, stokes, tau, go, walk,
+                    book_first, flow)
+        ctr = ctr + mo["sites"]
+        keep = tally_march(mo, pid, n_scat, 1 if marching else 0)
+        pos, dirn, cell, face, stokes = (mo[k] for k in ("pos", "dirn", "cell", "face",
+                                                         "stokes"))
         if not static.photon_scattering:
             keep = torch.zeros_like(keep)
 
@@ -564,15 +743,26 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
                                                   n_scat, d4, peel_contrib, peel_pix))
             n_scat = n_scat + 1
 
-            w_peel, ok_peel = peel_weight(pos, cell)
+            w_peel, ok_peel, err_peel = peel_weight(pos, cell, face)
             _book(det_sum, det_cnt, peel_pix, peel_contrib * w_peel[:, None], ok_peel)
 
             tau = -torch.log(1.0 - d4)
-            mo = _march(t, static, pos, dirn, cell, face, tau,
-                        torch.ones_like(pid, dtype=torch.bool))
-            ctr = ctr + 5 + mo["sites"]
-            keep = tally_march(mo, pid, dirn, stokes, n_scat)
-            pos, cell, face = mo["pos"], mo["cell"], mo["face"]
+            ctr = ctr + 5
+            mo = _march(t, static, k0, pid, ctr, pos, dirn, cell, face, stokes, tau,
+                        torch.ones_like(pid, dtype=torch.bool), None, book_first, flow)
+            ctr = ctr + mo["sites"]
+            keep = tally_march(mo, pid, n_scat, 0)
+            # a failed scatter peel loses its flux only; it is recorded with
+            # the walk's input position, cell and face (code 50, site 3)
+            # unless the round's march failed too
+            lost = err_peel & ~mo["error"]
+            if bool(err_peel.any()):
+                error_codes[3] += err_peel.sum()
+                records.append(_error_rows(
+                    torch.full_like(pid[lost], 50), pid[lost], pos[lost], mo["dirn"][lost],
+                    cell[lost], face[lost], mo["stokes"][lost, 0], n_scat[lost], 3))
+            pos, dirn, cell, face, stokes = (mo[k] for k in ("pos", "dirn", "cell", "face",
+                                                             "stokes"))
             capped = keep & (n_scat >= static.max_scatter)
             n_cap += capped.sum()
             keep = keep & ~capped
@@ -583,6 +773,9 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
         "detector": detector_from_tallies(det_sum, det_cnt),
         "flux_emitted": flux_emitted,
         "flux_exit": flux_exit,
+        "flow_global": flow[0] if flow else None,
+        "flow_theta": flow[1] if flow else None,
+        "flow_path": flow[2] if flow else None,
         "n_error": n_error,
         "error_codes": error_codes,
         "n_stokes_anomaly": n_anom,

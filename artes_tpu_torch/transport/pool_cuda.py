@@ -1,21 +1,28 @@
 """The hand-written CUDA pool kernels and their wrapper.
 
-Replaces ``artes_tpu.transport.pallas_stream.run_stream_pallas`` on this
-package's slice: radial grids (``csrc/pool_radial.cu``, closed-form walks)
-and 3-D grids (``csrc/pool_grid3d.cu``, jump walks and the marching
-``cell_face`` walk, error tallies and records), stellar or thermal sources,
-any detector size, no surface, no flow, float32 tables.
-:func:`run_stream_cuda` takes the tables on a CUDA device, picks the kernel
-by the grid and returns the tallies of
-:func:`~artes_tpu_torch.transport.kernel.run_stream`, its plain PyTorch
-version. It launches on PyTorch's current stream; the radial kernel does
-not synchronise, the 3-D one waits for its error records.
+Replaces ``artes_tpu.transport.pallas_stream.run_stream_pallas``: three
+kernels, chosen by the walks a configuration takes
+(``kernel.walk_mode``):
 
-Each kernel has four compile-time instantiations (:data:`VARIANTS`):
-stellar or thermal source, single pixel or image. ``LAUNCHES`` counts kernel
-launches per instantiation (the 3-D ones as ``grid3d_<variant>``), where the
-kernel is launched and nowhere else, so a run can show that it went through
-the kernel.
+* ``csrc/pool_radial.cu``: radial grids without a Lambert surface,
+  closed-form walks, with or without flow diagnostics;
+* ``csrc/pool_grid3d.cu``: 3-D grids without a surface and without flow,
+  jump walks and the marching ``cell_face`` walk behind an exit precheck;
+* ``csrc/pool_march.cu``: any grid with a Lambert surface and 3-D grids with
+  flow, marching walks for everything, the surface event and its peel, the
+  flow booking, peel and prewalk errors.
+
+Stellar or thermal sources, any detector size, float32 tables.
+:func:`run_stream_cuda` takes the tables on a CUDA device and returns the
+tallies of :func:`~artes_tpu_torch.transport.kernel.run_stream`, its plain
+PyTorch version. It launches on PyTorch's current stream; the radial kernel
+does not synchronise, the others wait for their error records.
+
+Every kernel has an instantiation per source (stellar, thermal) and
+detector (single pixel, image), and the radial and marching ones per flow
+switch (:data:`VARIANTS` ... :data:`VARIANTS_MARCH`). ``LAUNCHES`` counts
+kernel launches per instantiation, where the kernel is launched and nowhere
+else, so a run can show that it went through the kernel.
 """
 
 from __future__ import annotations
@@ -31,14 +38,15 @@ from artes_tpu_torch.transport import geometry as G
 from artes_tpu_torch.transport import rng as R
 from artes_tpu_torch.transport import sampling as S
 from artes_tpu_torch.transport.kernel import (ERR_RECORD_K, ERR_RECORD_W, KernelStatic,
-                                              TransportTables, check_slice,
-                                              detector_from_tallies, emit_basis,
-                                              select_error_records)
+                                              TransportTables, detector_from_tallies,
+                                              emit_basis, select_error_records, walk_mode)
 
-# instantiation names by variant (bit 0 thermal, bit 1 image)
+# instantiation names by variant (bit 0 thermal, bit 1 image, bit 2 flow)
 VARIANTS = ("stellar", "thermal", "image", "thermal_image")
+VARIANTS_FLOW = tuple(v + "_flow" for v in VARIANTS)
 VARIANTS_3D = tuple("grid3d_" + v for v in VARIANTS)
-LAUNCHES = dict.fromkeys(VARIANTS + VARIANTS_3D, 0)
+VARIANTS_MARCH = tuple("march_" + v for v in VARIANTS + VARIANTS_FLOW)
+LAUNCHES = dict.fromkeys(VARIANTS + VARIANTS_FLOW + VARIANTS_3D + VARIANTS_MARCH, 0)
 
 THREADS = 256
 BLOCKS_PER_SM = 8
@@ -48,6 +56,8 @@ N_OUT_I = 4
 N_IMG_D = 8
 N_IMG_I = 2
 N_OUT_I3 = 8            # pool_grid3d: N_OUT_I + photons abandoned, codes 031, 032, 034
+N_OUT_IM = 11           # pool_march: N_OUT_I3 + failed peel walks, cell_face passes, flow bookings
+FLOW_SHARED_MAX = 32 * 1024     # bytes of a block's shared flow sums, else global atomics
 F_CRESCENT, F_BIASED = 1, 2
 # rows of the 3-D kernel's error-record buffer (64 bytes each); errors are
 # about 1e-4 of the photons, so one launch of up to 2^30 photons may drop
@@ -66,25 +76,44 @@ REC_CAP = 1 << 16
 # share of the photons emitted; "stokes" the sums of I, Q, U, V as |dS_k| <=
 # lim_k * I; "squares" each sum of squares relative to its own plain value;
 # "flux_emitted" and "flux_exit" relative to the plain value (0 when both
-# are 0). AGREE holds radial grids, set from readings at 2^20 photons, seed
-# 7; AGREE_3D holds 3-D grids, whose cone and half-plane roots flip more
-# trajectories, set from readings at 2^18 photons, seed 7. Both on the
-# chip_smoke.py cells (NVIDIA H100 80GB HBM3, 700 W); PERF.md section 2 has
-# the readings.
+# are 0); "flow_global" sum |d flow| over all cells and columns relative to
+# the energy x distance the plain version booked in all (its "flow_path": the
+# signed projections nearly cancel in a cell, their unsigned total does not);
+# "flow_theta" sum |d flow| / sum flow, whose terms are energies (both 0 when
+# there is no flow). "error_codes" covers the peel-walk code of the marching
+# walks too. AGREE holds the closed-form
+# walks of radial grids, set from readings at 2^20 photons, seed 7; AGREE_3D
+# the jump walks of 3-D grids, whose cone and half-plane roots flip more
+# trajectories, set from readings at 2^18 photons, seed 7; AGREE_MARCH the
+# marching walks (Lambert surfaces on any grid, flow on 3-D grids), set from
+# readings at the photon counts chip_smoke.py gives those cells; there a
+# photon whose float32 geometry fails in one version only can book a chord
+# through the planet into one cell, so "flow_global" reads far above
+# "flow_theta". All on the chip_smoke.py cells (NVIDIA H100 80GB HBM3, 700
+# W); PERF.md section 2 has the readings.
 AGREE = {"count": 1.2e-4, "count_quv": 1.2e-4, "pixel_I": 8e-4, "pixel_N": 4.2e-4,
          "capped": 3e-6, "n_error": 0.0, "error_codes": 0.0,
          "stokes": (3e-4, 5e-6, 1e-4, 1e-4),
-         "squares": (4.2e-4, 3.2e-4, 7e-4, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 6e-6}
+         "squares": (4.2e-4, 3.2e-4, 7e-4, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 6e-6,
+         "flow_global": 1.7e-4, "flow_theta": 4e-4}
 AGREE_3D = {"count": 1.6e-3, "count_quv": 1.6e-3, "pixel_I": 1e-2, "pixel_N": 6.5e-3,
             "capped": 1.2e-5, "n_error": 2.3e-5, "error_codes": 2.3e-5,
             "stokes": (9e-4, 9.5e-4, 6.5e-4, 1e-4),
-            "squares": (2.1e-3, 2.3e-3, 5.5e-3, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 7e-5}
+            "squares": (2.1e-3, 2.3e-3, 5.5e-3, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 7e-5,
+            "flow_global": 0.0, "flow_theta": 0.0}
+AGREE_MARCH = {"count": 1.1e-2, "count_quv": 1.2e-2, "pixel_I": 3e-3, "pixel_N": 1.1e-2,
+               "capped": 1.6e-3, "n_error": 9.2e-4, "error_codes": 1.7e-3,
+               "stokes": (2.8e-3, 3.2e-3, 2.2e-3, 1e-4),
+               "squares": (3.7e-3, 8.1e-3, 8.9e-3, 7e-4), "flux_emitted": 6.5e-8,
+               "flux_exit": 2.4e-4, "flow_global": 8.3e-2, "flow_theta": 5.5e-3}
 
 _vp = ctypes.c_void_p
 _ARGTYPES = ([_vp] * 10 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
-             + [ctypes.c_int] * 5 + [_vp] * 4 + [ctypes.c_int, ctypes.c_int, _vp])
+             + [ctypes.c_int] * 5 + [_vp] * 6 + [ctypes.c_int] * 3 + [_vp])
 _ARGTYPES_3D = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 4
                 + [ctypes.c_int, ctypes.c_int, _vp])
+_ARGTYPES_MARCH = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 6
+                   + [ctypes.c_int] * 3 + [_vp])
 
 
 def check_kernel(static: KernelStatic) -> None:
@@ -99,7 +128,6 @@ def check_kernel(static: KernelStatic) -> None:
 def supports(tables: TransportTables, static: KernelStatic) -> bool:
     """True when a kernel covers this configuration in float32."""
     try:
-        check_slice(tables, static)
         check_kernel(static)
     except NotImplementedError:
         return False
@@ -107,8 +135,22 @@ def supports(tables: TransportTables, static: KernelStatic) -> bool:
 
 
 def variant_of(static: KernelStatic) -> int:
-    """The instantiation a configuration runs (index into :data:`VARIANTS`)."""
-    return int(static.photon_source == 2) | (int(static.nx * static.ny > 1) << 1)
+    """The instantiation a configuration runs: bit 0 thermal, bit 1 image,
+    bit 2 flow."""
+    return (int(static.photon_source == 2) | (int(static.nx * static.ny > 1) << 1)
+            | (int(static.track_flow) << 2))
+
+
+def kernel_of(tables: TransportTables, static: KernelStatic) -> tuple[str, str]:
+    """``(source name, instantiation name)`` of the kernel a configuration
+    runs; the instantiation is a key of :data:`LAUNCHES`."""
+    mode = walk_mode(tables, static)
+    variant = variant_of(static)
+    if mode == "closed":
+        return "pool_radial", (VARIANTS + VARIANTS_FLOW)[variant]
+    if mode == "jumps":
+        return "pool_grid3d", VARIANTS_3D[variant]
+    return "pool_march", VARIANTS_MARCH[variant]
 
 
 def _rel(d, ref) -> float:
@@ -141,13 +183,27 @@ def gaps(kernel_out: dict, plain_out: dict) -> dict:
             "flux_emitted": _rel(float(kernel_out["flux_emitted"]) - float(plain_out["flux_emitted"]),
                                  plain_out["flux_emitted"]),
             "flux_exit": _rel(float(kernel_out["flux_exit"]) - float(plain_out["flux_exit"]),
-                              plain_out["flux_exit"])}
+                              plain_out["flux_exit"]),
+            "flow_global": _flow_gap(kernel_out, plain_out, "flow_global"),
+            "flow_theta": _flow_gap(kernel_out, plain_out, "flow_theta")}
 
 
-def limits_of(tables: TransportTables) -> dict:
-    """The limits that hold a configuration: :data:`AGREE` on a radial
-    grid, :data:`AGREE_3D` on a 3-D one."""
-    return AGREE if tables.jump is None else AGREE_3D
+def _flow_gap(kernel_out: dict, plain_out: dict, key: str) -> float:
+    k, p = kernel_out.get(key), plain_out.get(key)
+    if k is None and p is None:
+        return 0.0
+    if k is None or p is None:
+        return math.inf
+    k, p = k.double().cpu(), p.double().cpu()
+    scale = plain_out["flow_path"].sum().cpu() if key == "flow_global" else p.abs().sum()
+    return _rel((k - p).abs().sum(), scale)
+
+
+def limits_of(tables: TransportTables, static: KernelStatic) -> dict:
+    """The limits that hold a configuration, by the walks it takes:
+    :data:`AGREE` closed-form, :data:`AGREE_3D` jump walks,
+    :data:`AGREE_MARCH` marching walks."""
+    return {"closed": AGREE, "jumps": AGREE_3D, "march": AGREE_MARCH}[walk_mode(tables, static)]
 
 
 def agrees(g: dict, limits: dict = AGREE) -> bool:
@@ -216,8 +272,6 @@ def _check_inputs(t: TransportTables) -> int:
         shapes.update({"kbar": (j.kbar, (nr,)), "dk": (j.dk, (nc,)),
                        "dr": (j.dr, (nr - 1, nt * np_)), "dtt": (j.dtt, (nt - 1, nr * np_)),
                        "dpp": (j.dpp, (np_, nr * nt)), "rf2": (j.rf2, (nr - 1,))})
-    elif nt != 1 or np_ != 1:
-        raise ValueError("a 3-D grid needs its jump tables (tables.build_tables makes them)")
     for name, (x, shape) in shapes.items():
         if x.dtype != torch.float32:
             raise ValueError(f"run_stream_cuda runs float32 tables; {name} is {x.dtype}")
@@ -230,50 +284,55 @@ def _check_inputs(t: TransportTables) -> int:
 
 
 def _decode_records(rec: torch.Tensor) -> torch.Tensor:
-    """The 3-D kernel's float32 record rows as float64 rows in photon-id
-    order; column 1 holds the photon id's bit pattern."""
+    """A kernel's float32 record rows as float64 rows in photon-id order;
+    column 1 holds the photon id's bit pattern."""
     out = rec.to(torch.float64)
     out[:, 1] = (rec[:, 1].contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
                  ).to(torch.float64)
     return out[torch.argsort(out[:, 1], stable=True)].cpu()
 
 
-def _launch_3d(t: TransportTables, static: KernelStatic, scal, consts, n, key_hi, id_lo,
-               variant, flags, img_d, img_i, out_d, out_i, blocks, stream):
-    """Launch ``pool_grid3d``; returns ``(rc, rec, rec_count)``."""
+def _cell_tables(t: TransportTables, static: KernelStatic, scal, consts):
+    """The pointer table, sizes and error-record buffer that ``pool_grid3d``
+    and ``pool_march`` share: ``(tables, sizes, rec, rec_count, keep)``;
+    ``keep`` holds the tensors made here, which must outlive the launch."""
     g, j = t.grid, t.jump
     dev = t.opacity.device
-    fn = _library("pool_grid3d", _ARGTYPES_3D,
-                  (N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, ERR_RECORD_W))
     theta_flags = (g.thetaplane_cone.to(torch.int32) | (g.theta_above.to(torch.int32) << 1)
                    ).contiguous()
     rec = torch.zeros((REC_CAP, ERR_RECORD_W), dtype=torch.float32, device=dev)
     rec_count = torch.zeros(1, dtype=torch.int32, device=dev)
-    # the order of the Tables and Grid3 fields in pool_grid3d.cu
+    phifront = G.phi_fronts(g).contiguous()
+    # the jump tables: read by pool_grid3d only
+    jump = [None] * 6 if j is None else [j.kbar, j.dk, j.dr, j.dtt, j.dpp, j.rf2]
+    # the order of the Tables and Grid3 fields in pool_geom3d.cuh
     ptrs = [g.rfront, t.opacity, t.albedo, t.scatter_rows, t.alpha_prefix, t.p_int, consts,
             scal, t.emis_cum, t.cell_weight, g.theta_tan, g.theta_cos, theta_flags, g.phi_sin,
-            g.phi_cos, G.phi_fronts(g).contiguous(), j.kbar, j.dk, j.dr, j.dtt, j.dpp, j.rf2,
-            rec, rec_count]
-    tables = (ctypes.c_void_p * len(ptrs))(*[x.data_ptr() for x in ptrs])
+            g.phi_cos, phifront, *jump, rec, rec_count]
+    tables = (ctypes.c_void_p * len(ptrs))(*[None if x is None else x.data_ptr()
+                                             for x in ptrs])
     sizes = (ctypes.c_int * 8)(g.nr, g.ntheta, g.nphi, int(t.cell_depth),
                                int(static.max_crossings), REC_CAP, static.nx, static.ny)
-    eps = (ctypes.c_float * 3)(g.same_eps, g.sel2, g.boundary_tol)
-    rc = fn(ctypes.addressof(tables), ctypes.addressof(sizes), ctypes.addressof(eps), n, key_hi,
-            id_lo, int(static.max_scatter), variant, flags, img_d.data_ptr(), img_i.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(), blocks, THREADS, stream)
-    return rc, rec, rec_count
+    return tables, sizes, rec, rec_count, (theta_flags, phifront)
 
 
 def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: int,
                     seed: int, id_hi: int = 0, id_lo: int = 0, err_k: int = ERR_RECORD_K):
     """Transport photons ``id_lo .. id_lo + n_photons - 1`` (high id word
-    ``id_hi``) through the CUDA kernel of the tables' grid; returns the
-    tallies of :func:`~artes_tpu_torch.transport.kernel.run_stream` as device
-    tensors (the error records on the CPU). The id range must not cross a
-    2^32 boundary."""
-    check_slice(tables, static)
+    ``id_hi``) through the CUDA kernel of the configuration
+    (:func:`kernel_of`); returns the tallies of
+    :func:`~artes_tpu_torch.transport.kernel.run_stream` as device tensors
+    (the error records on the CPU) but ``flow_path``, which the gate takes
+    from the plain version; and two counts of the work done: ``n_cell_face``,
+    the ``cell_face`` passes a marching kernel made, and ``n_flow_booked``,
+    the walked segments (closed form) or passes (marching) that booked flow
+    (``None`` where a kernel has no such count). The id range must not cross
+    a 2^32 boundary."""
     check_kernel(static)
+    source, name = kernel_of(tables, static)
     nr = _check_inputs(tables)
+    if source == "pool_grid3d" and tables.jump is None:
+        raise ValueError("jump walks need the jump tables (tables.build_tables makes them)")
     n = int(n_photons)
     if n < 0 or n >= 1 << 32 or int(id_lo) < 0 or int(id_lo) + n > 1 << 32:
         raise ValueError(f"photon ids [{id_lo}, {id_lo} + {n}) leave the 32-bit window")
@@ -281,15 +340,28 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     if npix >= 1 << 31:
         raise ValueError(f"{npix} pixels overflow the kernel's 32-bit pixel index")
     t = tables
+    g = t.grid
     dev = t.opacity.device
     variant = variant_of(static)
     image = npix > 1
-    grid3d = t.jump is not None
+    ncell = t.opacity.shape[0]
+    # the radial kernel's flow instantiations count their bookings in a fifth counter
+    n_out_i = {"pool_radial": N_OUT_I + int(static.track_flow), "pool_grid3d": N_OUT_I3,
+               "pool_march": N_OUT_IM}[source]
     out_d = torch.zeros(N_OUT_D, dtype=torch.float64, device=dev)
-    out_i = torch.zeros(N_OUT_I3 if grid3d else N_OUT_I, dtype=torch.int64, device=dev)
+    out_i = torch.zeros(n_out_i, dtype=torch.int64, device=dev)
     img_d = torch.zeros((npix if image else 1, N_IMG_D), dtype=torch.float64, device=dev)
     img_i = torch.zeros((npix if image else 1, N_IMG_I), dtype=torch.int64, device=dev)
+    flow_g = flow_t = None
+    flow_args = (None, None, 0)
+    if static.track_flow:
+        flow_g = torch.zeros((ncell, 3), dtype=torch.float64, device=dev)
+        flow_t = torch.zeros((ncell, 4), dtype=torch.float64, device=dev)
+        shared = 7 * 8 * ncell
+        flow_args = (flow_g.data_ptr(), flow_t.data_ptr(),
+                     shared if shared <= FLOW_SHARED_MAX else 0)
     records = torch.zeros((0, ERR_RECORD_W), dtype=torch.float64)
+    n_records = 0
     if n > 0:
         scal = _scalars(t, static)
         consts = _constants(dev)
@@ -300,47 +372,66 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
         key_hi = R.key_hi(seed, id_hi)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if grid3d:
-                rc, rec, rec_count = _launch_3d(t, static, scal, consts, n, key_hi, int(id_lo),
-                                                variant, flags, img_d, img_i, out_d, out_i,
-                                                blocks, stream)
-            else:
+            launch = (n, key_hi, int(id_lo), int(static.max_scatter), variant, flags)
+            if source == "pool_radial":
                 fn = _library("pool_radial", _ARGTYPES,
                               (N_SCAL, N_OUT_D, N_OUT_I, N_IMG_D, N_IMG_I))
-                rc = fn(t.grid.rfront.data_ptr(), t.opacity.data_ptr(), t.albedo.data_ptr(),
+                rc = fn(g.rfront.data_ptr(), t.opacity.data_ptr(), t.albedo.data_ptr(),
                         t.scatter_rows.data_ptr(), t.alpha_prefix.data_ptr(),
                         t.p_int.data_ptr(), consts.data_ptr(), scal.data_ptr(),
-                        t.emis_cum.data_ptr(), t.cell_weight.data_ptr(), nr, n, key_hi,
-                        int(id_lo), int(static.max_scatter), variant, flags, static.nx,
-                        static.ny, img_d.data_ptr(), img_i.data_ptr(), out_d.data_ptr(),
-                        out_i.data_ptr(), blocks, THREADS, stream)
-        name = (VARIANTS_3D if grid3d else VARIANTS)[variant]
+                        t.emis_cum.data_ptr(), t.cell_weight.data_ptr(), nr, *launch,
+                        static.nx, static.ny, img_d.data_ptr(), img_i.data_ptr(),
+                        out_d.data_ptr(), out_i.data_ptr(), *flow_args, blocks, THREADS, stream)
+            else:
+                ptrs, sizes, rec, rec_count, keep = _cell_tables(t, static, scal, consts)
+                outs = (img_d.data_ptr(), img_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
+                if source == "pool_grid3d":
+                    fn = _library("pool_grid3d", _ARGTYPES_3D,
+                                  (N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, ERR_RECORD_W))
+                    eps = (ctypes.c_float * 3)(g.same_eps, g.sel2, g.boundary_tol)
+                    rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
+                            ctypes.addressof(eps), *launch, *outs, blocks, THREADS, stream)
+                else:
+                    fn = _library("pool_march", _ARGTYPES_MARCH,
+                                  (N_SCAL, N_OUT_D, N_OUT_IM, N_IMG_D, N_IMG_I, ERR_RECORD_W))
+                    eps = (ctypes.c_float * 4)(g.same_eps, g.sel2, g.boundary_tol,
+                                               float(t.surface_albedo))
+                    rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
+                            ctypes.addressof(eps), *launch, *outs, *flow_args, blocks, THREADS,
+                            stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         LAUNCHES[name] += 1
-        if grid3d:
-            kept = min(int(rec_count), REC_CAP)         # waits for the kernel
-            records = _decode_records(rec[:kept])
+        if source != "pool_radial":
+            n_records = int(rec_count)                  # waits for the kernel
+            records = _decode_records(rec[:min(n_records, REC_CAP)])
+            del keep
     if image:
         sums, counts = img_d.reshape(npix, 2, 4).transpose(1, 2), img_i
     else:
         sums = out_d[:8].reshape(1, 2, 4).transpose(1, 2)
         counts = torch.stack([out_i[0] + out_i[3], out_i[0]]).reshape(1, 2)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    if grid3d:
-        # a radial grid's closed form has no failure modes: zeros there
-        n_error, codes = out_i[4], torch.cat([out_i[5:8], zero.reshape(1)])
-    else:
+    if source == "pool_radial":
+        # the closed form has no failure modes: zeros there
         n_error, codes = zero, torch.zeros(4, dtype=torch.int64, device=dev)
+    else:
+        peel = out_i[8] if source == "pool_march" else zero
+        n_error, codes = out_i[4], torch.cat([out_i[5:8], peel.reshape(1)])
     return {
         "detector": detector_from_tallies(sums, counts),
         "flux_emitted": out_d[8],
         "flux_exit": out_d[9],
+        "flow_global": flow_g,
+        "flow_theta": flow_t,
         "n_error": n_error,
         "error_codes": codes,
         "n_stokes_anomaly": zero,
         "n_alive_at_cap": out_i[1],
         "n_emitted": out_i[2],
         "error_records": select_error_records([records], err_k),
-        "n_error_records": int(n_error) if grid3d and n > 0 else 0,
+        "n_error_records": n_records,
+        "n_cell_face": out_i[9] if source == "pool_march" else None,
+        "n_flow_booked": None if not static.track_flow or source == "pool_grid3d"
+        else out_i[10 if source == "pool_march" else N_OUT_I],
     }

@@ -10,8 +10,8 @@ prefix-sum walk over at most 2 nr segments.
 Here the face roots and the segments are computed for all faces at once (a
 trailing face dimension), and the running optical depth is one prefix sum
 over the segments in the reference's path order, so on the CPU every
-float64 operation matches the JAX package's loops. The ``flow`` hook of
-the JAX march waits for the flow slice.
+float64 operation matches the JAX package's loops. The ``flow`` hook of :func:`march` books
+the flow diagnostics of every segment a photon walks.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def _path_segments(e, h, surface_hit, s_surf, kx):
     nr-1 .. 0, then outbound shells 0 .. nr-1 (zero past the floor).
     Returns per-segment ``start``, ``contrib`` (opacity x length), the
     running optical depth ``cum`` (a sequential prefix sum, the order of
-    the reference's loop) and the shell index."""
+    the reference's loop), the shell index and the length ``seg``."""
     nr = kx.shape[0]
     inb = torch.arange(nr - 1, -1, -1, device=kx.device)
     s_col = s_surf.unsqueeze(-1)
@@ -82,7 +82,8 @@ def _path_segments(e, h, surface_hit, s_surf, kx):
                          torch.where(surface_hit.unsqueeze(-1), 0.0, kx * seg_out)], dim=-1)
     start = torch.cat([start_in, h[..., :-1]], dim=-1)
     shell = torch.cat([inb, torch.arange(nr, device=kx.device)])
-    return start, contrib, torch.cumsum(contrib, dim=-1), shell
+    return (start, contrib, torch.cumsum(contrib, dim=-1), shell,
+            torch.cat([seg_in, seg_out], dim=-1))
 
 
 def tau_from_chords(e, h, surface_hit, s_surf, kx):
@@ -102,21 +103,62 @@ def tau_walk(a2, b2, c2, rf, kx, rf_floor, pos_eps, px, py, pz, dx, dy, dz):
                 err=torch.zeros_like(surface_hit))
 
 
+def _book_flow(flow, energy, px, py, pz, dx, dy, dz, start, seg, shell, mask, hit, s_hit):
+    """Add the flow diagnostics of every walked segment into ``flow``, the
+    float64 tensors ``(nr, 3)``, ``(nr, 4)`` and ``(nr,)`` (the ``book`` hook
+    of the JAX march, ARTES.f90:711-744): energy x distance projected on the
+    local (r, theta, phi) unit vectors at the segment's end, the energy of
+    every full crossing in column 0 (outward) or 1 (inward), and energy x
+    distance itself, the unsigned total the projections are parts of. The
+    projections are polynomials of the path parameter over 1/r and 1/rho,
+    constant coefficients along the ray. ``mask`` marks the walked segments,
+    ``hit`` the one that ends at the interaction point ``s_hit``."""
+    flow_g, flow_t, flow_path = flow
+    nr = flow_g.shape[0]
+
+    def col(v):
+        return v.unsqueeze(-1)
+
+    pd = col(px * dx + py * dy + pz * dz)
+    p2 = col(px * px + py * py + pz * pz)
+    pdxy = col(px * dx + py * dy)
+    pq2 = col(px * px + py * py)
+    dq2 = col(dx * dx + dy * dy)
+    lz = col(px * dy - py * dx)
+    dist = torch.where(hit, col(s_hit) - start, seg)
+    t = torch.where(hit, col(s_hit), start + seg)
+    r2 = t * (t + 2.0 * pd) + p2
+    rho2 = (dq2 * t + 2.0 * pdxy) * t + pq2
+    inv_r = torch.rsqrt(torch.clamp_min(r2, 1e-30))
+    inv_rho = torch.rsqrt(torch.clamp_min(rho2, 1e-30))
+    w = col(energy) * dist * mask
+    tnum = (col(pz) + t * col(dz)) * (pdxy + t * dq2) - rho2 * col(dz)
+    proj = torch.stack([(pd + t) * inv_r * w, tnum * (inv_rho * inv_r) * w, lz * inv_rho * w],
+                       dim=-1)
+    flow_g.index_add_(0, shell, proj.to(torch.float64).sum(dim=0))
+    flow_path.index_add_(0, shell, w.to(torch.float64).sum(dim=0))
+    crossed = (col(energy) * (mask & ~hit)).to(torch.float64).sum(dim=0)
+    flow_t[:, 1].index_add_(0, shell[:nr], crossed[:nr])      # inbound segments
+    flow_t[:, 0].index_add_(0, shell[nr:], crossed[nr:])      # outbound segments
+
+
 def march(a2, b2, c2, rf, kx, rf_floor, pos_eps, px, py, pz, dx, dy, dz,
-          tau_budget, active, chords=None):
+          tau_budget, active, chords=None, energy=None, flow=None):
     """March to the sampled optical depth (ARTES.f90:687-778, loop-free).
 
     Returns ``s_stop`` (path length consumed), ``cr`` (radial cell of an
     interaction), ``inter``, ``exited``, ``surface`` (reached the floor with
     budget left: absorbed) and ``tau_surf``. ``chords`` may carry this
-    ray's :func:`ray_chords` result when the caller already has it.
+    ray's :func:`ray_chords` result when the caller already has it. With
+    ``flow`` (see :func:`_book_flow`) and ``energy``, the photons' Stokes I,
+    the march books its flow diagnostics.
     """
     if chords is None:
         chords = ray_chords(a2, b2, c2, rf, rf_floor, pos_eps,
                             px, py, pz, dx, dy, dz)
     e, h, surface_hit, s_surf = chords
     nr = kx.shape[0]
-    start, contrib, cum, shell = _path_segments(e, h, surface_hit, s_surf, kx)
+    start, contrib, cum, shell, seg = _path_segments(e, h, surface_hit, s_surf, kx)
     cum_before = torch.cat([torch.zeros_like(cum[..., :1]), cum[..., :-1]], dim=-1)
     # the interaction is the first segment (in path order) whose running
     # optical depth passes the budget; outbound segments only count when
@@ -130,6 +172,13 @@ def march(a2, b2, c2, rf, kx, rf_floor, pos_eps, px, py, pz, dx, dy, dz,
     k_safe = torch.where(k_hit == 0.0, 1.0, k_hit)
     s_hit = (start.gather(-1, first)[..., 0]
              + (tau_budget - cum_before.gather(-1, first)[..., 0]) / k_safe)
+    if flow is not None:
+        seg_index = torch.arange(2 * nr, device=kx.device)
+        walked = torch.where(inter.unsqueeze(-1), seg_index <= first, True)
+        mask = (active.unsqueeze(-1) & walked & (seg > 0.0)
+                & ~(outbound & surface_hit.unsqueeze(-1)))
+        _book_flow(flow, energy, px, py, pz, dx, dy, dz, start, seg, shell, mask,
+                   inter.unsqueeze(-1) & (seg_index == first), s_hit)
     tau_surf = cum[..., nr - 1]
     surface = active & surface_hit & ~inter
     s_stop = torch.where(inter, s_hit, torch.where(surface, s_surf, 0.0))

@@ -141,6 +141,9 @@ def build_tables(atm, cfg, det, wl_index: int, dtype=torch.float64,
         star_theta=t(cfg.theta_star),
         star_phi=t(cfg.phi_star),
     )
-    tables.jump = J.jump_tables_of(grid, tables.opacity)
+    # the jump walks serve 3-D grids without a Lambert surface and without
+    # flow diagnostics (kernel.walk_mode); every other walk reads no jump table
+    if not (cfg.surface_albedo > 0.0 or cfg.flow_global or cfg.flow_theta):
+        tables.jump = J.jump_tables_of(grid, tables.opacity)
     return PreparedWavelength(tables=tables, r_scale=r_scale, cell_depth=cell_depth,
                               emissivity_total=emis_total, cell_luminosity=lum)

@@ -8,12 +8,13 @@ Phases, one line each; any failure exits non-zero before the result lines:
 
 1. env: torch, CUDA, nvcc, the card's name and power limit;
 2. build: compiles ``artes_tpu_torch/csrc/pool_radial.cu``,
-   ``pool_grid3d.cu`` and ``probe_splat.cu`` with nvcc, all at once, and
-   prints the ptxas registers and spills of every kernel instantiation;
-3. kernel vs plain: every instantiation of both pool kernels (stellar,
-   thermal, image, thermal image; radial and 3-D) against its plain PyTorch
-   version on the card, seed 7, float32, on the cells of
-   ``cells.KERNEL_CELLS``. Radial cells at 2^20 photons (flagship, nr=39
+   ``pool_grid3d.cu``, ``pool_march.cu`` and ``probe_splat.cu`` with nvcc,
+   all at once, and prints the ptxas registers and spills of every kernel
+   instantiation;
+3. kernel vs plain: every instantiation of the three pool kernels (stellar,
+   thermal, image, thermal image; radial, 3-D and marching; with and without
+   flow) against its plain PyTorch version on the card, seed 7, float32, on
+   the cells of ``cells.KERNEL_CELLS``. Radial cells at 2^20 photons (flagship, nr=39
    graded grid, 25x25 and 101x101 images, the bench's thermal shell with
    isotropic and biased emission, the scattering thermal shell as spectrum
    and 25x25 image, crescent with an off-axis star) within
@@ -24,7 +25,20 @@ Phases, one line each; any failure exits non-zero before the result lines:
    its own blend of two species) within ``pool_cuda.AGREE_3D``:
    counts per count column, per-pixel I and counts, the Stokes sums and
    squares, the capped photons, both fluxes, the abandoned photons and the
-   per-code error counts;
+   per-code error counts. Lambert surfaces and flow diagnostics: the thin
+   Rayleigh layer over a white surface as spectrum and (albedo 0.8) 25x25
+   image and the half-scattering thermal shell over a surface as spectrum
+   and image at 2^20 photons; a five-shell layer of tau = 16 over a white
+   surface, whose photons scatter on to the default cap of 256 orders; the
+   nr=39 grid and the 39 x 8 x 8 deck over a surface of albedo 0.5
+   (scattering orders cut at ``cells.SURFACE_MAX_SCATTER``: the plain
+   version's time grows with the orders), the deck and the self-luminous 3-D grid
+   with both flow outputs, the 2 x 3 x 4 grid imaged over a surface with
+   flow, and the self-luminous 3-D grid imaged over a surface with flow, at
+   2^16 photons (the plain version marches every walk cell by cell), all
+   within ``pool_cuda.AGREE_MARCH``; the closed-form flow hook on the nr=39
+   grid, the scattering thermal shell and their 25x25 images at 2^20
+   photons within ``pool_cuda.AGREE``, the two flow arrays included;
 4. probe splat: the splat micro-benchmark kernel and its loop-only
    baseline against their plain versions at 625, 2025 and 10201 pixels
    (counts equal, values within ``probe_splat.VALUE_RTOL``), and the
@@ -41,7 +55,12 @@ Phases, one line each; any failure exits non-zero before the result lines:
    grid whose 30 cells all hold the flagship's opacity gives the
    flagship's spectrum at 2^24 photons within Monte Carlo noise (I per
    photon within ``UNIFORM_3D_REL``), abandoning at most
-   ``UNIFORM_3D_ERRORS`` of its photons;
+   ``UNIFORM_3D_ERRORS`` of its photons; (f) the Lambert sphere: a
+   transparent shell over a white surface at full phase has I / norm = 2/3
+   within 1% and |Q/I| < 2e-3 at 2^24 photons; (g) in a thermal run with
+   flow over a surface, the energy crossing the top shell's outer face
+   (``flow_theta[nr-1, :, :, 0]``) is ``flux_exit`` within 2e-5 (in float32 a
+   photon within rounding of the outer face leaves without a step to book);
 6. main path: ``python -m artes_tpu_torch.cli`` as a user runs it, one
    process each, 2^24 photons: spectrum on the README quick-start input
    and on the nr=39 grid, a 25x25 image of the quick-start input, its
@@ -49,14 +68,24 @@ Phases, one line each; any failure exits non-zero before the result lines:
    and a thermal 25x25 image of the scattering thermal shell; on 3-D
    grids the spectrum and the 25x25 image of the 39 x 8 x 8 patchy deck
    and of the self-luminous patchy grid, with ``error.log`` read back when
-   photons were abandoned; then ``python -m artes_tpu_torch.probe_splat``,
+   photons were abandoned; with a Lambert surface and with flow, at 2^24
+   photons the quick-start input over a surface of albedo 0.5, the nr=39
+   grid with both flow outputs and the 39 x 8 x 8 deck over a surface with
+   both flow outputs, and at 2^22 photons one run for each other surface
+   or flow instantiation (three processes at a time), each checked for its
+   launch, its ``spectrum.dat``
+   or ``stokes.fits``, its ``flow_global.fits`` (unit vectors where not
+   zero) and ``flow_latitudinal.fits``, and its ``error.log``; then
+   ``python -m artes_tpu_torch.probe_splat``,
    the splat micro-benchmark's own entry point. Each process starts with
    its launch counts at 0 and prints them at its end; every kernel must
    have been launched.
 
 Each kernel's bound is the larger of its bytes (every table read once, every
 tally written once) over 3.35 TB/s and a lower count of its float32
-operations over 67 TFLOP/s (``bound_ms``). It then prints the card line, a
+operations over 67 TFLOP/s (``bound_ms``); a marching kernel's count holds
+the ``cell_face`` passes the run made and a flow kernel's the bookings it
+made, which the kernels tally. It then prints the card line, a
 JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``. Nothing runs without a CUDA device.
 """
@@ -78,9 +107,22 @@ POOL_REPLACES = "artes_tpu/transport/pallas_stream.py:2049"
 VARIANT_CELL = {"stellar": "flagship", "thermal": "thermal_iso", "image": "imaging25",
                 "thermal_image": "thermal_imaging25", "grid3d_stellar": "grid3d_2496",
                 "grid3d_thermal": "grid3d_thermal", "grid3d_image": "grid3d_imaging25",
-                "grid3d_thermal_image": "grid3d_thermal_imaging25"}
+                "grid3d_thermal_image": "grid3d_thermal_imaging25",
+                "stellar_flow": "hydrostatic39_flow", "thermal_flow": "thermal_flow",
+                "image_flow": "imaging25_flow", "thermal_image_flow": "thermal_imaging25_flow",
+                "march_stellar": "lambert_tau05", "march_thermal": "thermal_surface",
+                "march_image": "lambert_imaging25",
+                "march_thermal_image": "thermal_surface_imaging25",
+                "march_stellar_flow": "grid3d_2496_flow",
+                "march_thermal_flow": "grid3d_thermal_flow",
+                "march_image_flow": "patchy3d_imaging25_surface_flow",
+                "march_thermal_image_flow": "grid3d_thermal_surface_flow"}
+KERNEL_SOURCE = {"pool_radial": "artes_tpu_torch/csrc/pool_radial.cu",
+                 "pool_grid3d": "artes_tpu_torch/csrc/pool_grid3d.cu",
+                 "pool_march": "artes_tpu_torch/csrc/pool_march.cu"}
 PROBE_SIZES = (625, 2025, 10201)
-PHOTONS_RADIAL, PHOTONS_3D = 1 << 20, 1 << 18      # kernel vs plain, a cell
+MAIN_PATH_PHOTONS_SMALL = 1 << 22
+MAIN_PATH_TOGETHER = 3          # CLI processes of the small surface and flow runs at a time
 # anchor (e): |I_3D / I_flagship - 1| per photon and the abandoned share, at
 # 2^24 photons (NVIDIA H100 80GB HBM3, 700 W; readings in PERF.md section 6)
 UNIFORM_3D_REL = 1.0e-3
@@ -135,7 +177,7 @@ def phase_env():
 
 def phase_build():
     from artes_tpu_torch import _build
-    names = ("pool_radial", "pool_grid3d", "probe_splat")
+    names = ("pool_radial", "pool_grid3d", "pool_march", "probe_splat")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as ex:          # one nvcc a source, all at once
         paths = dict(zip(names, ex.map(_build.build, names)))
@@ -162,6 +204,11 @@ def bound(n_bytes, n_ops):
 # emission, one face root (a quadratic: 12), one cone face's root pair, one
 # phi half-plane crossing
 OPS_ROUND, OPS_EMIT, OPS_ROOT, OPS_CONE, OPS_PHI = 787, 40, 12, 30, 14
+OPS_SELECT = 24                       # cell_face's two-tier selection
+# one flow booking, a square root or a trigonometric function counted as one
+# operation: a marching pass (pool_march.cu::flow_book), a closed-form
+# segment (pool_radial.cu::book_segment)
+OPS_FLOW_PASS, OPS_FLOW_SEGMENT = 37, 29
 
 
 def pool_bound(tables, static, out):
@@ -174,41 +221,53 @@ def pool_bound(tables, static, out):
     draws are left out). A radial walk
     takes the roots of nr + 1 faces twice (in, out) and 3 operations a
     segment; a 3-D jump walk adds the root pair of every cone face and the
-    crossing of every phi half-plane."""
+    crossing of every phi half-plane. A marching kernel's walks are the
+    ``cell_face`` passes it counted. Flow costs what the kernel counted: the
+    passes (marching) or walked segments (closed form) that booked."""
     import torch
     g = tables.grid
     tensors = [v for v in vars(tables).values() if isinstance(v, torch.Tensor)]
     tensors += [v for v in vars(g).values() if isinstance(v, torch.Tensor)]
-    if tables.jump is not None:
+    if tables.jump is not None:        # built for the jump walks only
         tensors += [v for v in vars(tables.jump).values() if isinstance(v, torch.Tensor)]
+    from artes_tpu_torch.transport import kernel
+    mode = kernel.walk_mode(tables, static)
     npix = static.nx * static.ny
-    n_bytes = sum(t.numel() * t.element_size() for t in tensors) + 8 * (10 + 8) \
-        + (npix * 8 * (8 + 2) if npix > 1 else 0)
+    ncell = tables.opacity.shape[0]
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors) + 8 * (10 + 10) \
+        + (npix * 8 * (8 + 2) if npix > 1 else 0) + (ncell * 7 * 8 if static.track_flow else 0)
+    rounds = int(out["detector"][:, 1, 2].sum())
+    emitted = int(out["n_emitted"])
+    booked = int(out["n_flow_booked"]) if static.track_flow else 0
+    if mode == "march":
+        face = 2 * OPS_ROOT + OPS_SELECT + (2 * OPS_CONE if g.ntheta > 1 else 0) \
+            + (2 * OPS_PHI if g.nphi > 1 else 0)
+        n_ops = emitted * OPS_EMIT + rounds * OPS_ROUND + int(out["n_cell_face"]) * face \
+            + booked * OPS_FLOW_PASS
+        return bound(n_bytes, n_ops)
     walk = 2 * (g.nr + 1) * OPS_ROOT + 2 * g.nr * 3
     walks_a_round = 1
-    if tables.jump is not None:
+    if mode == "jumps":
         walk += (g.ntheta - 1) * OPS_CONE + g.nphi * OPS_PHI
         walks_a_round = 2
-    rounds = int(out["detector"][:, 1, 2].sum())
-    n_ops = int(out["n_emitted"]) * (OPS_EMIT + walk) + rounds * (OPS_ROUND
-                                                                    + walks_a_round * walk)
+    n_ops = emitted * (OPS_EMIT + walk) + rounds * (OPS_ROUND + walks_a_round * walk) \
+        + booked * OPS_FLOW_SEGMENT
     return bound(n_bytes, n_ops)
 
 
 def phase_kernel_vs_plain():
     """Each cell's kernel against its plain version; fails at the first cell
     that disagrees, else returns per-cell rows."""
-    from artes_tpu_torch.cells import KERNEL_CELLS
+    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
     from artes_tpu_torch.transport import kernel, pool_cuda
     seed = 7
     rows = {}
     for name in KERNEL_CELLS:
         tables, static = KERNEL_CELLS[name]("cuda")
-        grid3d = tables.jump is not None
-        n = PHOTONS_3D if grid3d else PHOTONS_RADIAL
-        limits = pool_cuda.limits_of(tables)
-        variant = (pool_cuda.VARIANTS_3D if grid3d else pool_cuda.VARIANTS)[
-            pool_cuda.variant_of(static)]
+        mode = kernel.walk_mode(tables, static)
+        n = gate_photons(tables, static)
+        limits = pool_cuda.limits_of(tables, static)
+        variant = pool_cuda.kernel_of(tables, static)[1]
         pool_cuda.run_stream_cuda(tables, static, n, seed)          # warm-up
         ms, out_k = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
         plain_ms, out_p = timed(lambda: kernel.run_stream(tables, static, n, seed, n), 1)
@@ -231,13 +290,20 @@ def phase_kernel_vs_plain():
                        f"{k}=" + ",".join(f"{x:.3e}" for x in v) for k, v in g.items())
             + "; plain sums (I,Q,U,V) " + " ".join(f"{x:.7g}" for x in tot_p[:, 0].tolist())
             + f"; max|dIQUV| {max_abs:.6g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({n} photons)")
+            f"bound {bound_ms:.4f} ms by {bound_by} ({n} photons"
+            + (f", {int(out_k['n_cell_face'])} cell_face passes" if mode == "march" else "")
+            + (f", {int(out_k['n_flow_booked'])} flow bookings" if static.track_flow else "")
+            + ")")
         if not (dk.isfinite().all() and pool_cuda.agrees(g, limits)):
             fail(f"kernel disagrees with its plain version on {name} (limits {limits})")
-        if int(out_k["n_error_records"]) != int(out_k["n_error"]) or \
-                len(out_k["error_records"]) != min(int(out_k["n_error"]), 2 * kernel.ERR_RECORD_K):
-            fail(f"{name}: {int(out_k['n_error'])} photons abandoned but "
-                 f"{out_k['n_error_records']} error records")
+        # every abandoned photon leaves a record, but for failed birth peels;
+        # a failed scatter peel leaves one unless its round's march failed too
+        n_err, n_rec = int(out_k["n_error"]), int(out_k["n_error_records"])
+        peel = int(out_k["error_codes"][3])
+        if not (n_err - peel <= n_rec <= n_err + peel) or \
+                len(out_k["error_records"]) != min(n_rec, 2 * kernel.ERR_RECORD_K):
+            fail(f"{name}: {n_err} photons abandoned, {peel} peel walks failed, but "
+                 f"{n_rec} error records")
         rows[name] = dict(variant=variant, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
                           bound_ms=bound_ms, bound_by=bound_by)
     return rows
@@ -388,22 +454,57 @@ def phase_anchors():
     if not (worst_i <= 0.05 and worst_p <= 0.05):
         fail("the thin-shell phase curve misses single scattering")
 
+    # (f) the Lambert sphere: geometric albedo 2/3 at full phase
+    atm = cells.lambert_sphere()
+    cfg = ArtesConfig()
+    cfg.mode = "spectrum"
+    cfg.surface_albedo = 1.0
+    cfg.det_phi = 1.0e-3
+    det_s = detector_setup(cfg, float(atm.rfront[-1]))
+    res = runner.run_wavelength(atm, cfg, det_s, 0, n, seed=11, device="cuda")
+    albedo = res.photometry[0] / cells.stellar_norm(cfg, atm)
+    q_over_i = res.photometry[2] / res.photometry[0]
+    say("anchor", f"Lambert sphere, 2^24 photons: I / norm {albedo:.5f} (2/3 = {2 / 3:.5f}), "
+                  f"Q/I {q_over_i:.2e}; abandoned {res.n_error} {res.error_codes.tolist()}")
+    if not (abs(albedo / (2.0 / 3.0) - 1.0) <= 0.01 and abs(q_over_i) < 2e-3):
+        fail("the Lambert sphere misses the geometric albedo 2/3")
+
+    # (g) what crosses the top shell's outer face is what leaves
+    for label, atm, keys in (
+            ("radial, closed form", cells.thermal_scattering_shell(), {}),
+            ("radial over a surface", cells.thermal_surface_shell(), {"surface_albedo": 0.7}),
+            ("3-D over a surface", cells.grid3d_thermal_atm(), {"surface_albedo": 0.5})):
+        cfg = ArtesConfig()
+        cfg.mode = "spectrum"
+        cfg.photon_source = "planet"
+        cfg.flow_global = cfg.flow_theta = True
+        for k, v in keys.items():
+            setattr(cfg, k, v)
+        det_s = detector_setup(cfg, float(atm.rfront[-1]))
+        res = runner.run_wavelength(atm, cfg, det_s, 0, 1 << 22, seed=5, device="cuda")
+        top = float(res.flow_theta[-1, :, :, 0].sum())
+        say("anchor", f"thermal flow, {label}, 2^22 photons: sum flow_theta[top shell, up] "
+                      f"{top:.6f} vs flux_exit {res.flux_exit:.6f} "
+                      f"(rel {abs(top / res.flux_exit - 1.0):.3e})")
+        if not abs(top / res.flux_exit - 1.0) <= 2e-5:
+            fail("the energy crossing the outer face is not flux_exit")
+
 
 LAUNCH_LINE = re.compile(r"CUDA kernel launches: pool=(\d+) \((.*)\)")
-ERROR_TALLY = re.compile(r"^error (\d{3})/.* x(\d+)$")
+ERROR_TALLY = re.compile(r"^error (\d{2}[\dx])/.* x(\d+)$")
 ERROR_RECORD = re.compile(r"^error (\d{3}) photon (\d+) at ([a-z ]+): pos=\((.*)\) dir=\((.*)\) "
                           r"cell=\((-?\d+), (-?\d+), (-?\d+)\) face=\((\d+), (\d+)\) "
                           r"I=(\S+) n_scat=(\d+)$")
 
 
-def _cli(root, env, atm_name, run, *keys):
+def _cli(root, env, atm_name, run, *keys, photons=SMOKE_PHOTONS):
     """One CLI process; returns its output directory and its launches per
     instantiation."""
     from artes_tpu_torch.transport import pool_cuda
     t0 = time.perf_counter()
     args = [a for k in keys for a in ("-k", k)]
     proc = subprocess.run(
-        [sys.executable, "-m", "artes_tpu_torch.cli", atm_name, str(SMOKE_PHOTONS),
+        [sys.executable, "-m", "artes_tpu_torch.cli", atm_name, str(photons),
          "-o", run, "--root", root, *args],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
@@ -418,10 +519,21 @@ def _cli(root, env, atm_name, run, *keys):
     return os.path.join(root, "output", run, "output"), by, wall
 
 
-def _read_error_log(path):
-    """``(photons abandoned, records)`` of a run's ``error.log``: none when
-    the run abandoned no photon; else every line must parse, the tallies
-    come first and every record names a code it tallied."""
+# the sites a record may name, by its code: a march (031, 032, 034) is a
+# scatter march or, with marching walks, a first walk; 031 also a prewalk; a
+# failed scatter peel is recorded as code 050
+RECORD_SITES = {"031": ("scatter march", "first walk", "prewalk"),
+                "032": ("scatter march", "first walk"), "034": ("scatter march", "first walk"),
+                "050": ("detector peel",)}
+
+
+def _read_error_log(path, marching=False):
+    """``(events tallied, records)`` of a run's ``error.log``: none when the
+    run tallied no error; else every line must parse, the tallies come first
+    and every record names a code that was tallied and a site of that code.
+    Jump-walk runs record every abandoned photon (the first and last 8);
+    marching runs also tally failed peel walks (``05x``), of which failed
+    birth peels leave no record."""
     if not os.path.isfile(path):
         return 0, 0
     tallies, records = {}, 0
@@ -430,17 +542,21 @@ def _read_error_log(path):
             tally, record = ERROR_TALLY.match(line), ERROR_RECORD.match(line)
             if tally and not records:
                 tallies[tally.group(1)] = int(tally.group(2))
-            elif record and record.group(1) in tallies and record.group(3) == "scatter march":
-                floats = [float(x) for x in (record.group(4) + "," + record.group(5)).split(",")]
-                if len(floats) != 6 or not all(abs(x) <= 1.0 + 1e-5 for x in floats):
-                    fail(f"{path}: a record's position or direction leaves the unit ball: "
-                         f"{line}")
-                records += 1
-            else:
+                continue
+            code = record.group(1) if record else None
+            if code is None or ("05x" if code == "050" else code) not in tallies \
+                    or record.group(3) not in RECORD_SITES[code] \
+                    or (not marching and record.group(3) != "scatter march"):
                 fail(f"{path}: line not understood: {line}")
-    if not tallies or records != min(sum(tallies.values()), 16):
+            floats = [float(x) for x in (record.group(4) + "," + record.group(5)).split(",")]
+            if len(floats) != 6 or not all(abs(x) <= 1.0 + 1e-5 for x in floats):
+                fail(f"{path}: a record's position or direction leaves the unit ball: {line}")
+            records += 1
+    total, peel = sum(tallies.values()), tallies.get("05x", 0)
+    expected = (min(total - peel, 16), min(total, 16)) if marching else (min(total, 16),) * 2
+    if not tallies or not expected[0] <= records <= expected[1]:
         fail(f"{path}: tallies {tallies} but {records} records")
-    return sum(tallies.values()), records
+    return total, records
 
 
 def phase_main_path():
@@ -549,6 +665,73 @@ def phase_main_path():
                              f"{n_err} photons, {n_rec} records in error.log; launches "
                              f"{ {k: v for k, v in by.items() if v} }; {wall:.1f} s wall")
 
+        # Lambert surfaces and flow diagnostics: one run an instantiation
+        cells.write_artifact_input(root, "thermal_surf", cells.thermal_surface_shell(),
+                                   ["photon:source=planet"])
+        cells.write_artifact_input(root, "patchy", cells.patchy3d_small())
+        surface, flow = "planet:surface_albedo=0.5", ["output:flow_global=on",
+                                                      "output:flow_latitudinal=on"]
+        small = MAIN_PATH_PHOTONS_SMALL
+        runs = (("demo", "surface_demo", [surface], "march_stellar", SMOKE_PHOTONS),
+                ("h39", "flow_h39", flow, "stellar_flow", SMOKE_PHOTONS),
+                ("grid3d", "surface_flow_grid3d", [surface] + flow, "march_stellar_flow",
+                 SMOKE_PHOTONS),
+                ("thermal_scat", "flow_thermal", flow, "thermal_flow", small),
+                ("demo", "flow_image_demo", image + flow, "image_flow", small),
+                ("thermal_scat", "flow_image_thermal", image + flow, "thermal_image_flow", small),
+                ("thermal_surf", "surface_thermal", [surface], "march_thermal", small),
+                ("demo", "surface_image_demo", image + [surface], "march_image", small),
+                ("thermal_surf", "surface_image_thermal", image + [surface],
+                 "march_thermal_image", small),
+                ("grid3d_thermal", "flow_grid3d_thermal", flow, "march_thermal_flow", small),
+                ("patchy", "surface_flow_image_patchy", image + [surface] + flow,
+                 "march_image_flow", small),
+                ("grid3d_thermal", "surface_flow_image_grid3d_thermal",
+                 image + [surface] + flow, "march_thermal_image_flow", small))
+
+        def drive(spec):
+            return _cli(root, env, spec[0], spec[1], *spec[2], photons=spec[4])
+
+        # the three 2^24 runs one after the other, so that their wall times
+        # stand alone; the nine small ones, which are mostly process start,
+        # MAIN_PATH_TOGETHER at a time
+        with ThreadPoolExecutor(MAIN_PATH_TOGETHER) as ex:
+            results = [drive(spec) for spec in runs[:3]] + list(ex.map(drive, runs[3:]))
+        for (atm_name, run, keys, variant, photons), (out, by, wall) in zip(runs, results):
+            count(by)
+            if by[variant] != 1 or sum(by.values()) != 1:
+                fail(f"cli {run} did not run {variant} once: {by}")
+            if image[0] in keys:
+                img = read_fits(os.path.join(out, "stokes.fits"))[0][1]
+                total_i = float(img[0].sum())
+                ok = img.shape == (4, 25, 25) and bool(np.isfinite(img).all()
+                                                       and (img[0] >= 0).all())
+            else:
+                rows = np.loadtxt(os.path.join(out, "spectrum.dat"), ndmin=2)
+                total_i = float(rows[0, 1])
+                ok = rows.shape == (1, 5) and bool(np.isfinite(rows).all())
+            if not (ok and total_i > 0.0):
+                fail(f"cli {run}: output is not physical (I {total_i})")
+            flow_note = ""
+            if flow[0] in keys:
+                vec = read_fits(os.path.join(out, "flow_global.fits"))[0][1]
+                lat = read_fits(os.path.join(out, "flow_latitudinal.fits"))[0][1]
+                norms = np.linalg.norm(vec, axis=-1)
+                lit = norms > 0
+                if not (vec.shape[-1] == 3 and lat.shape[-1] == 4 and vec.shape[:-1] == lat.shape[:-1]
+                        and lit.any() and np.allclose(norms[lit], 1.0, rtol=1e-12)
+                        and np.isfinite(lat).all() and (lat >= 0).all() and lat.sum() > 0):
+                    fail(f"cli {run}: the flow files are not physical")
+                flow_note = (f"; flow_global.fits {int(lit.sum())} of {lit.size} cells with a "
+                             f"unit vector, flow_latitudinal.fits sum {float(lat.sum()):.6e}")
+            elif any(name.startswith("flow") for name in os.listdir(out)):
+                fail(f"cli {run} wrote flow files without being asked to")
+            n_err, n_rec = _read_error_log(os.path.join(root, "output", run, "error.log"),
+                                           marching=variant.startswith("march_"))
+            say("main-path", f"cli {run} {photons} photons: I {total_i:.6e}{flow_note}; "
+                             f"{n_err} error events, {n_rec} records in error.log; launches "
+                             f"{ {k: v for k, v in by.items() if v} }; {wall:.1f} s wall")
+
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "artes_tpu_torch.probe_splat"],
                               cwd=root, env=env, capture_output=True, text=True, timeout=300)
@@ -586,15 +769,17 @@ def main():
     phase_anchors()
     launches = phase_main_path()
 
+    from artes_tpu_torch.transport import pool_cuda
+    sources = {v: "pool_radial" for v in pool_cuda.VARIANTS + pool_cuda.VARIANTS_FLOW}
+    sources.update({v: "pool_grid3d" for v in pool_cuda.VARIANTS_3D})
+    sources.update({v: "pool_march" for v in pool_cuda.VARIANTS_MARCH})
     kernels = []
     for variant, cell in VARIANT_CELL.items():
         mine = [r for r in rows.values() if r["variant"] == variant]
-        grid3d = variant.startswith("grid3d_")
-        kernels.append({"name": ("pool_grid3d." + variant[len("grid3d_"):] if grid3d
-                                 else "pool_radial." + variant),
-                        "route": "cuda",
-                        "source": "artes_tpu_torch/csrc/"
-                                  + ("pool_grid3d.cu" if grid3d else "pool_radial.cu"),
+        source = sources[variant]
+        short = variant.split("_", 1)[1] if source != "pool_radial" else variant
+        kernels.append({"name": f"{source}.{short}", "route": "cuda",
+                        "source": KERNEL_SOURCE[source],
                         "replaces": POOL_REPLACES, "launches": launches[variant],
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": rows[cell]["ms"], "plain_ms": rows[cell]["plain_ms"],

@@ -110,18 +110,31 @@ def test_device_cuda_without_card_raises(quickstart, monkeypatch):
 
 
 def test_unported_modes_raise(quickstart):
-    """A Lambert surface and flow diagnostics are later slices: the CLI
-    raises on them, naming the ROADMAP, on radial and 3-D grids alike."""
+    """A Lambert surface and flow diagnostics run through the CLI on radial
+    and 3-D grids alike, and the flow outputs leave their files; what still
+    raises is float64 on the card."""
     from artes_tpu import presets
+    from artes_tpu_torch.io.fitsio import read_fits
     cells.write_artifact_input(quickstart, "patchy", presets.patchy_3d())
-    runs = {"surface": ["demo", "-k", "planet:surface_albedo=0.5"],
-            "3-D surface": ["patchy", "-k", "planet:surface_albedo=0.5"],
-            "flow": ["demo", "-k", "output:flow_global=on"],
-            "3-D flow": ["patchy", "-k", "output:flow_global=on"]}
-    for what, args in runs.items():
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([args[0], "1024", "-o", "m", "--device", "cpu", "--root", str(quickstart),
-                      *args[1:]])
+    runs = {"surface": (["demo", "-k", "planet:surface_albedo=0.5"], ()),
+            "3-D surface": (["patchy", "-k", "planet:surface_albedo=0.5"], ()),
+            "flow": (["demo", "-k", "output:flow_global=on"], ("flow_global.fits",)),
+            "3-D flow": (["patchy", "-k", "output:flow_global=on", "-k",
+                          "output:flow_latitudinal=on"],
+                         ("flow_global.fits", "flow_latitudinal.fits"))}
+    for what, (args, files) in runs.items():
+        run = what.replace(" ", "_")
+        assert cli.main([args[0], "1024", "-o", run, "--device", "cpu", "--root",
+                         str(quickstart), *args[1:]]) == 0, what
+        out = quickstart / "output" / run / "output"
+        rows = _table(out / "spectrum.dat")
+        assert np.isfinite(rows).all() and rows[0, 1] > 0.0, what
+        assert sorted(f for f in os.listdir(out) if f.startswith("flow")) == sorted(files)
+        for name in files:
+            plane = read_fits(out / name)[0][1]
+            assert np.isfinite(plane).all() and np.abs(plane).max() > 0.0, (what, name)
+    with pytest.raises((NotImplementedError, RuntimeError)):
+        cli.main(["demo", "1024", "-o", "m", "--f64", "--root", str(quickstart)])
 
 
 def test_error_log_matches_jax(tmp_path):

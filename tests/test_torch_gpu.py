@@ -7,11 +7,14 @@ out):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import os
+import shutil
+
 import pytest
 import torch
 
-from artes_tpu_torch import probe_splat
-from artes_tpu_torch.cells import CELLS, KERNEL_CELLS, spectrum_tables
+from artes_tpu_torch import _build, probe_splat
+from artes_tpu_torch.cells import CELLS, KERNEL_CELLS, gate_photons, spectrum_tables
 from artes_tpu_torch.transport import kernel, pool_cuda
 
 SEED = 7
@@ -63,10 +66,8 @@ def test_cuda_wrapper_counts_launches_and_checks_inputs(cuda):
 
 def held_against_plain(tables, static, n):
     """Kernel and plain version on the same photons: one more launch of the
-    configuration's instantiation, every gap within the grid's limits."""
-    grid3d = tables.jump is not None
-    variant = (pool_cuda.VARIANTS_3D if grid3d else pool_cuda.VARIANTS)[
-        pool_cuda.variant_of(static)]
+    configuration's instantiation, every gap within the limits of its walks."""
+    variant = pool_cuda.kernel_of(tables, static)[1]
     before = pool_cuda.LAUNCHES[variant]
     k = pool_cuda.run_stream_cuda(tables, static, n, SEED)
     p = kernel.run_stream(tables, static, n, SEED, n)
@@ -74,31 +75,134 @@ def held_against_plain(tables, static, n):
     assert k["detector"].isfinite().all()
     assert k["detector"].shape == p["detector"].shape == (static.nx * static.ny, 4, 3)
     g = pool_cuda.gaps(k, p)
-    assert pool_cuda.agrees(g, pool_cuda.limits_of(tables)), g
+    assert pool_cuda.agrees(g, pool_cuda.limits_of(tables, static)), g
     return k, p
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(set(KERNEL_CELLS) - set(CELLS)))
 def test_cuda_instantiations_match_plain(cuda, name):
-    """Thermal, image, crescent/off-axis and 3-D cells: every gap of
-    ``pool_cuda.gaps`` (per pixel, per count column, fluxes, abandoned
-    photons) within ``pool_cuda.AGREE`` at 2^20 photons on radial grids and
-    ``AGREE_3D`` at 2^18 on 3-D ones, the sizes the limits were set at, each
-    through its instantiation."""
+    """Thermal, image, crescent/off-axis, 3-D, surface and flow cells: every
+    gap of ``pool_cuda.gaps`` (per pixel, per count column, fluxes, flow
+    arrays, abandoned photons) within the limits of the cell's walks
+    (``AGREE``, ``AGREE_3D``, ``AGREE_MARCH``) at ``cells.gate_photons``, the
+    sizes the limits were set at, each through its instantiation."""
     tables, static = KERNEL_CELLS[name](cuda)
-    k, p = held_against_plain(tables, static, 1 << (20 if tables.jump is None else 18))
-    if tables.jump is not None:
-        # one record per abandoned photon, in photon-id order, each also an
-        # event of the plain version unless its trajectory flipped
-        n_err = int(k["n_error"])
+    k, p = held_against_plain(tables, static, gate_photons(tables, static))
+    mode = kernel.walk_mode(tables, static)
+    rec = k["error_records"]
+    assert len(rec) == min(k["n_error_records"], 2 * kernel.ERR_RECORD_K)
+    assert torch.equal(rec[:, 1], torch.sort(rec[:, 1]).values)          # photon-id order
+    n_err = int(k["n_error"])
+    if mode == "jumps":
+        # one record per abandoned photon, each also an event of the plain
+        # version unless its trajectory flipped
         assert k["n_error_records"] == n_err
-        rec = k["error_records"]
-        assert len(rec) == min(n_err, 2 * kernel.ERR_RECORD_K)
-        assert torch.equal(rec[:, 1], torch.sort(rec[:, 1]).values)
         assert set(rec[:, 0].tolist()) <= {31.0, 32.0, 34.0} and (rec[:, 15] == 0).all()
         shared = set(rec[:, 1].tolist()) & set(p["error_records"][:, 1].tolist())
         assert len(shared) >= len(rec) // 2
+    elif mode == "march":
+        # failed birth peels abandon without a record; failed scatter peels
+        # leave one (code 50 at site 3) without abandoning
+        peel = int(k["error_codes"][3])
+        assert n_err - peel <= k["n_error_records"] <= n_err + peel
+        assert set(rec[:, 0].tolist()) <= {31.0, 32.0, 34.0, 50.0}
+        assert ((rec[:, 0] == 50.0) == (rec[:, 15] == 3.0)).all()
+        assert int(k["n_cell_face"]) > int(k["n_emitted"])
+    else:
+        assert n_err == k["n_error_records"] == 0
+    assert (k["flow_global"] is not None) == static.track_flow
+    if static.track_flow:
+        # every transport march books at least the segment or pass it ends in
+        assert int(k["n_flow_booked"]) > int(k["n_emitted"]) // 2
+        # a cell's projections are parts of the energy x distance booked there
+        assert float(torch.linalg.norm(k["flow_global"], dim=-1).sum()) \
+            <= float(p["flow_path"].sum()) * (1 + 1e-2)
+
+
+# Small faults of the surface and flow code, each with the cells whose gate
+# must see it: (file under csrc/, text to replace, replacement, cells)
+MUTANTS = {
+    "lambert direction u for sqrt(u)": (
+        "pool_march.cu", "direction_cosine(sqrtf(u[1]), TWO_PI_F * u[2], normal, lambert);",
+        "direction_cosine(u[1], TWO_PI_F * u[2], normal, lambert);",
+        ("lambert_tau05", "grid3d_2496_surface")),
+    "surface peel without its cosine": (
+        "pool_march.cu", "expf(-fminf(w.tau, 500.0f)) * cos_det / PI_F * stokes[0];",
+        "expf(-fminf(w.tau, 500.0f)) / PI_F * stokes[0];",
+        ("lambert_tau05", "thermal_surface")),
+    # faults of the flow_global projections alone, which flow_theta cannot see
+    "flow_global theta projection with its sign turned": (
+        "pool_common.cuh", "atomicAdd(fl.g + 3 * cell + 1, (double)wt);",
+        "atomicAdd(fl.g + 3 * cell + 1, -(double)wt);",
+        ("grid3d_2496_flow", "hydrostatic39_flow")),
+    "flow_global theta and phi projections swapped, marching": (
+        "pool_march.cu",
+        "(c_t * c_p * d[0] + c_t * s_p * d[1] - s_t * d[2]) * w,\n"
+        "             (-s_p * d[0] + c_p * d[1]) * w);",
+        "(-s_p * d[0] + c_p * d[1]) * w,\n"
+        "             (c_t * c_p * d[0] + c_t * s_p * d[1] - s_t * d[2]) * w);",
+        ("grid3d_2496_flow",)),
+    "flow_theta up and down swapped, marching": (
+        "pool_march.cu", "st.axis == 1 ? (outward ? 0 : 1)", "st.axis == 1 ? (outward ? 1 : 0)",
+        ("grid3d_2496_flow", "grid3d_thermal_surface_flow")),
+    "flow_theta up and down swapped, closed form": (
+        "pool_radial.cu", "if (crossed) flow_add_t(fl, m, column, energy);",
+        "if (crossed) flow_add_t(fl, m, 1 - column, energy);",
+        ("hydrostatic39_flow", "thermal_flow")),
+    "flow booked into the cell entered": (
+        "pool_march.cu",
+        "flow_book(fl, G, pos, dir, stokes[0], step, cf, st, cell, !interact);",
+        "flow_book(fl, G, pos, dir, stokes[0], step, interact ? cf : "
+        "(min(max(st.cell[0], 0), T.nr - 1) * G.nt + st.cell[1]) * G.np + st.cell[2], st, cell, "
+        "!interact);",
+        ("grid3d_2496_flow", "patchy3d_imaging25_surface_flow")),
+    # the jump-walk kernel's shortcut: a photon whose sampled depth exceeds
+    # its path's total leaves, or is absorbed at the floor, without marching
+    "exit precheck left on": (
+        "pool_march.cu",
+        "      const int out = march_cells<IMAGE, FLOW>(",
+        "      const Walk path = tau_walk_march(T, G, S, pos, dir, cell, face, cnt[C_PASSES]);\n"
+        "      const int out = (!path.error && tau >= path.tau)\n"
+        "          ? (path.surface ? M_FLOOR : M_EXIT)\n"
+        "          : march_cells<IMAGE, FLOW>(",
+        ("lambert_tau05", "grid3d_2496_flow")),
+}
+
+
+@pytest.fixture(scope="module")
+def plain_results():
+    """The plain version's result a cell, shared by the mutants of a cell."""
+    return {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(MUTANTS))
+def test_mutant_kernels_fail_the_gate(cuda, fault, tmp_path, monkeypatch, plain_results):
+    """A copy of the CUDA sources with one fault, built beside the real
+    libraries: the gate that holds the kernel against its plain version must
+    refuse it on every cell named for the fault."""
+    file, old, new, cell_names = MUTANTS[fault]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    text = (csrc / file).read_text()
+    assert text.count(old) == 1, f"{fault}: the text to replace occurs {text.count(old)} times"
+    (csrc / file).write_text(text.replace(old, new))
+    monkeypatch.setattr(_build, "CSRC_DIR", os.fspath(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", os.fspath(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_LIBS", {})
+    for name in cell_names:
+        tables, static = KERNEL_CELLS[name](cuda)
+        n = gate_photons(tables, static)
+        if name not in plain_results:
+            plain_results[name] = kernel.run_stream(tables, static, n, SEED, n)
+        g = pool_cuda.gaps(pool_cuda.run_stream_cuda(tables, static, n, SEED),
+                           plain_results[name])
+        limits = pool_cuda.limits_of(tables, static)
+        over = {key: g[key] for key in limits
+                if not pool_cuda.agrees({key: g[key]}, {key: limits[key]})}
+        print(f"mutant [{fault}] on {name}: gaps over their limits {over}")
+        assert over, f"{fault} passes the gate on {name}: {g}"
 
 
 @pytest.mark.gpu

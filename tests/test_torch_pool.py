@@ -149,11 +149,13 @@ def test_plain_pool_matches_jax_f32(name):
     assert int(got["n_error"]) == 0 and np.isfinite(det).all()
 
 
-def _unsupported():
+def _surface_and_flow():
     atm = presets.rayleigh_single_layer(tau=1.0)
     return {
-        "surface": (atm, dict(surface_albedo=0.5)),
-        "flow": (atm, dict(flow_global=True)),
+        "surface": (atm, dict(surface_albedo=0.5), "pool_march", "march_stellar"),
+        "flow": (atm, dict(flow_global=True), "pool_radial", "stellar_flow"),
+        "3-D flow": (presets.patchy_3d(), dict(flow_theta=True, photon_source="planet"),
+                     "pool_march", "march_thermal_flow"),
     }
 
 
@@ -164,18 +166,24 @@ def test_supports():
               "off-axis star": (presets.rayleigh_single_layer(tau=1.0),
                                 dict(stellar_direction=True, theta_star=1.2)),
               "3-D": (presets.patchy_3d(), {})}
+    ported.update({k: v[:2] for k, v in _surface_and_flow().items()})
     for what, (atm, keys) in list(ported.items()) + [(n, (CONFIGS[n](), {})) for n in CONFIGS]:
         _, _, tt, st = setup(atm, "float32", **keys)
         assert pool_cuda.supports(tt, st), what
         _, _, tt64, st64 = setup(atm, "float64", **keys)
         assert not pool_cuda.supports(tt64, st64), what      # the kernel runs float32
-    for what, (atm, keys) in _unsupported().items():
+    for what, (atm, keys, source, name) in _surface_and_flow().items():
         _, _, tt, st = setup(atm, "float32", **keys)
-        assert not pool_cuda.supports(tt, st), what
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TK.run_stream(tt, st, 16, SEED, 16)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        assert pool_cuda.kernel_of(tt, st) == (source, name), what
+        assert name in pool_cuda.LAUNCHES
+        out = TK.run_stream(tt, st, 16, SEED, 16)               # the plain version runs it
+        assert out["n_emitted"] == 16 and bool(out["detector"].isfinite().all())
+        with pytest.raises(ValueError, match="CUDA device"):     # and the kernel needs a card
             pool_cuda.run_stream_cuda(tt, st, 16, SEED)
+    _, _, tt, st = setup(presets.rayleigh_single_layer(tau=1.0), "float32", debug_stokes=True)
+    assert not pool_cuda.supports(tt, st)
+    with pytest.raises(NotImplementedError, match="--device cpu"):
+        pool_cuda.run_stream_cuda(tt, st, 16, SEED)
 
 
 def test_agreement_check_holds_every_tally():
@@ -244,4 +252,5 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         pool_cuda.run_stream_cuda(tt, st, 1024, SEED)
     assert pool_cuda.LAUNCHES == before == dict.fromkeys(
-        pool_cuda.VARIANTS + pool_cuda.VARIANTS_3D, 0)
+        pool_cuda.VARIANTS + pool_cuda.VARIANTS_FLOW + pool_cuda.VARIANTS_3D
+        + pool_cuda.VARIANTS_MARCH, 0)

@@ -126,27 +126,33 @@ def test_tables_from_jax_round_trip(dtype):
 
 def test_thermal_tables_not_ported():
     """Thermal and 3-D tables are ported (test_build_tables_match,
-    test_torch_grid3d.py); what the tables still cannot run is a Lambert
-    surface or flow, refused on every device by ``check_slice``, which
-    lets 3-D grids and --debug-stokes through."""
+    test_torch_grid3d.py), and so are Lambert surfaces and flow: every
+    configuration names the walks it takes (``kernel.walk_mode``, the JAX
+    package's ``use_closed_form`` and ``_use_jumps``) and runs."""
+    from artes_tpu.transport import kernel as JK
+    from artes_tpu.transport import radial as JRAD
     from artes_tpu_torch.transport import kernel as TK
 
-    for atm, keys, ported in ((presets.patchy_3d(), {}, True),
-                              (flagship(), {"surface_albedo": 0.5}, False),
-                              (presets.patchy_3d(), {"surface_albedo": 0.5}, False),
-                              (flagship(), {"flow_global": True}, False),
-                              (flagship(), {"debug_stokes": True}, True)):
+    for atm, keys, mode in ((presets.patchy_3d(), {}, "jumps"),
+                            (flagship(), {"surface_albedo": 0.5}, "march"),
+                            (presets.patchy_3d(), {"surface_albedo": 0.5}, "march"),
+                            (flagship(), {"flow_global": True}, "closed"),
+                            (presets.patchy_3d(), {"flow_theta": True}, "march"),
+                            (flagship(), {"debug_stokes": True}, "closed")):
         cfg = _cfg()
         for k, v in keys.items():
             setattr(cfg, k, v)
         det = detector_setup(cfg, float(atm.rfront[-1]))
         tables = TT.build_tables(atm, cfg, det, 0).tables
         static = TRUN._kernel_static(cfg, det, atm, False)
-        if ported:
-            TK.check_slice(tables, static)
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TK.check_slice(tables, static)
+        assert TK.walk_mode(tables, static) == mode
+        assert (tables.jump is not None) == (mode == "jumps")     # built for the jump walks only
+        jax_static = _kernel_static(cfg, det, atm, False)
+        assert (mode == "closed") == JRAD.use_closed_form(tables.grid, jax_static)
+        assert (mode == "jumps") == JK._use_jumps(tables.grid, jax_static)
+        out = TK.run_stream(tables, static, 32, 3, 32)
+        assert int(out["n_emitted"]) == 32 and bool(out["detector"].isfinite().all())
+        assert (out["flow_global"] is not None) == static.track_flow
 
 
 def test_flat_cell_and_closed_form_match():
