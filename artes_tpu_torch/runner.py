@@ -10,7 +10,10 @@ photons in chunks of at most 2^30 with continuous 64-bit photon ids, so the
 Dispatch follows the tables' device and nothing else: CUDA tables run the
 hand-written kernel of their configuration (``pool_cuda.run_stream_cuda``:
 radial, 3-D or marching), CPU tables the plain PyTorch version
-(``kernel.run_stream``). Nothing falls back.
+(``kernel.run_stream``). Nothing falls back. With a ``parallel.mesh.Mesh``
+the tables are built on the mesh rank's device and every chunk is split over
+the ranks by photon id and summed over them (``parallel.mesh.run_stream_mesh``);
+every rank gets the whole result.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from artes_tpu_torch.config import ArtesConfig, DetectorSetup, detector_setup
 from artes_tpu_torch.constants import PI, planck_lambda
+from artes_tpu_torch.parallel.mesh import run_stream_mesh
 from artes_tpu_torch.transport import pool_cuda
 from artes_tpu_torch.transport.kernel import (ERR_RECORD_K, ERR_RECORD_W, KernelStatic,
                                               run_stream, select_error_records)
@@ -106,13 +110,15 @@ def _kernel_static(cfg: ArtesConfig, det: DetectorSetup, atm, crescent: bool) ->
 def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
                    packages: int, seed: int = 0, batch_size: int = 1 << 17,
                    dtype=torch.float32, device="cuda", crescent: bool = False,
-                   progress: bool = False) -> WavelengthResult:
-    """Transport ``packages`` photons at one wavelength on ``device``.
+                   progress: bool = False, mesh=None) -> WavelengthResult:
+    """Transport ``packages`` photons at one wavelength on ``device``, or
+    over the ranks of ``mesh`` (a ``parallel.mesh.Mesh``; its rank's device
+    takes the place of ``device``).
 
     ``batch_size`` bounds the number of photons the plain version emits
     together on the CPU. float64 runs only the plain version, on the CPU.
     """
-    device = torch.device(device)
+    device = torch.device(device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")
     if device.type == "cuda" and dtype != torch.float32:
@@ -123,12 +129,14 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
     prep = build_tables(atm, cfg, det, wl_index, dtype=dtype, device=device)
     static = _kernel_static(cfg, det, atm, crescent)
 
-    if device.type == "cuda":
+    width = max(1024, min(1 << int(np.ceil(np.log2(max(packages, 2)))), batch_size))
+    if mesh is not None:
+        def kern(n, id_hi, id_lo):
+            return run_stream_mesh(prep.tables, static, n, seed, id_hi, id_lo, mesh, width)
+    elif device.type == "cuda":
         def kern(n, id_hi, id_lo):
             return pool_cuda.run_stream_cuda(prep.tables, static, n, seed, id_hi, id_lo)
     else:
-        width = max(1024, min(1 << int(np.ceil(np.log2(max(packages, 2)))), batch_size))
-
         def kern(n, id_hi, id_lo):
             return run_stream(prep.tables, static, n, seed, width, id_hi, id_lo)
 

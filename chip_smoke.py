@@ -61,7 +61,17 @@ Phases, one line each; any failure exits non-zero before the result lines:
    flow over a surface, the energy crossing the top shell's outer face
    (``flow_theta[nr-1, :, :, 0]``) is ``flux_exit`` within 2e-5 (in float32 a
    photon within rounding of the outer face leaves without a step to book);
-6. main path: ``python -m artes_tpu_torch.cli`` as a user runs it, one
+6. mesh: (a) the flagship, the 39 x 8 x 8 deck, the nr=39 grid with flow,
+   the 25x25 image and the self-luminous 3-D grid imaged over a surface with
+   flow, each at its gate photons as one launch and as 2, 3 and 7 sub-ranges
+   of ``mesh.split_ids`` launched in turn on the card and merged
+   (``mesh.run_split``): every count and error record equal, the sums within
+   ``mesh.SPLIT_RTOL``; (b) the mesh launch measured over every visible card
+   (one spawned process a card, NCCL): the flagship at 2^20 photons through
+   ``run_stream_mesh`` against one launch on one card (counts and records
+   equal), the reduction alone, one NCCL ``all_reduce`` of its payload, and
+   the plain version of the same split;
+7. main path: ``python -m artes_tpu_torch.cli`` as a user runs it, one
    process each, 2^24 photons: spectrum on the README quick-start input
    and on the nr=39 grid, a 25x25 image of the quick-start input, its
    73-angle phase curve, a thermal spectrum of the bench's thermal shell
@@ -75,7 +85,13 @@ Phases, one line each; any failure exits non-zero before the result lines:
    or flow instantiation (three processes at a time), each checked for its
    launch, its ``spectrum.dat``
    or ``stokes.fits``, its ``flow_global.fits`` (unit vectors where not
-   zero) and ``flow_latitudinal.fits``, and its ``error.log``; then
+   zero) and ``flow_latitudinal.fits``, and its ``error.log``; with
+   ``--mesh`` over every visible card (one spawned worker a card, NCCL) the
+   quick-start spectrum at 2^24 photons and the 39 x 8 x 8 deck as a 25x25
+   image over a surface with both flow outputs at 2^22 photons, each
+   against the same command on one card: every file equal (values within
+   ``MESH_CLI_RTOL`` of their array's largest, ``error.log`` byte for
+   byte) and one launch a rank; then
    ``python -m artes_tpu_torch.probe_splat``,
    the splat micro-benchmark's own entry point. Each process starts with
    its launch counts at 0 and prints them at its end; every kernel must
@@ -85,19 +101,25 @@ Each kernel's bound is the larger of its bytes (every table read once, every
 tally written once) over 3.35 TB/s and a lower count of its float32
 operations over 67 TFLOP/s (``bound_ms``); a marching kernel's count holds
 the ``cell_face`` passes the run made and a flow kernel's the bookings it
-made, which the kernels tally. It then prints the card line, a
-JSON line of the kernels and, last,
+made, which the kernels tally. The mesh launch's bound is a rank's share
+of the flagship's operations, every table read once on each card, plus
+the reduction's payload over NVLink (450 GB/s each way) where there is more
+than one card; its library call is one NCCL ``all_reduce`` of that payload.
+It then prints the card line, a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``. Nothing runs without a CUDA device.
+``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 6 and the ``--mesh``
+CLI runs alone, over every visible card, and prints the mesh's row.
 """
 
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_R05_DETECTOR_I_RAW = 6354867.5     # BENCH_r05.json, TPU v5e, 2^27 photons, seed 12
@@ -122,15 +144,26 @@ KERNEL_SOURCE = {"pool_radial": "artes_tpu_torch/csrc/pool_radial.cu",
                  "pool_march": "artes_tpu_torch/csrc/pool_march.cu"}
 PROBE_SIZES = (625, 2025, 10201)
 MAIN_PATH_PHOTONS_SMALL = 1 << 22
-MAIN_PATH_TOGETHER = 3          # CLI processes of the small surface and flow runs at a time
+MAIN_PATH_TOGETHER = 3          # CLI processes of the main path's runs at a time
+PLAIN_TOGETHER = 3              # plain versions at a time in phase 3 (each bound by its launches)
 # anchor (e): |I_3D / I_flagship - 1| per photon and the abandoned share, at
 # 2^24 photons (NVIDIA H100 80GB HBM3, 700 W; readings in PERF.md section 6)
 UNIFORM_3D_REL = 1.0e-3
 UNIFORM_3D_ERRORS = 1.0e-4
 # peaks of one H100 SXM (NVIDIA's data sheet): device memory, float32
-# outside the tensor cores
+# outside the tensor cores, NVLink each way
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67.0e12
+NVLINK_BYTES_S = 450e9
+# the mesh launch: the cells split over sub-ranges on one card, the splits,
+# the photons of the measured mesh, how far a --mesh CLI run's files may
+# stray from one card's (the order of double additions only)
+MESH_REPLACES = "artes_tpu/transport/pallas_stream.py:2391"
+MESH_CELLS = ("flagship", "grid3d_2496", "hydrostatic39_flow", "imaging25",
+              "grid3d_thermal_surface_flow")
+MESH_SPLITS = (2, 3, 7)
+MESH_PROBE_PHOTONS = 1 << 20
+MESH_CLI_RTOL = 1e-9
 
 
 def fail(msg):
@@ -212,7 +245,13 @@ OPS_FLOW_PASS, OPS_FLOW_SEGMENT = 37, 29
 
 
 def pool_bound(tables, static, out):
-    """Bound of one pool-kernel launch from what this run needed. Bytes: every
+    """``(bound_ms, bound_by)`` of one pool-kernel launch (:func:`pool_work`)."""
+    return bound(*pool_work(tables, static, out))
+
+
+def pool_work(tables, static, out):
+    """``(bytes, operations)`` of one pool-kernel launch from what this run
+    needed. Bytes: every
     table once, every tally once. Operations, a lower count from the run's
     own tallies: every emitted photon is born and walks its path once; every
     booked scatter peel is one scattering round with its peel walk and, on a
@@ -244,7 +283,7 @@ def pool_bound(tables, static, out):
             + (2 * OPS_PHI if g.nphi > 1 else 0)
         n_ops = emitted * OPS_EMIT + rounds * OPS_ROUND + int(out["n_cell_face"]) * face \
             + booked * OPS_FLOW_PASS
-        return bound(n_bytes, n_ops)
+        return n_bytes, n_ops
     walk = 2 * (g.nr + 1) * OPS_ROOT + 2 * g.nr * 3
     walks_a_round = 1
     if mode == "jumps":
@@ -252,60 +291,86 @@ def pool_bound(tables, static, out):
         walks_a_round = 2
     n_ops = emitted * (OPS_EMIT + walk) + rounds * (OPS_ROUND + walks_a_round * walk) \
         + booked * OPS_FLOW_SEGMENT
-    return bound(n_bytes, n_ops)
+    return n_bytes, n_ops
+
+
+def _plain_run(name, seed):
+    """A cell's plain version in a worker process: its time [ms] and its
+    result on the host."""
+    import torch
+    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+    from artes_tpu_torch.transport import kernel
+    tables, static = KERNEL_CELLS[name]("cuda")
+    n = gate_photons(tables, static)
+    ms, out = timed(lambda: kernel.run_stream(tables, static, n, seed, n), 1)
+    return ms, {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
 
 
 def phase_kernel_vs_plain():
     """Each cell's kernel against its plain version; fails at the first cell
-    that disagrees, else returns per-cell rows."""
+    that disagrees, else returns per-cell rows. The kernels are timed first,
+    alone on the card; then the plain versions, which are bound by their
+    launches on the host, run ``PLAIN_TOGETHER`` processes at a time."""
+    import torch
     from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
     from artes_tpu_torch.transport import kernel, pool_cuda
     seed = 7
-    rows = {}
+    timed_k = {}
     for name in KERNEL_CELLS:
         tables, static = KERNEL_CELLS[name]("cuda")
-        mode = kernel.walk_mode(tables, static)
         n = gate_photons(tables, static)
-        limits = pool_cuda.limits_of(tables, static)
-        variant = pool_cuda.kernel_of(tables, static)[1]
         pool_cuda.run_stream_cuda(tables, static, n, seed)          # warm-up
         ms, out_k = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
-        plain_ms, out_p = timed(lambda: kernel.run_stream(tables, static, n, seed, n), 1)
-        dk, dp = out_k["detector"].double().cpu(), out_p["detector"].double().cpu()
-        g = pool_cuda.gaps(out_k, out_p)
-        max_abs = float((dk[..., 0] - dp[..., 0]).abs().max())
-        tot_k, tot_p = dk.sum(0), dp.sum(0)
-        bound_ms, bound_by = pool_bound(tables, static, out_k)
-        say("kernel-vs-plain",
-            f"{name} [{variant}, {dk.shape[0]} px]: N (I row) kernel {int(tot_k[0, 2])} plain "
-            f"{int(tot_p[0, 2])}, N (Q/U/V rows) kernel {int(tot_k[1, 2])} plain "
-            f"{int(tot_p[1, 2])}; capped kernel {int(out_k['n_alive_at_cap'])} plain "
-            f"{int(out_p['n_alive_at_cap'])}; abandoned kernel {int(out_k['n_error'])} "
-            f"{out_k['error_codes'].tolist()} plain {int(out_p['n_error'])} "
-            f"{out_p['error_codes'].tolist()}; flux emitted "
-            f"{float(out_k['flux_emitted']):.7g} / "
-            f"{float(out_p['flux_emitted']):.7g}, exit {float(out_k['flux_exit']):.7g} / "
-            f"{float(out_p['flux_exit']):.7g}; gaps "
-            + " ".join(f"{k}={v:.3e}" if isinstance(v, float) else
-                       f"{k}=" + ",".join(f"{x:.3e}" for x in v) for k, v in g.items())
-            + "; plain sums (I,Q,U,V) " + " ".join(f"{x:.7g}" for x in tot_p[:, 0].tolist())
-            + f"; max|dIQUV| {max_abs:.6g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({n} photons"
-            + (f", {int(out_k['n_cell_face'])} cell_face passes" if mode == "march" else "")
-            + (f", {int(out_k['n_flow_booked'])} flow bookings" if static.track_flow else "")
-            + ")")
-        if not (dk.isfinite().all() and pool_cuda.agrees(g, limits)):
-            fail(f"kernel disagrees with its plain version on {name} (limits {limits})")
-        # every abandoned photon leaves a record, but for failed birth peels;
-        # a failed scatter peel leaves one unless its round's march failed too
-        n_err, n_rec = int(out_k["n_error"]), int(out_k["n_error_records"])
-        peel = int(out_k["error_codes"][3])
-        if not (n_err - peel <= n_rec <= n_err + peel) or \
-                len(out_k["error_records"]) != min(n_rec, 2 * kernel.ERR_RECORD_K):
-            fail(f"{name}: {n_err} photons abandoned, {peel} peel walks failed, but "
-                 f"{n_rec} error records")
-        rows[name] = dict(variant=variant, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                          bound_ms=bound_ms, bound_by=bound_by)
+        timed_k[name] = dict(mode=kernel.walk_mode(tables, static), n=n, static=static,
+                             limits=pool_cuda.limits_of(tables, static),
+                             variant=pool_cuda.kernel_of(tables, static)[1], ms=ms, out=out_k,
+                             bound=pool_bound(tables, static, out_k))
+    rows = {}
+    ex = ProcessPoolExecutor(PLAIN_TOGETHER, mp_context=torch.multiprocessing.get_context("spawn"))
+    try:
+        plain = {name: ex.submit(_plain_run, name, seed) for name in KERNEL_CELLS}
+        for name in KERNEL_CELLS:
+            c = timed_k[name]
+            mode, n, static, limits, variant, ms, out_k = (
+                c[k] for k in ("mode", "n", "static", "limits", "variant", "ms", "out"))
+            bound_ms, bound_by = c["bound"]
+            plain_ms, out_p = plain[name].result()
+            dk, dp = out_k["detector"].double().cpu(), out_p["detector"].double().cpu()
+            g = pool_cuda.gaps(out_k, out_p)
+            max_abs = float((dk[..., 0] - dp[..., 0]).abs().max())
+            tot_k, tot_p = dk.sum(0), dp.sum(0)
+            say("kernel-vs-plain",
+                f"{name} [{variant}, {dk.shape[0]} px]: N (I row) kernel {int(tot_k[0, 2])} "
+                f"plain {int(tot_p[0, 2])}, N (Q/U/V rows) kernel {int(tot_k[1, 2])} plain "
+                f"{int(tot_p[1, 2])}; capped kernel {int(out_k['n_alive_at_cap'])} plain "
+                f"{int(out_p['n_alive_at_cap'])}; abandoned kernel {int(out_k['n_error'])} "
+                f"{out_k['error_codes'].tolist()} plain {int(out_p['n_error'])} "
+                f"{out_p['error_codes'].tolist()}; flux emitted "
+                f"{float(out_k['flux_emitted']):.7g} / "
+                f"{float(out_p['flux_emitted']):.7g}, exit {float(out_k['flux_exit']):.7g} / "
+                f"{float(out_p['flux_exit']):.7g}; gaps "
+                + " ".join(f"{k}={v:.3e}" if isinstance(v, float) else
+                           f"{k}=" + ",".join(f"{x:.3e}" for x in v) for k, v in g.items())
+                + "; plain sums (I,Q,U,V) " + " ".join(f"{x:.7g}" for x in tot_p[:, 0].tolist())
+                + f"; max|dIQUV| {max_abs:.6g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+                f"bound {bound_ms:.4f} ms by {bound_by} ({n} photons"
+                + (f", {int(out_k['n_cell_face'])} cell_face passes" if mode == "march" else "")
+                + (f", {int(out_k['n_flow_booked'])} flow bookings" if static.track_flow else "")
+                + ")")
+            if not (dk.isfinite().all() and pool_cuda.agrees(g, limits)):
+                fail(f"kernel disagrees with its plain version on {name} (limits {limits})")
+            # every abandoned photon leaves a record, but for failed birth peels;
+            # a failed scatter peel leaves one unless its round's march failed too
+            n_err, n_rec = int(out_k["n_error"]), int(out_k["n_error_records"])
+            peel = int(out_k["error_codes"][3])
+            if not (n_err - peel <= n_rec <= n_err + peel) or \
+                    len(out_k["error_records"]) != min(n_rec, 2 * kernel.ERR_RECORD_K):
+                fail(f"{name}: {n_err} photons abandoned, {peel} peel walks failed, but "
+                     f"{n_rec} error records")
+            rows[name] = dict(variant=variant, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    finally:
+        ex.shutdown(cancel_futures=True)        # after a failure, start no other plain version
     return rows
 
 
@@ -491,21 +556,23 @@ def phase_anchors():
 
 
 LAUNCH_LINE = re.compile(r"CUDA kernel launches: pool=(\d+) \((.*)\)")
+MESH_LINE = re.compile(r"mesh launches: (\d+) over (\d+) ranks")
 ERROR_TALLY = re.compile(r"^error (\d{2}[\dx])/.* x(\d+)$")
 ERROR_RECORD = re.compile(r"^error (\d{3}) photon (\d+) at ([a-z ]+): pos=\((.*)\) dir=\((.*)\) "
                           r"cell=\((-?\d+), (-?\d+), (-?\d+)\) face=\((\d+), (\d+)\) "
                           r"I=(\S+) n_scat=(\d+)$")
 
 
-def _cli(root, env, atm_name, run, *keys, photons=SMOKE_PHOTONS):
-    """One CLI process; returns its output directory and its launches per
-    instantiation."""
+def _cli(root, env, atm_name, run, *keys, photons=SMOKE_PHOTONS, extra=()):
+    """One CLI process (with ``extra`` arguments); returns its output
+    directory, its launches per instantiation (and, with ``--mesh``, its mesh
+    launches under "mesh") and its wall time."""
     from artes_tpu_torch.transport import pool_cuda
     t0 = time.perf_counter()
     args = [a for k in keys for a in ("-k", k)]
     proc = subprocess.run(
         [sys.executable, "-m", "artes_tpu_torch.cli", atm_name, str(photons),
-         "-o", run, "--root", root, *args],
+         "-o", run, "--root", root, *args, *extra],
         cwd=root, env=env, capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -516,6 +583,11 @@ def _cli(root, env, atm_name, run, *keys, photons=SMOKE_PHOTONS):
     by = {k: int(v) for k, v in (kv.split("=") for kv in found.group(2).split())}
     if sorted(by) != sorted(pool_cuda.LAUNCHES):
         fail(f"CLI {run} launch line names other instantiations: {found.group(0)}")
+    if "--mesh" in extra:
+        found = MESH_LINE.search(proc.stdout)
+        if not found:
+            fail(f"CLI {run} printed no mesh launches:\n{proc.stdout}")
+        by["mesh"], by["ranks"] = int(found.group(1)), int(found.group(2))
     return os.path.join(root, "output", run, "output"), by, wall
 
 
@@ -569,7 +641,7 @@ def phase_main_path():
     from artes_tpu_torch import cells
     from artes_tpu_torch.transport import pool_cuda
 
-    launches = dict.fromkeys(pool_cuda.LAUNCHES, 0)
+    launches = dict.fromkeys(list(pool_cuda.LAUNCHES) + ["mesh"], 0)
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     with tempfile.TemporaryDirectory(prefix="artes_smoke_") as root:
         cells.write_input(root, "demo")
@@ -598,11 +670,21 @@ def phase_main_path():
                              f"Q {q[0]:.6e} U {u[0]:.6e} (-Q/I {-q[0] / i[0]:.5f}); launches "
                              f"{by}; {wall:.1f} s wall incl. process start")
 
-        for atm_name, run, keys in (
-                ("demo", "image_demo", ["detector:type=imaging_mono", "detector:pixel=25"]),
-                ("thermal_scat", "image_thermal",
-                 ["detector:type=imaging_mono", "detector:pixel=25"])):
-            out, by, wall = _cli(root, env, atm_name, run, *keys)
+        # the other runs of the radial and 3-D slices, MAIN_PATH_TOGETHER at a time
+        image = ["detector:type=imaging_mono", "detector:pixel=25"]
+        together = (("demo", "image_demo", image), ("thermal_scat", "image_thermal", image),
+                    ("demo", "phase_demo", ["detector:type=phase"]),
+                    ("thermal", "spec_thermal", ["detector:type=spectrum"]),
+                    ("grid3d", "spec_grid3d", []), ("grid3d", "image_grid3d", image),
+                    ("grid3d_thermal", "spec_grid3d_thermal", []),
+                    ("grid3d_thermal", "image_grid3d_thermal", image))
+        with ThreadPoolExecutor(MAIN_PATH_TOGETHER) as ex:
+            ran = dict(zip((spec[1] for spec in together),
+                           ex.map(lambda spec: _cli(root, env, spec[0], spec[1], *spec[2]),
+                                  together)))
+
+        for run in ("image_demo", "image_thermal"):
+            out, by, wall = ran[run]
             count(by)
             img = read_fits(os.path.join(out, "stokes.fits"))[0][1]     # (4, ny, nx)
             i, q, u = img[0], img[1], img[2]
@@ -616,7 +698,7 @@ def phase_main_path():
                              f"{int(lit.sum())} lit pixels, peak -Q/I {peak:.4f}, sum I "
                              f"{float(i.sum()):.6e}; launches {by}; {wall:.1f} s wall")
 
-        out, by, wall = _cli(root, env, "demo", "phase_demo", "detector:type=phase")
+        out, by, wall = ran["phase_demo"]
         count(by)
         rows = np.loadtxt(os.path.join(out, "phase.dat"), ndmin=2)
         if not (rows.shape == (73, 9) and np.isfinite(rows).all() and sum(by.values()) == 73):
@@ -625,10 +707,9 @@ def phase_main_path():
                          f"I(90) {rows[36, 1]:.6e} I(180) {rows[-1, 1]:.6e}; launches {by}; "
                          f"{wall:.1f} s wall")
 
-        for atm_name, run, mode in (("thermal", "spec_thermal", "spectrum"),
-                                    ("thermal_scat", "image_thermal", None)):
+        for run, mode in (("spec_thermal", "spectrum"), ("image_thermal", None)):
             if mode is not None:
-                out, by, wall = _cli(root, env, atm_name, run, f"detector:type={mode}")
+                out, by, wall = ran[run]
                 count(by)
             else:
                 out = os.path.join(root, "output", run, "output")
@@ -640,13 +721,12 @@ def phase_main_path():
                                                              if mode else ""))
 
         # 3-D grids: spectrum and 25x25 image, stellar and thermal
-        image = ["detector:type=imaging_mono", "detector:pixel=25"]
-        for atm_name, run, keys, variant in (
-                ("grid3d", "spec_grid3d", [], "grid3d_stellar"),
-                ("grid3d", "image_grid3d", image, "grid3d_image"),
-                ("grid3d_thermal", "spec_grid3d_thermal", [], "grid3d_thermal"),
-                ("grid3d_thermal", "image_grid3d_thermal", image, "grid3d_thermal_image")):
-            out, by, wall = _cli(root, env, atm_name, run, *keys)
+        for run, keys, variant in (
+                ("spec_grid3d", [], "grid3d_stellar"),
+                ("image_grid3d", image, "grid3d_image"),
+                ("spec_grid3d_thermal", [], "grid3d_thermal"),
+                ("image_grid3d_thermal", image, "grid3d_thermal_image")):
+            out, by, wall = ran[run]
             count(by)
             if by[variant] != 1 or sum(by.values()) != 1:
                 fail(f"cli {run} did not run {variant} once: {by}")
@@ -732,6 +812,9 @@ def phase_main_path():
                              f"{n_err} error events, {n_rec} records in error.log; launches "
                              f"{ {k: v for k, v in by.items() if v} }; {wall:.1f} s wall")
 
+        for k, v in mesh_main_path(root, env).items():
+            launches[k] += v
+
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "artes_tpu_torch.probe_splat"],
                               cwd=root, env=env, capture_output=True, text=True, timeout=300)
@@ -750,6 +833,197 @@ def phase_main_path():
     return launches
 
 
+def phase_mesh_split():
+    """(a) The mesh's arithmetic on one card: each of ``MESH_CELLS`` at its
+    gate photons as one launch and as k = 2, 3 and 7 sub-ranges of
+    ``mesh.split_ids`` launched in turn on the card and merged by
+    ``mesh.merge_outputs``: every count and error record equal, the sums
+    within ``mesh.SPLIT_RTOL``. Returns the largest |difference| of a
+    Stokes moment."""
+    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+    from artes_tpu_torch.parallel import mesh
+    from artes_tpu_torch.transport import pool_cuda
+    seed, worst = 7, 0.0
+    for name in MESH_CELLS:
+        tables, static = KERNEL_CELLS[name]("cuda")
+        n = gate_photons(tables, static)
+        one = pool_cuda.run_stream_cuda(tables, static, n, seed)
+        for k in MESH_SPLITS:
+            merged = mesh.run_split(tables, static, n, seed, k)
+            g = mesh.split_gaps(merged, one)
+            d = float((merged["detector"][..., :2] - one["detector"][..., :2]).abs().max())
+            worst = max(worst, d)
+            say("mesh-split", f"{name} ({n} photons, {int(one['n_error'])} abandoned, "
+                              f"{int(one['n_error_records'])} error events) as {k} sub-ranges: "
+                              f"largest count difference {g['counts']:.0f}, records "
+                              f"{'identical' if g['records'] == 0 else 'DIFFERENT'}, sums within "
+                              f"{g['values']:.3e} of their largest; max|dIQUV| {d:.3g}")
+            if not mesh.split_agrees(merged, one):
+                fail(f"{name} split over {k} sub-ranges is not one launch: {g}")
+    return worst
+
+
+def _mesh_probe(rank, size, port, path):
+    """One rank of the measured mesh (a spawned process): the flagship at
+    ``MESH_PROBE_PHOTONS`` through ``run_stream_mesh`` over every visible
+    card, its reduction alone, one NCCL ``all_reduce`` of the same payload,
+    and on rank 0 one launch of all the photons on its own card."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(size),
+                      RANK=str(rank), LOCAL_RANK=str(rank))
+    import torch
+    import torch.distributed as dist
+    from artes_tpu_torch.cells import KERNEL_CELLS
+    from artes_tpu_torch.parallel import mesh, multihost
+    from artes_tpu_torch.transport import pool_cuda
+    multihost.initialize("nccl", timeout_s=600)
+    m = mesh.make_mesh("cuda")
+    tables, static = KERNEL_CELLS["flagship"](m.device)
+    n, seed = MESH_PROBE_PHOTONS, 7
+    mesh.run_stream_mesh(tables, static, n, seed, 0, 0, m)          # warm-up, build barrier
+    ms, got = timed(lambda: mesh.run_stream_mesh(tables, static, n, seed, 0, 0, m), 5)
+    count, _, start = (int(x) for x in mesh.split_ids(n, seed, 0, 0, size)[rank])
+    mine = pool_cuda.run_stream_cuda(tables, static, count, seed, 0, start)
+    reduce_ms, _ = timed(lambda: mesh.all_reduce_outputs(mine, m), 20)
+    flat_f, flat_i = mesh.pack_tallies(mine, m.device)
+    payload = torch.zeros(flat_f.numel() + flat_i.numel(), dtype=torch.float64, device=m.device)
+    library_ms, _ = timed(lambda: dist.all_reduce(payload), 20)
+    result = None
+    if rank == 0:
+        one_ms, one = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
+        n_bytes, n_ops = pool_work(tables, static, one)
+        link_bytes = 8 * payload.numel() + 8 * (2 * mesh.ERR_RECORD_K + 1) * mesh.ERR_RECORD_W
+        link_ms = 2 * (size - 1) / size * link_bytes / NVLINK_BYTES_S * 1e3
+        bound_ms, bound_by = bound(n_bytes, n_ops / size)
+        result = dict(size=size, photons=n, ms=ms, one_ms=one_ms, reduce_ms=reduce_ms,
+                      library_ms=library_ms, payload_bytes=8 * payload.numel(),
+                      bound_ms=bound_ms + link_ms, bound_by=bound_by, link_ms=link_ms,
+                      gaps=mesh.split_gaps(got, one),
+                      max_abs_err=float((got["detector"][..., :2]
+                                         - one["detector"][..., :2]).abs().max()),
+                      card=torch.cuda.get_device_name(m.device))
+    dist.barrier(device_ids=[m.device.index])
+    if rank == 0:
+        with open(path, "w") as fh:
+            json.dump(result, fh)
+    dist.destroy_process_group()
+
+
+def phase_mesh_probe():
+    """The mesh launch measured over every visible card (one spawned process
+    a card, NCCL), against one launch on one card; and the plain version of
+    the same split on this process's card."""
+    import torch
+    import torch.multiprocessing as mp
+    from artes_tpu_torch.cells import KERNEL_CELLS
+    from artes_tpu_torch.parallel import mesh
+    size = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="artes_mesh_") as tmp:
+        path = os.path.join(tmp, "probe.json")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        mp.start_processes(_mesh_probe, args=(size, port, path), nprocs=size,
+                           start_method="spawn")
+        with open(path) as fh:
+            row = json.load(fh)
+    g = row.pop("gaps")
+    if not (g["counts"] == 0 and g["records"] == 0 and g["values"] <= 1e-12):
+        fail(f"the mesh over {size} cards is not one launch on one card: {g}")
+    tables, static = KERNEL_CELLS["flagship"]("cuda")
+    n = row["photons"]
+    row["plain_ms"], _ = timed(lambda: mesh.run_split(tables, static, n, 7, size, plain=True,
+                                                      width=n), 1)
+    say("mesh", f"world size {size} ({row['card']}, NCCL): flagship {row['photons']} photons "
+                f"through run_stream_mesh {row['ms']:.3f} ms against {row['one_ms']:.3f} ms on one "
+                f"card; its reduction alone {row['reduce_ms'] * 1e3:.1f} us; one NCCL all_reduce "
+                f"of the {row['payload_bytes']} payload bytes {row['library_ms'] * 1e3:.1f} us; "
+                f"counts and records equal, sums within {g['values']:.3e}; plain version of the "
+                f"split {row['plain_ms']:.1f} ms; bound {row['bound_ms']:.4f} ms by "
+                f"{row['bound_by']} (link {row['link_ms'] * 1e3:.3f} us)")
+    return row
+
+
+def _same_outputs(a, b):
+    """The largest difference between the files of two runs' output
+    directories, each over its array's largest magnitude (tables and FITS
+    images); fails unless both hold the same files and every other file,
+    ``error.log`` beside the directory included, is byte-equal."""
+    import numpy as np
+    from artes_tpu_torch.io.fitsio import read_fits
+    if sorted(os.listdir(a)) != sorted(os.listdir(b)):
+        fail(f"{a} and {b} hold other files: {sorted(os.listdir(a))} {sorted(os.listdir(b))}")
+    worst = 0.0
+    for name in sorted(os.listdir(a)):
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith((".dat", ".fits")):
+            read = (lambda p: np.loadtxt(p, ndmin=2)) if name.endswith(".dat") \
+                else (lambda p: read_fits(p)[0][1])
+            x, y = read(pa), read(pb)
+            scale = float(np.abs(y).max()) if y.size else 0.0
+            d = float(np.abs(x - y).max()) if y.size else 0.0
+            if x.shape != y.shape or not np.isfinite(x).all():
+                fail(f"{pa}: shape {x.shape} against {y.shape}, or not finite")
+            worst = max(worst, d / scale if scale > 0 else (0.0 if d == 0 else float("inf")))
+        elif open(pa, "rb").read() != open(pb, "rb").read():
+            fail(f"{pa} differs from {pb}")
+    logs = [os.path.join(os.path.dirname(p), "error.log") for p in (a, b)]
+    texts = [open(p).read() if os.path.isfile(p) else None for p in logs]
+    if texts[0] != texts[1]:
+        fail(f"{logs[0]} differs from {logs[1]}")
+    return worst
+
+
+def mesh_main_path(root, env):
+    """(b) ``python -m artes_tpu_torch.cli ... --mesh`` over every visible
+    card (NCCL, one spawned worker a card) against the same command on one
+    card: the quick-start spectrum at 2^24 photons, and the 39 x 8 x 8 deck
+    as a 25x25 image over a surface of albedo 0.5 with both flow outputs at
+    2^22 photons. Every file equal (values within ``MESH_CLI_RTOL`` of their
+    array's largest, ``error.log`` and the other files byte-equal), one
+    launch a rank. Returns the launches of the mesh runs."""
+    import torch
+    size = torch.cuda.device_count()
+    image = ["detector:type=imaging_mono", "detector:pixel=25"]
+    keys = image + ["planet:surface_albedo=0.5", "output:flow_global=on",
+                    "output:flow_latitudinal=on"]
+    launches = {}
+    for atm_name, run, run_keys, photons in (
+            ("demo", "mesh_spec_demo", [], SMOKE_PHOTONS),
+            ("grid3d", "mesh_image_surface_flow_grid3d", keys, MAIN_PATH_PHOTONS_SMALL)):
+        one, by_one, wall_one = _cli(root, env, atm_name, run + "_one", *run_keys, photons=photons)
+        out, by, wall = _cli(root, env, atm_name, run, *run_keys, photons=photons,
+                             extra=["--mesh"])
+        pool = sum(v for k, v in by.items() if k not in ("mesh", "ranks"))
+        if by["ranks"] != size or by["mesh"] != size or pool != size \
+                or sum(by_one.values()) != 1:
+            fail(f"cli {run}: {size} ranks should launch once each: {by} (one card {by_one})")
+        worst = _same_outputs(out, one)
+        if worst > MESH_CLI_RTOL:
+            fail(f"cli {run}: the mesh run differs from one card by {worst:.3e}")
+        n_err, n_rec = _read_error_log(os.path.join(root, "output", run, "error.log"),
+                                       marching=bool(run_keys))
+        say("main-path", f"cli {run} --mesh, world size {size}, {photons} photons: every file "
+                         f"equal to one card's, values within {worst:.3e}; {n_err} error events, "
+                         f"{n_rec} records; launches {by}; {wall:.1f} s wall against "
+                         f"{wall_one:.1f} s on one card")
+        for k, v in by.items():
+            if k != "ranks":
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def mesh_kernel_row(row, launches, split_err):
+    """The kernels line's row of the mesh launch: its launches on the main
+    path (one a rank a run), the measured mesh's time, the plain version of
+    the same split, the bound of a rank's share plus the link, and one NCCL
+    ``all_reduce`` of the payload as the library's call."""
+    return {"name": "mesh_launch", "route": "cuda", "source": "artes_tpu_torch/parallel/mesh.py",
+            "replaces": MESH_REPLACES, "launches": launches,
+            "max_abs_err": max(row["max_abs_err"], split_err), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
+
+
 def main():
     try:
         import torch
@@ -764,9 +1038,24 @@ def main():
 
     phase_env()
     phase_build()
+    if sys.argv[1:] == ["--mesh"]:
+        # the mesh phases alone, over every visible card
+        split_err = phase_mesh_split()
+        mesh_row = phase_mesh_probe()
+        with tempfile.TemporaryDirectory(prefix="artes_smoke_") as root:
+            env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            from artes_tpu_torch import cells
+            cells.write_input(root, "demo")
+            cells.write_artifact_input(root, "grid3d", cells.grid3d_2496())
+            launches = mesh_main_path(root, env)
+        print(card_line())
+        print(json.dumps({"kernels": [mesh_kernel_row(mesh_row, launches["mesh"], split_err)]}))
+        return
     rows = phase_kernel_vs_plain()
     probe_rows, base_row = phase_probe()
     phase_anchors()
+    split_err = phase_mesh_split()
+    mesh_row = phase_mesh_probe()
     launches = phase_main_path()
 
     from artes_tpu_torch.transport import pool_cuda
@@ -799,6 +1088,7 @@ def main():
                     "source": "artes_tpu_torch/csrc/probe_splat.cu",
                     "replaces": "tools/probe_splat.py:134",
                     "launches": launches["probe_splat_baseline"], **base_row})
+    kernels.append(mesh_kernel_row(mesh_row, launches["mesh"], split_err))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

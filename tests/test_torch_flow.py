@@ -10,9 +10,9 @@ identical tables and (seed, photon id) streams:
 * the closed-form hook against ``artes_tpu.transport.radial.march`` with a
   flow object, at rtol 1e-10;
 * ``run_stream`` on a radial grid (tests/test_flow.py:78-99), on the patchy
-  3-D grid, and over a Lambert surface: counts bit-equal, moments and fluxes
-  at rtol 1e-10, the flow arrays at rtol 1e-9 (the two packages sum the
-  photons of a cell in different orders);
+  3-D grid, and over a Lambert surface (test_torch_flow_surface.py): counts
+  bit-equal, moments and fluxes at rtol 1e-10, the flow arrays at rtol 1e-9
+  (the two packages sum the photons of a cell in different orders);
 * in a thermal run the energy that crosses the top shell's outer face is
   ``flux_exit``, in both packages;
 * the gaps the card's kernel-vs-plain gate reads see swapped flow columns,
@@ -146,8 +146,20 @@ def assert_flow_close(ref, got):
                                    err_msg=key)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+# the cases over a Lambert surface run in test_torch_flow_surface.py, so that
+# the two files share the time between workers
+SURFACE_CASES = sorted(case for case in CASES if "surface_albedo" in CASES[case][1])
+
+
+@pytest.mark.parametrize("case", sorted(set(CASES) - set(SURFACE_CASES)))
 def test_plain_flow_matches_jax_f64(case):
+    check_plain_flow(case)
+
+
+def check_plain_flow(case):
+    """The plain version with flow against JAX ``run_stream`` at float64:
+    counts bit-equal, moments at rtol 1e-10, the flow arrays at rtol 1e-9,
+    with photons where jitted XLA bisects replayed eagerly."""
     make, keys, mode = CASES[case]
     jt, static, tt, st = setup(make(), "float64", **keys)
     assert static.track_flow and TK.walk_mode(tt, st) == mode

@@ -10,10 +10,12 @@ out):
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
 from artes_tpu_torch import _build, probe_splat
+from artes_tpu_torch.parallel import mesh
 from artes_tpu_torch.cells import CELLS, KERNEL_CELLS, gate_photons, spectrum_tables
 from artes_tpu_torch.transport import kernel, pool_cuda
 
@@ -240,3 +242,65 @@ def test_probe_splat_kernels_match_plain(cuda, npix):
     torch.testing.assert_close(vals, ref_vals, rtol=probe_splat.VALUE_RTOL, atol=0.0)
     assert torch.equal(sink, probe_splat.baseline_plain(50, device=cuda))
     assert probe_splat.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
+# the mesh launch (parallel.mesh): the photon axis over sub-ranges and ranks
+SPLIT_CELLS = ("grid3d_2496", "grid3d_thermal_surface_flow")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SPLIT_CELLS)
+def test_split_over_sub_ranges_equals_one_launch(cuda, name):
+    """The mesh's arithmetic on one card: k = 2, 3 and 7 sub-ranges of
+    ``mesh.split_ids`` launched in turn and merged equal one launch of the
+    same photons, every count and error record equal and the sums within
+    ``mesh.SPLIT_RTOL`` (each photon is one thread's, from its id alone)."""
+    tables, static = KERNEL_CELLS[name](cuda)
+    n = gate_photons(tables, static)
+    one = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    assert int(one["n_error_records"]) > 0
+    for k in (2, 3, 7):
+        g = mesh.split_gaps(mesh.run_split(tables, static, n, SEED, k), one)
+        print(f"{name} split {k}: {g}")
+        assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= mesh.SPLIT_RTOL, g
+
+
+@pytest.mark.gpu
+def test_split_without_offsets_is_refused(cuda, monkeypatch):
+    """A mutant of the split: every rank starts at the chunk's first id."""
+    tables, static = KERNEL_CELLS[SPLIT_CELLS[0]](cuda)
+    n = gate_photons(tables, static)
+    one = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    split_ids = mesh.split_ids
+    monkeypatch.setattr(mesh, "split_ids", lambda *a: np.concatenate(
+        [split_ids(*a)[:, :2], np.full((a[-1], 1), a[3], np.uint32)], axis=1))
+    bad = mesh.run_split(tables, static, n, SEED, 3)
+    print(f"mutant [split without offsets]: {mesh.split_gaps(bad, one)}")
+    assert not mesh.split_agrees(bad, one)
+
+
+@pytest.mark.gpu
+def test_nccl_mesh_of_one_card_equals_one_launch(cuda, monkeypatch):
+    """``run_stream_mesh`` over a one-rank NCCL group is ``run_stream_cuda``."""
+    import torch.distributed as dist
+    from artes_tpu_torch.parallel import make_mesh, multihost, run_stream_mesh
+    from test_torch_mesh import free_port
+
+    for key, value in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(free_port())),
+                       ("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(key, value)
+    assert multihost.initialize("nccl", timeout_s=300)
+    try:
+        m = make_mesh("cuda")
+        assert (m.rank, m.size, m.device) == (0, 1, torch.device("cuda", 0))
+        tables, static = KERNEL_CELLS["grid3d_2496_flow"](m.device)
+        n = gate_photons(tables, static)
+        before = mesh.LAUNCHES["mesh"]
+        got = run_stream_mesh(tables, static, n, SEED, 0, 0, m)
+        assert mesh.LAUNCHES["mesh"] == before + 1
+        assert got["detector"].device == m.device
+        one = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+        g = mesh.split_gaps(got, one)
+        assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= mesh.SPLIT_RTOL, g
+    finally:
+        dist.destroy_process_group()
