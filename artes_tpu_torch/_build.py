@@ -8,6 +8,11 @@ and an unchanged one loads from disk. The compiler
 is ``nvcc`` on ``PATH``, else ``$CUDA_HOME/bin/nvcc`` (PyTorch's lookup of
 the toolkit). A missing compiler or a failed build raises with nvcc's
 output: there is no fallback.
+
+:data:`VARIANT_BUILDS` names libraries built from a source with extra
+defines: the instrumented build of ``pool_radial.cu`` whose phase clocks
+``python -m artes_tpu_torch.measure clocks`` reads. The main path never
+loads it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "artes_tpu_torch
 # expf/logf/sqrtf and denormals. nvcc's default FMA contraction stays on.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# library name -> (source under csrc/ without .cu, extra nvcc flags)
+VARIANT_BUILDS = {
+    "pool_radial_clocks": ("pool_radial", ("-DARTES_POOL_CLOCKS",)),
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -57,27 +67,36 @@ def _source_bytes(filename: str, seen: set[str]) -> bytes:
     return text + b"".join(_source_bytes(inc.decode(), seen) for inc in _INCLUDE.findall(text))
 
 
+def _spec(name: str) -> tuple[str, tuple[str, ...]]:
+    """The source and the nvcc flags of a library name."""
+    source, extra = VARIANT_BUILDS.get(name, (name, ()))
+    return source, NVCC_FLAGS + extra
+
+
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (addressed by the content of the
-    source, its headers and the flags)."""
-    digest = hashlib.sha256(_source_bytes(name + ".cu", set())
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where library ``name`` (``csrc/<name>.cu``, or a variant build)
+    builds to (addressed by the content of the source, its headers and the
+    flags)."""
+    source, flags = _spec(name)
+    digest = hashlib.sha256(_source_bytes(source + ".cu", set())
+                            + " ".join(flags).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library path. nvcc's ``-Xptxas -v`` report (registers,
-    spills) is kept beside the library as ``<lib>.log``."""
+    """Compile library ``name`` unless it is already built; returns the
+    library path. nvcc's ``-Xptxas -v`` report (registers, spills) is kept
+    beside the library as ``<lib>.log``."""
     out = library_path(name)
     if os.path.isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+    source, flags = _spec(name)
+    cmd = [find_nvcc(), *flags, "-o", tmp, os.path.join(CSRC_DIR, source + ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building {name}.cu:\n"
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building {name}:\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     with open(out + ".log", "w") as fh:
         fh.write(proc.stdout + proc.stderr)
@@ -86,7 +105,7 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, built on first use."""
+    """The built library ``name``, built on first use."""
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(build(name))
     return _LIBS[name]

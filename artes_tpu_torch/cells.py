@@ -43,7 +43,9 @@ Configurations, as ``(TransportTables, KernelStatic)``:
   :func:`crescent_offaxis` the crescent with an off-axis star of
   tests/test_pallas_stream.py:433-446.
 * :data:`KERNEL_CELLS`: every configuration ``chip_smoke.py`` holds the CUDA
-  kernel against its plain version on, one or more per instantiation;
+  kernel against its plain version on, one or more per instantiation, and
+  (:func:`anomalous_rayleigh`) the Stokes-anomaly check of ``--debug-stokes``
+  through each of the three kernels and scattering off through two;
   :data:`FLOW_KEYS` switches both flow outputs on; :func:`gate_photons`
   gives the photon count a cell is held at.
 
@@ -114,6 +116,14 @@ def lambert_sphere():
     """A transparent 10 km shell around a Jupiter-size surface."""
     return presets._from_table(rayleigh.generate([0.7]), R_JUP + np.array([0.0, 1.0e4]),
                                (0.0, 180.0), (), density_si=1.0e-12)
+
+
+def anomalous_rayleigh(theta_deg=(0.0, 180.0)):
+    """Rayleigh tau = 3 with an unphysical matrix, m21 = 3 P11, which drives
+    Q above I (tests/test_forensics.py:44): error 050 under --debug-stokes."""
+    atm = presets.rayleigh_single_layer(tau=3.0, theta_deg=theta_deg)
+    atm.scatter[..., 4] = 3.0 * atm.scatter[..., 0]
+    return atm
 
 
 def grid3d_2496():
@@ -347,6 +357,15 @@ KERNEL_CELLS = {
     "grid3d_thermal_surface_flow": lambda dev: imaging_tables(
         25, dev, atm=grid3d_thermal_atm(), photon_source="planet", surface_albedo=0.5,
         **FLOW_KEYS),
+    # --debug-stokes (error 050) through each kernel, and scattering off
+    "anomaly_radial": lambda dev: run_tables(anomalous_rayleigh(), dev, debug_stokes=True),
+    "anomaly_grid3d": lambda dev: run_tables(anomalous_rayleigh((0.0, 90.0, 180.0)), dev,
+                                             debug_stokes=True),
+    "anomaly_surface": lambda dev: run_tables(anomalous_rayleigh(), dev, debug_stokes=True,
+                                              surface_albedo=0.5),
+    "noscatter_flagship": lambda dev: run_tables(flagship(), dev, photon_scattering=False),
+    "noscatter_patchy3d": lambda dev: run_tables(patchy3d_small(), dev,
+                                                 photon_scattering=False),
 }
 
 

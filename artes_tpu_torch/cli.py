@@ -11,9 +11,9 @@ Reads ``input/<atmosphere>/artes.in`` and ``atmosphere.fits``, runs the
 detector mode it names (spectrum, imaging_mono, imaging_broad or phase) and
 writes ``output/<run>/{input,output,plot}`` with a snapshot of the inputs.
 ``--device cuda`` (the default) runs the CUDA kernel of the configuration
-(radial, 3-D or marching) and fails when there is no card; ``--device cpu``
-runs the plain PyTorch version, the only one that runs ``--f64``,
-``--debug-stokes`` and ``photon:scattering=off``. ``output:flow_global`` and
+(radial, 3-D or marching), ``--debug-stokes`` and ``photon:scattering=off``
+included, and fails when there is no card; ``--device cpu`` runs the plain
+PyTorch version, the only one that runs ``--f64``. ``output:flow_global`` and
 ``output:flow_latitudinal`` leave ``flow_global.fits`` and
 ``flow_latitudinal.fits`` in every mode but ``imaging_broad`` (the last
 wavelength's or phase angle's). Abandoned photons and failed peel walks
@@ -69,7 +69,7 @@ def run_main(argv=None):
     p.add_argument("--batch-size", type=int, default=1 << 17,
                    help="photons the plain version emits together (CPU)")
     p.add_argument("--f64", action="store_true",
-                   help="run transport in float64 (plain version, --device cpu)")
+                   help="run transport in float64 (plain version only: --device cpu)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--mesh", action="store_true",
                    help="split the photons of every run over the processes of a launcher "
@@ -83,7 +83,7 @@ def run_main(argv=None):
     p.add_argument("--debug-stokes", action="store_true",
                    help="Stokes-anomaly check I^2 >= Q^2+U^2+V^2 after every scatter "
                         "(error 050); anomalous photons are abandoned and tallied "
-                        "(plain version: --device cpu)")
+                        "(the CUDA kernels and the plain version alike)")
     args = p.parse_args(argv)
 
     from artes_tpu_torch.parallel import make_mesh, multihost

@@ -4,8 +4,10 @@
 // diagnostics, marching walks): the table layouts, the threefry draw schedule,
 // the closed-form shell-chord optical depth, the Stokes algebra, the
 // scattering-angle samplers, the detector peel, the tallies' booking, the
-// flow diagnostics' accumulators and the block reduction. Every function lives in an anonymous namespace, so
-// each translation unit that includes this file gets its own copy.
+// error records and the Stokes-anomaly check, the flow diagnostics'
+// accumulators and the block reduction. Every function lives in an anonymous
+// namespace, so each translation unit that includes this file gets its own
+// copy.
 //
 // Formulas follow the XLA forms of artes_tpu/transport/kernel.py (acosf for
 // the peel angle, the f32 sincos_2beta polynomial inside the azimuth Newton
@@ -45,8 +47,9 @@ enum {
   S_RFLOOR = 11, S_OB = 12, S_UHAT = 15, S_E1 = 18, S_E2 = 21, S_WHAT = 24,
   S_POS_EPS = 27, S_SEL1 = 28, S_TCOS = 29, S_BIAS = 31,
 };
-// runtime flags of the launch
-enum { F_CRESCENT = 1, F_BIASED = 2 };
+// runtime flags of the launch: crescent sampling, Gordon-biased thermal
+// emission, the Stokes-anomaly check of --debug-stokes, scattering off
+enum { F_CRESCENT = 1, F_BIASED = 2, F_DEBUG_STOKES = 4, F_NO_SCATTER = 8 };
 // outcome of a march
 enum { M_EXIT = 0, M_INTER = 1, M_FLOOR = 2 };
 // constant table layout: beta basis (3 x 17), sin/cos(2 edge) (16 + 16)
@@ -423,6 +426,50 @@ __device__ __forceinline__ void book(const Image& img, int pix, const float* v, 
       acc[4 + k] += (double)(v[k] * v[k]);
     }
   }
+}
+
+// ------------------------------------------------------------ errors ----
+
+constexpr int REC_W = 16;
+
+// the bounded buffer of error records (rows of REC_W floats) and its row count
+struct Records {
+  float* __restrict__ rows;
+  unsigned int* __restrict__ count;
+  unsigned int cap;
+};
+
+// append one record: code, photon id as its bit pattern, position,
+// direction, cell, face, Stokes I, scatterings so far, site; a full buffer
+// drops the row, never the count
+__device__ void record_error(const Records& R, float code, uint32_t pid, const float* pos,
+                             const float* dir, const int* cell, const int* face, float stokes_i,
+                             int n_scat, float site) {
+  const unsigned int slot = atomicAdd(R.count, 1u);
+  if (slot >= R.cap) return;
+  float* r = R.rows + (size_t)REC_W * slot;
+  r[0] = code;
+  r[1] = __uint_as_float(pid);
+  for (int i = 0; i < 3; ++i) {
+    r[2 + i] = pos[i];
+    r[5 + i] = dir[i];
+    r[8 + i] = (float)cell[i];
+  }
+  r[11] = (float)face[0];
+  r[12] = (float)face[1];
+  r[13] = stokes_i;
+  r[14] = (float)n_scat;
+  r[15] = site;
+}
+
+// error 050 of --debug-stokes (ARTES.f90:830-835): I^2 (1 + 1e-6) < Q^2 +
+// U^2 + V^2 after the Mueller update, rounded as the plain version rounds it
+// (no contracted multiply-adds)
+__device__ __forceinline__ bool stokes_anomaly(const float* st) {
+  const float lhs = __fmul_rn(__fmul_rn(st[0], st[0]), 1.000001f);
+  const float rhs = __fadd_rn(__fadd_rn(__fmul_rn(st[1], st[1]), __fmul_rn(st[2], st[2])),
+                              __fmul_rn(st[3], st[3]));
+  return lhs < rhs;
 }
 
 // ---------------------------------------------------------- emission ----

@@ -1,8 +1,8 @@
 // Device code shared by the kernels that step through (r, theta, phi) cells,
 // pool_grid3d.cu (3-D grids, jump walks) and pool_march.cu (Lambert surfaces
 // and flow diagnostics, marching walks on any grid): the grid tables, one
-// traversal step (geometry.cell_face), the cell lookups, the error records
-// and the thermal birth over all cells. A radial grid is the case nt = np = 1.
+// traversal step (geometry.cell_face), the cell lookups, the error codes and
+// the thermal birth over all cells. A radial grid is the case nt = np = 1.
 // Every function lives in an anonymous namespace, as in pool_common.cuh.
 
 #pragma once
@@ -10,10 +10,10 @@
 
 namespace {
 
-constexpr int N_OUT_I3 = 8;     // N_OUT_I + photons abandoned, codes 031, 032, 034
-constexpr int REC_W = 16;
+// N_OUT_I + photons abandoned, codes 031, 032, 034, Stokes anomalies (050)
+constexpr int N_OUT_I3 = 9;
 enum { M_ERROR = 3 };
-enum { C_ERR = 4, C_E031 = 5, C_E032 = 6, C_E034 = 7 };
+enum { C_ERR = 4, C_E031 = 5, C_E032 = 6, C_E034 = 7, C_ANOM = 8 };
 
 struct Grid3 {
   const float* __restrict__ theta_tan;    // (nt+1,)
@@ -28,9 +28,7 @@ struct Grid3 {
   const float* __restrict__ dtt;          // (nt-1, nr*np)
   const float* __restrict__ dpp;          // (np, nr*nt)
   const float* __restrict__ rf2;          // (nr-1,) squared interior face radii
-  float* __restrict__ rec;                // (rec_cap, 16) error records
-  unsigned int* __restrict__ rec_count;
-  unsigned int rec_cap;
+  Records rec;                            // (rec_cap, 16) error records
   int nt, np, cell_depth, max_crossings;
   float same_eps, sel2, boundary_tol;
 };
@@ -226,26 +224,6 @@ __device__ void heal_cell(const Tables& T, const Grid3& G, const Scal& S, const 
 // error code of a failed march, as the forensics record names it
 __device__ __forceinline__ float error_code(bool e031, bool e034) {
   return e031 ? 31.0f : (e034 ? 34.0f : 32.0f);
-}
-
-__device__ void record_error(const Grid3& G, float code, uint32_t pid, const float* pos,
-                             const float* dir, const int* cell, const int* face, float stokes_i,
-                             int n_scat, float site) {
-  const unsigned int slot = atomicAdd(G.rec_count, 1u);
-  if (slot >= G.rec_cap) return;
-  float* r = G.rec + (size_t)REC_W * slot;
-  r[0] = code;
-  r[1] = __uint_as_float(pid);
-  for (int i = 0; i < 3; ++i) {
-    r[2 + i] = pos[i];
-    r[5 + i] = dir[i];
-    r[8 + i] = (float)cell[i];
-  }
-  r[11] = (float)face[0];
-  r[12] = (float)face[1];
-  r[13] = stokes_i;
-  r[14] = (float)n_scat;
-  r[15] = site;
 }
 
 // ------------------------------------------------------------ emission ----

@@ -249,20 +249,24 @@ __device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float
 
 // -------------------------------------------------------------- kernel ----
 
+// two blocks of 256 threads an SM hold ptxas to 128 registers a thread; left
+// free, it gives the stellar instantiation 80 and spills 636 bytes
 template <bool THERMAL, bool IMAGE>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 2)
 pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
                    uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
                    int flags, double* __restrict__ out_d, unsigned long long* __restrict__ out_i) {
   const Scal S = load_scal(scal);
   const bool crescent = (flags & F_CRESCENT) != 0;
   const bool biased = (flags & F_BIASED) != 0;
+  const bool debug_stokes = (flags & F_DEBUG_STOKES) != 0;
+  const bool no_scatter = (flags & F_NO_SCATTER) != 0;
 
   // I, Q, U, V sums, their squares (spectrum only), flux emitted, flux exit
   double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   // scatter peels, photons capped, photons emitted, birth peels, photons
-  // abandoned, codes 031 / 032 / 034
-  unsigned long long cnt[N_OUT_I3] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
+  // abandoned, codes 031 / 032 / 034, Stokes anomalies
+  unsigned long long cnt[N_OUT_I3] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
 
   const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
   for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_photons; i += stride) {
@@ -327,13 +331,15 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
           cnt[C_E031] += e031;
           cnt[C_E032] += e032;
           cnt[C_E034] += e034;
-          record_error(G, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat, 0.0f);
+          record_error(G.rec, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat,
+                       0.0f);
         }
       }
       if (out != M_INTER) {
         if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
         break;
       }
+      if (no_scatter) break;                         // only the first march
       if (n_scat > 0 && n_scat >= max_scatter) {
         cnt[1] += 1;
         break;
@@ -361,6 +367,13 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
       polarization_rotation(alpha, c2b, s2b, beta < PI_F ? 1.0f : -1.0f, st, m, dir[2],
                             dir_new[2], false);
       for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
+      if (debug_stokes && stokes_anomaly(st)) {
+        // abandoned before its peel and march, recorded at site 4
+        cnt[C_ERR] += 1;
+        cnt[C_ANOM] += 1;
+        record_error(G.rec, 50.0f, pid, pos, dir, cell, face, st[0], n_scat, 4.0f);
+        break;
+      }
 
       bool peel_surface;
       const float tau_peel = tau_walk_jumps(T, G, S, pos, S.det, cell, peel_surface);
@@ -401,7 +414,8 @@ KernelFn variant_fn(int variant) {
 // (consts and scal after p_int, as the radial entry point has them, rec and rec_count last); `sizes`
 // holds {nr, nt, np, cell_depth, max_crossings, rec_cap, nx, ny}; `eps` holds
 // {same_eps, sel2, boundary_tol}. out_d: 10 doubles as the radial kernel's;
-// out_i: its 4 counters, then photons abandoned and codes 031 / 032 / 034.
+// out_i: its first 4 counters, then photons abandoned, codes 031 / 032 / 034
+// and Stokes anomalies. `flags` as pool_radial's.
 extern "C" int artes_pool_grid3d_launch(
     const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
@@ -410,8 +424,9 @@ extern "C" int artes_pool_grid3d_launch(
   auto f = [&](int i) { return (const float*)tables[i]; };
   Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
   Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
-          f(19), f(20), f(21), (float*)tables[22], (unsigned int*)tables[23],
-          (unsigned int)sizes[5], sizes[1], sizes[2], sizes[3], sizes[4],
+          f(19), f(20), f(21),
+          Records{(float*)tables[22], (unsigned int*)tables[23], (unsigned int)sizes[5]},
+          sizes[1], sizes[2], sizes[3], sizes[4],
           eps[0], eps[1], eps[2]};
   Image img{img_sums, img_counts, sizes[6], sizes[7]};
   const KernelFn fn = variant_fn(variant);

@@ -44,8 +44,10 @@
 // 031) or thermal birth peel (tallied under "peel") abandons the photon; a
 // failed scatter peel loses its flux only. Records as pool_grid3d.cu's, with
 // the site: 0 a scatter march, 1 the first march, 2 the prewalk, 3 a scatter
-// peel (code 50; the walk's input position, cell and face). Birth peels leave
-// no record, as in the JAX pool.
+// peel (code 50; the walk's input position, cell and face), 4 a Stokes
+// anomaly (code 50, --debug-stokes; the photon is abandoned before its peel
+// and march). Birth peels leave no record, as in the JAX pool. With
+// scattering off a photon ends after its first march.
 //
 // What bounds it on an H100: arithmetic, divergence and table latency, as
 // pool_grid3d.cu, with longer marches (escaping photons cross the whole grid)
@@ -58,8 +60,8 @@ namespace {
 
 // N_OUT_I3 + scatter and birth peel walks failed, passes of cell_face made,
 // passes that booked flow
-constexpr int N_OUT_IM = 11;
-enum { C_EPEEL = 8, C_PASSES = 9, C_BOOKED = 10 };
+constexpr int N_OUT_IM = 12;
+enum { C_EPEEL = 9, C_PASSES = 10, C_BOOKED = 11 };
 
 // outcome of a marching tau walk
 struct Walk {
@@ -218,14 +220,16 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
   const Scal S = load_scal(scal);
   const bool crescent = (flags & F_CRESCENT) != 0;
   const bool biased = (flags & F_BIASED) != 0;
+  const bool debug_stokes = (flags & F_DEBUG_STOKES) != 0;
+  const bool no_scatter = (flags & F_NO_SCATTER) != 0;
 
   // I, Q, U, V sums, their squares (spectrum only), flux emitted, flux exit
   double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   // scatter peels, photons capped, photons emitted, birth and surface peels,
-  // photons abandoned, codes 031 / 032 / 034, peel walks failed, passes,
-  // passes that booked flow
+  // photons abandoned, codes 031 / 032 / 034, Stokes anomalies, peel walks
+  // failed, passes, passes that booked flow
   unsigned long long cnt[N_OUT_IM] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull,
-                                      0ull, 0ull, 0ull, 0ull, 0ull};
+                                      0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
 
   const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
   for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_photons; i += stride) {
@@ -274,7 +278,7 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
     if (pre.error) {
       cnt[C_ERR] += 1;
       cnt[C_E031] += 1;
-      record_error(G, 31.0f, pid, pos, dir, cell, face, st[0], 0, 2.0f);
+      record_error(G.rec, 31.0f, pid, pos, dir, cell, face, st[0], 0, 2.0f);
       continue;
     }
     draws(key_hi, pid, ctr, 1, d);
@@ -302,16 +306,17 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
         cnt[C_E031] += e031;
         cnt[C_E032] += e032;
         cnt[C_E034] += e034;
-        record_error(G, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat,
+        record_error(G.rec, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat,
                      n_scat == 0 ? 1.0f : 0.0f);
       } else if (peel_failed) {
-        record_error(G, 50.0f, pid, peel_pos, dir, peel_cell, peel_face, st[0], n_scat, 3.0f);
+        record_error(G.rec, 50.0f, pid, peel_pos, dir, peel_cell, peel_face, st[0], n_scat, 3.0f);
       }
       peel_failed = false;
       if (out != M_INTER) {
         if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
         break;
       }
+      if (no_scatter) break;                         // only the first march
       if (n_scat > 0 && n_scat >= max_scatter) {
         cnt[1] += 1;
         break;
@@ -339,6 +344,12 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
       polarization_rotation(alpha, c2b, s2b, beta < PI_F ? 1.0f : -1.0f, st, m, dir[2],
                             dir_new[2], false);
       for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
+      if (debug_stokes && stokes_anomaly(st)) {
+        cnt[C_ERR] += 1;
+        cnt[C_ANOM] += 1;
+        record_error(G.rec, 50.0f, pid, pos, dir, cell, face, st[0], n_scat, 4.0f);
+        break;
+      }
 
       const Walk peel = tau_walk_march(T, G, S, pos, S.det, cell, face, cnt[C_PASSES]);
       if (peel.error) {
@@ -392,9 +403,9 @@ KernelFn variant_fn(int variant) {
 // the six jump tables (16-21) are not read and may be null. `sizes` holds
 // {nr, nt, np, cell_depth, max_crossings, rec_cap, nx, ny}; `eps` holds
 // {same_eps, sel2, boundary_tol, surface_albedo}. out_d: 10 doubles as the
-// radial kernel's; out_i: pool_grid3d's 8 counters, then the scatter and
+// radial kernel's; out_i: pool_grid3d's 9 counters, then the scatter and
 // birth peel walks that failed, the passes of cell_face made and the passes
-// that booked flow. The flow
+// that booked flow. `flags` as pool_radial's. The flow
 // diagnostics go into flow_g (ncell, 3) and flow_t (ncell, 4), summed per
 // block in `flow_shared_bytes` of shared memory when that is not 0.
 extern "C" int artes_pool_march_launch(
@@ -406,8 +417,9 @@ extern "C" int artes_pool_march_launch(
   auto f = [&](int i) { return (const float*)tables[i]; };
   Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
   Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
-          f(19), f(20), f(21), (float*)tables[22], (unsigned int*)tables[23],
-          (unsigned int)sizes[5], sizes[1], sizes[2], sizes[3], sizes[4],
+          f(19), f(20), f(21),
+          Records{(float*)tables[22], (unsigned int*)tables[23], (unsigned int)sizes[5]},
+          sizes[1], sizes[2], sizes[3], sizes[4],
           eps[0], eps[1], eps[2]};
   Image img{img_sums, img_counts, sizes[6], sizes[7]};
   const KernelFn fn = variant_fn(variant);

@@ -26,33 +26,46 @@
 //     global result where the shells do not fit there.
 // Crescent sampling and the off-axis stellar beam are runtime scalars.
 //
-// Design. One thread per photon, grid-stride over the photon ids: a thread
-// runs its photon from emission to death, then takes the next id. Photon
-// streams are keyed by (seed, photon id, draw site), so no lane pool, refill
-// ranking or stage machine is needed, and the per-photon draw-site schedule
-// is the one of the JAX and plain versions:
+// Design. A persistent grid: exactly the blocks the card holds at once,
+// each lane running photons one after another. Photon streams are keyed by
+// (seed, photon id, draw site), so no lane pool, refill ranking or stage
+// machine is needed, and the per-photon draw-site schedule is the one of the
+// JAX and plain versions:
 //   emission: sites 0, 1 (stellar) or 0-5 (thermal, then the birth peel,
 //     which draws nothing);
 //   prewalk fused with the forced first interaction: one site;
 //   every scattering round: 5 sites (roulette, azimuth x2, zenith, tau).
+// One loop iteration is one step of a lane's photon: a lane without a photon
+// takes the next id from the launch's counter (one atomicAdd for the lanes
+// of a warp that ask together), emits it and runs its prewalk and first
+// march; a lane with one runs one scattering round. A lane whose photon dies
+// takes a new one in the next iteration, so the lanes of a warp stay busy
+// until the ids run out instead of waiting for the longest photon of a
+// static share, and no block holds an SM for its slowest photon. Each
+// photon's arithmetic is the same whichever lane runs it; only the order in
+// which the per-thread double sums add photons moves.
 // The closed-form shell-chord walks (artes_tpu/transport/radial.py) need no
 // per-face arrays: face roots are computed on the fly in path order.
 // Tables live in global memory and are read per cell (__ldg). Per-thread
 // tallies are double (Stokes sums and squares, fluxes) and 64-bit integers
 // (counts), reduced per block in shared memory and added with one atomicAdd
-// per tally.
+// per tally. --debug-stokes (runtime flag F_DEBUG_STOKES) abandons a photon
+// whose Stokes vector leaves the cone I^2 >= Q^2 + U^2 + V^2 after a
+// scattering and records it (error 050, site 4); photon:scattering=off
+// (F_NO_SCATTER) ends every photon at its first interaction.
 //
 // The device code it shares with pool_grid3d.cu (draws, chords, Stokes
 // algebra, samplers, peel, booking, reduction) is in pool_common.cuh.
 //
-// What bounds it on an H100: arithmetic and divergence, not memory. Photons
-// of one warp live for different numbers of rounds (geometric roulette
-// lifetimes) and walk shells of different counts, so warps run partly
-// idle; each thread holds a 4x4 matrix and the Stokes state in registers.
-// The image splat adds ten global atomics per accepted peel, which contend
-// on the lit pixels. This version keeps the loop simple; warp-level refill,
-// shared-memory tables, a privatised shared-memory detector and occupancy
-// tuning are later work.
+// What bounds it on an H100: arithmetic and latency, not memory: a long
+// dependent chain (threefry, the two walks, the azimuth Newton, the 15 x 12
+// zenith search, the matrix) at 64 registers a thread for the stellar
+// spectrum, four blocks of 256 an SM (128 and two for the others). The
+// image splat adds ten global atomics per accepted peel, which
+// contend on the lit pixels. A compile-time define ARTES_POOL_CLOCKS builds
+// the instrumented library pool_radial_clocks (python -m
+// artes_tpu_torch.measure clocks), which times each phase of the loop per
+// warp with clock64.
 
 #include "pool_common.cuh"
 
@@ -203,132 +216,247 @@ __device__ float emit_thermal(const Tables& T, const Scal& S, const float* u, bo
 
 // ------------------------------------------------------------- kernel ----
 
+// the next photon of the launch for each active lane: one atomicAdd on the
+// launch's counter for the lanes that ask together, each lane its own slot
+__device__ __forceinline__ unsigned long long next_photon(unsigned long long* next_id) {
+  const unsigned int mask = __activemask();
+  const int leader = __ffs(mask) - 1;
+  const int lane = threadIdx.x & 31;
+  unsigned long long base = 0ull;
+  if (lane == leader) base = atomicAdd(next_id, (unsigned long long)__popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return base + (unsigned long long)__popc(mask & ((1u << lane) - 1u));
+}
+
+#ifdef ARTES_POOL_CLOCKS
+// Instrumented build (the library pool_radial_clocks, never the main path):
+// each warp adds the clock64 cycles it spends in a phase, the times it
+// enters it and the lanes active at entry, in a block's shared memory,
+// flushed into g_clocks; row N_PHASE holds the warps' whole time.
+enum { P_EMIT, P_FIRST, P_ROULETTE, P_BETA, P_ALPHA, P_ROTATE, P_PEEL, P_MARCH, N_PHASE };
+__device__ unsigned long long g_clocks[(N_PHASE + 1) * 3];
+
+__device__ __forceinline__ void clock_add(unsigned long long* sh, int k, long long t0,
+                                          unsigned int mask) {
+  const long long dt = clock64() - t0;
+  if ((int)(threadIdx.x & 31) == __ffs(mask) - 1) {
+    atomicAdd(sh + 3 * k, (unsigned long long)dt);
+    atomicAdd(sh + 3 * k + 1, 1ull);
+    atomicAdd(sh + 3 * k + 2, (unsigned long long)__popc(mask));
+  }
+}
+#define CLOCK_BEGIN() (clk_t0 = clock64(), clk_mask = __activemask())
+#define CLOCK_END(k) clock_add(clk_sh, k, clk_t0, clk_mask)
+#else
+#define CLOCK_BEGIN() ((void)0)
+#define CLOCK_END(k) ((void)0)
+#endif
+
+// blocks of 256 an SM must hold at once, which bounds the registers ptxas may
+// give a thread: for the stellar spectrum 4 (64 registers; of 2, 3 and 4
+// blocks, the fastest at 2^20 and 2^24 photons together on an H100), for the
+// other instantiations 2 (128 registers)
 template <bool THERMAL, bool IMAGE, bool FLOW>
-__global__ void __launch_bounds__(256)
+struct MinBlocks {
+  static constexpr int value = (THERMAL || IMAGE || FLOW) ? 2 : 4;
+};
+
+// out_i slots: scatter peels, photons capped, photons emitted, birth peels,
+// photons abandoned on a Stokes anomaly (error 050), and with FLOW the
+// segments that booked flow
+constexpr int N_OUT_IR = N_OUT_I + 1;
+enum { C_ANOM_R = 4 };
+
+template <bool THERMAL, bool IMAGE, bool FLOW>
+__global__ void __launch_bounds__(256, MinBlocks<THERMAL, IMAGE, FLOW>::value)
 pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t n_photons,
                    uint32_t key_hi, uint32_t id_lo, int max_scatter, int flags,
                    double* __restrict__ out_d, unsigned long long* __restrict__ out_i,
-                   double* flow_g, double* flow_t, int flow_shared) {
+                   double* flow_g, double* flow_t, int flow_shared, Records rec,
+                   unsigned long long* next_id) {
   extern __shared__ double flow_sh[];
   Flow fl{nullptr, nullptr};
   if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_sh, T.nr, flow_shared != 0);
+#ifdef ARTES_POOL_CLOCKS
+  __shared__ unsigned long long clk_sh[(N_PHASE + 1) * 3];
+  for (int k = threadIdx.x; k < (N_PHASE + 1) * 3; k += blockDim.x) clk_sh[k] = 0ull;
+  __syncthreads();
+  const long long clk_start = clock64();
+  long long clk_t0 = 0;
+  unsigned int clk_mask = 0u;
+#endif
   const Scal S = load_scal(scal);
   const bool crescent = (flags & F_CRESCENT) != 0;
   const bool biased = (flags & F_BIASED) != 0;
+  const bool debug_stokes = (flags & F_DEBUG_STOKES) != 0;
+  const bool no_scatter = (flags & F_NO_SCATTER) != 0;
 
   // I, Q, U, V sums, their squares (spectrum only), flux emitted, flux exit
   double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  // scatter peels, photons capped, photons emitted, birth peels; with FLOW
-  // also the segments that booked flow
-  constexpr int NI = N_OUT_I + (FLOW ? 1 : 0);
-  unsigned long long cnt[NI] = {0ull, 0ull, 0ull, 0ull};
+  constexpr int NI = N_OUT_IR + (FLOW ? 1 : 0);
+  unsigned long long cnt[NI] = {0ull, 0ull, 0ull, 0ull, 0ull};
 
-  // 64-bit index: a 32-bit one would wrap past n_photons near 2^32
-  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
-  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_photons; i += stride) {
-    const uint32_t pid = id_lo + (uint32_t)i;
-    cnt[2] += 1;
-    float d[6];
-    float pos[3], dir[3];
-    float st[4] = {1.0f, 0.0f, 0.0f, 0.0f};
-    uint32_t ctr;
+  // the lane's photon: alive between its first interaction and its death
+  bool alive = false;
+  uint32_t pid = 0u, ctr = 0u;
+  int cr = 0, n_scat = 0;
+  float pos[3], dir[3], st[4];
+  float d[6];
+  float s_stop = 0.0f;
 
-    if constexpr (THERMAL) {
-      draws6(key_hi, pid, d);
-      st[0] = emit_thermal(T, S, d, biased, pos, dir);
-      acc[8] += (double)st[0];
-      ctr = 6;
-      // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598)
-      bool surf;
-      const float tau_b = tau_walk(T, S, pos, S.det, surf);
-      const int pix = pixel_of<IMAGE>(S, img, pos);
-      if (!surf && tau_b < 50.0f && pix >= 0) {
-        const float v = expf(-fminf(tau_b, 500.0f)) / FOUR_PI_F * st[0];
-        book<IMAGE, 1>(img, pix, &v, acc);
-        cnt[3] += 1;
+  // one loop iteration: a new photon's emission, prewalk and first march for
+  // a lane without one, one scattering round for a lane with one
+  while (true) {
+    if (!alive) {
+      CLOCK_BEGIN();
+      const unsigned long long i = next_photon(next_id);
+      if (i >= n_photons) break;
+      pid = id_lo + (uint32_t)i;
+      cnt[2] += 1;
+      st[0] = 1.0f;
+      st[1] = st[2] = st[3] = 0.0f;
+      if constexpr (THERMAL) {
+        draws6(key_hi, pid, d);
+        st[0] = emit_thermal(T, S, d, biased, pos, dir);
+        acc[8] += (double)st[0];
+        ctr = 6;
+        // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598)
+        bool surf;
+        const float tau_b = tau_walk(T, S, pos, S.det, surf);
+        const int pix = pixel_of<IMAGE>(S, img, pos);
+        if (!surf && tau_b < 50.0f && pix >= 0) {
+          const float v = expf(-fminf(tau_b, 500.0f)) / FOUR_PI_F * st[0];
+          book<IMAGE, 1>(img, pix, &v, acc);
+          cnt[3] += 1;
+        }
+      } else {
+        draws(key_hi, pid, 0u, 2, d);
+        emit_stellar(S, d, crescent, pos, dir);
+        ctr = 2;
       }
-    } else {
-      draws(key_hi, pid, 0u, 2, d);
-      emit_stellar(S, d, crescent, pos, dir);
-      ctr = 2;
-    }
+      CLOCK_END(P_EMIT);
 
-    // prewalk along the photon's direction + forced first interaction
-    bool pre_surface;
-    const float tau_first = tau_walk(T, S, pos, dir, pre_surface);
-    draws(key_hi, pid, ctr, 1, d);
-    ctr += 1;
-    const bool thin = tau_first < 1.0e-6f;
-    if (thin && !pre_surface) continue;       // vacuum, no surface
-    const bool forced = !thin && tau_first < 50.0f;
-    const float one_m_exp = 1.0f - expf(-tau_first);
-    float tau = forced ? -logf(1.0f - d[0] * one_m_exp) : -logf(1.0f - d[0]);
-    if (forced) st[0] *= one_m_exp;
-    float s_stop;
-    int cr;
-    const int first = march<FLOW>(T, S, pos, dir, tau, s_stop, cr, st[0], fl, cnt[NI - 1]);
-    if (first != M_INTER) {
-      if (THERMAL && first == M_EXIT) acc[9] += (double)st[0];
+      // prewalk along the photon's direction + forced first interaction
+      CLOCK_BEGIN();
+      bool pre_surface;
+      const float tau_first = tau_walk(T, S, pos, dir, pre_surface);
+      draws(key_hi, pid, ctr, 1, d);
+      ctr += 1;
+      const bool thin = tau_first < 1.0e-6f;
+      int first = M_EXIT;                       // vacuum, no surface: dropped
+      if (!(thin && !pre_surface)) {
+        const bool forced = !thin && tau_first < 50.0f;
+        const float one_m_exp = 1.0f - expf(-tau_first);
+        const float tau = forced ? -logf(1.0f - d[0] * one_m_exp) : -logf(1.0f - d[0]);
+        if (forced) st[0] *= one_m_exp;
+        first = march<FLOW>(T, S, pos, dir, tau, s_stop, cr, st[0], fl, cnt[NI - 1]);
+        if (THERMAL && first == M_EXIT) acc[9] += (double)st[0];
+      }
+      // scattering off: the photon ends at its first interaction
+      alive = first == M_INTER && !no_scatter;
+      if (alive) {
+        for (int k = 0; k < 3; ++k) pos[k] += s_stop * dir[k];
+        n_scat = 1;
+      }
+      CLOCK_END(P_FIRST);
       continue;
     }
-    for (int k = 0; k < 3; ++k) pos[k] += s_stop * dir[k];
 
-    // scattering rounds (ARTES.f90:786-951); the max_scatter cap bounds them
-    for (int n_scat = 1;; ++n_scat) {
-      cr = heal_cell(T, S, pos, cr);
-      draws(key_hi, pid, ctr, 5, d);
-      ctr += 5;
-      if (d[0] < S.fstop) break;                     // roulette
-      const float alb = __ldg(T.albedo + cr);
-      const float gamma = (alb < 1.0f && alb > 0.0f) ? alb / (1.0f - S.fstop) : 1.0f;
-      for (int k = 0; k < 4; ++k) st[k] *= gamma;
-      if (st[0] <= S.pmin) break;
+    // a scattering round (ARTES.f90:786-951); the max_scatter cap bounds them
+    CLOCK_BEGIN();
+    alive = false;
+    cr = heal_cell(T, S, pos, cr);
+    draws(key_hi, pid, ctr, 5, d);
+    ctr += 5;
+    if (d[0] < S.fstop) {                           // roulette
+      CLOCK_END(P_ROULETTE);
+      continue;
+    }
+    const float alb = __ldg(T.albedo + cr);
+    const float gamma = (alb < 1.0f && alb > 0.0f) ? alb / (1.0f - S.fstop) : 1.0f;
+    for (int k = 0; k < 4; ++k) st[k] *= gamma;
+    if (st[0] <= S.pmin) {
+      CLOCK_END(P_ROULETTE);
+      continue;
+    }
+    float contrib[4];
+    peel_prep(T, S, dir, cr, st, contrib);
+    const int pix = pixel_of<IMAGE>(S, img, pos);
+    CLOCK_END(P_ROULETTE);
 
-      float contrib[4];
-      peel_prep(T, S, dir, cr, st, contrib);
-      const int pix = pixel_of<IMAGE>(S, img, pos);
-      float beta, c2b, s2b, alpha, alpha_deg;
-      sample_beta(T, cr, st, d[1], d[2], beta, c2b, s2b);
-      sample_alpha(T, cr, st, c2b, s2b, d[3], alpha, alpha_deg);
-      float dir_new[3], m[16];
-      direction_cosine(alpha, beta, dir, dir_new);
-      matrix_at(T.scatter + cr * N_ANGLE * 16, alpha_deg, m);
-      polarization_rotation(alpha, c2b, s2b, beta < PI_F ? 1.0f : -1.0f, st, m, dir[2],
-                            dir_new[2], false);
+    CLOCK_BEGIN();
+    float beta, c2b, s2b, alpha, alpha_deg;
+    sample_beta(T, cr, st, d[1], d[2], beta, c2b, s2b);
+    CLOCK_END(P_BETA);
+    CLOCK_BEGIN();
+    sample_alpha(T, cr, st, c2b, s2b, d[3], alpha, alpha_deg);
+    CLOCK_END(P_ALPHA);
+    CLOCK_BEGIN();
+    float dir_new[3], m[16];
+    direction_cosine(alpha, beta, dir, dir_new);
+    matrix_at(T.scatter + cr * N_ANGLE * 16, alpha_deg, m);
+    polarization_rotation(alpha, c2b, s2b, beta < PI_F ? 1.0f : -1.0f, st, m, dir[2],
+                          dir_new[2], false);
+    const bool anomalous = debug_stokes && stokes_anomaly(st);
+    CLOCK_END(P_ROTATE);
+    if (anomalous) {
+      // abandoned before its peel and march, recorded at site 4 with the
+      // scatterings before this one
+      cnt[C_ANOM_R] += 1;
+      const int cell[3] = {cr, 0, 0}, face[2] = {0, 0};
+      record_error(rec, 50.0f, pid, pos, dir_new, cell, face, st[0], n_scat - 1, 4.0f);
+      continue;
+    }
 
-      bool peel_surface;
-      const float tau_peel = tau_walk(T, S, pos, S.det, peel_surface);
-      if (!peel_surface && tau_peel < 50.0f && pix >= 0) {
-        const float w = expf(-fminf(tau_peel, 500.0f));
-        float v[4];
-        for (int k = 0; k < 4; ++k) v[k] = contrib[k] * w;
-        book<IMAGE, 4>(img, pix, v, acc);
-        cnt[0] += 1;
-      }
+    CLOCK_BEGIN();
+    bool peel_surface;
+    const float tau_peel = tau_walk(T, S, pos, S.det, peel_surface);
+    if (!peel_surface && tau_peel < 50.0f && pix >= 0) {
+      const float w = expf(-fminf(tau_peel, 500.0f));
+      float v[4];
+      for (int k = 0; k < 4; ++k) v[k] = contrib[k] * w;
+      book<IMAGE, 4>(img, pix, v, acc);
+      cnt[0] += 1;
+    }
+    CLOCK_END(P_PEEL);
 
-      tau = -logf(1.0f - d[4]);
-      for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
-      const int out = march<FLOW>(T, S, pos, dir, tau, s_stop, cr, st[0], fl, cnt[NI - 1]);
-      if (out != M_INTER) {
-        if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
-        break;
-      }
+    CLOCK_BEGIN();
+    const float tau = -logf(1.0f - d[4]);
+    for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
+    const int out = march<FLOW>(T, S, pos, dir, tau, s_stop, cr, st[0], fl, cnt[NI - 1]);
+    if (out == M_INTER) {
       for (int k = 0; k < 3; ++k) pos[k] += s_stop * dir[k];
       if (n_scat >= max_scatter) {
         cnt[1] += 1;
-        break;
+      } else {
+        alive = true;
+        n_scat += 1;
       }
+    } else if (THERMAL && out == M_EXIT) {
+      acc[9] += (double)st[0];
     }
+    CLOCK_END(P_MARCH);
   }
 
   if constexpr (FLOW) flow_end(flow_g, flow_t, flow_sh, T.nr, flow_shared != 0);
   reduce_block<N_OUT_D, NI>(acc, cnt, out_d, out_i);
+#ifdef ARTES_POOL_CLOCKS
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(clk_sh + 3 * N_PHASE, (unsigned long long)(clock64() - clk_start));
+    atomicAdd(clk_sh + 3 * N_PHASE + 1, 1ull);
+    atomicAdd(clk_sh + 3 * N_PHASE + 2, 32ull);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < (N_PHASE + 1) * 3; k += blockDim.x)
+    atomicAdd(g_clocks + k, clk_sh[k]);
+#endif
 }
 
 
 // the instantiation of a variant: bit 0 thermal, bit 1 image, bit 2 flow
 using KernelFn = void (*)(Tables, const float*, Image, uint32_t, uint32_t, uint32_t, int, int,
-                          double*, unsigned long long*, double*, double*, int);
+                          double*, unsigned long long*, double*, double*, int, Records,
+                          unsigned long long*);
 KernelFn variant_fn(int variant) {
   switch (variant) {
     case 0: return pool_radial_kernel<false, false, false>;
@@ -343,18 +471,43 @@ KernelFn variant_fn(int variant) {
   }
 }
 
+// the blocks the card holds at once for an instantiation, its threads and
+// its dynamic shared memory: queried once for each (the first launch's device)
+int resident_blocks(int variant, KernelFn fn, int threads, int shared_bytes) {
+  static int cached_threads[8] = {0}, cached_shared[8] = {0}, cached_blocks[8] = {0};
+  if (cached_blocks[variant] > 0 && cached_threads[variant] == threads &&
+      cached_shared[variant] == shared_bytes)
+    return cached_blocks[variant];
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, shared_bytes) !=
+          cudaSuccess)
+    return 0;
+  cached_threads[variant] = threads;
+  cached_shared[variant] = shared_bytes;
+  cached_blocks[variant] = per_sm * sms;
+  return cached_blocks[variant];
+}
+
 }  // namespace
 
 // C entry point for ctypes: launches the instantiation of `variant` (bit 0
 // thermal, bit 1 image, bit 2 flow) on `stream` and returns
-// cudaGetLastError().
+// cudaGetLastError(). `flags`: F_CRESCENT, F_BIASED, F_DEBUG_STOKES,
+// F_NO_SCATTER of pool_common.cuh. The grid is persistent: exactly the
+// blocks the card holds at once (fewer for a small launch), whose lanes take
+// photon ids id_lo + *next_id from the launch's counter, which the caller
+// zeroes.
 // out_d: 10 doubles (I, Q, U, V sums and their squares, zero for an image;
-// flux emitted; flux exit); out_i: 4 counters (scatter peels, photons capped
-// at max_scatter, photons emitted, birth peels, and with flow a fifth: the
-// segments that booked flow). An image (nx * ny pixels)
-// is added into img_sums (npix, 8) and img_counts (npix, 2); the flow
-// diagnostics into flow_g (nr, 3) and flow_t (nr, 4), summed per block in
-// `flow_shared_bytes` of shared memory when that is not 0.
+// flux emitted; flux exit); out_i: 5 counters (scatter peels, photons capped
+// at max_scatter, photons emitted, birth peels, photons abandoned on a Stokes
+// anomaly, and with flow a sixth: the segments that booked flow). An image
+// (nx * ny pixels) is added into img_sums (npix, 8) and img_counts (npix, 2);
+// the flow diagnostics into flow_g (nr, 3) and flow_t (nr, 4), summed per
+// block in `flow_shared_bytes` of shared memory when that is not 0. Stokes
+// anomalies leave records (pool_common.cuh::record_error) in rec (rec_cap,
+// 16), their count in rec_count.
 extern "C" int artes_pool_radial_launch(
     const float* rfront, const float* opacity, const float* albedo, const float* scatter,
     const float* prefix, const float* p_int, const float* consts, const float* scal,
@@ -362,25 +515,47 @@ extern "C" int artes_pool_radial_launch(
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags, int nx,
     int ny, double* img_sums, unsigned long long* img_counts, double* out_d,
     unsigned long long* out_i, double* flow_g, double* flow_t, int flow_shared_bytes,
-    int blocks, int threads, void* stream) {
+    float* rec, unsigned int* rec_count, int rec_cap, unsigned long long* next_id, int threads,
+    void* stream) {
   Tables T{rfront, opacity, albedo, scatter, prefix, p_int, consts, emis_cum, cell_weight, nr};
   Image img{img_sums, img_counts, nx, ny};
+  Records R{rec, rec_count, (unsigned int)rec_cap};
   const KernelFn fn = variant_fn(variant);
-  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1 ||
+  if (fn == nullptr || threads > 256 || threads % 32 != 0 || threads < 32 || rec_cap < 0 ||
       flow_shared_bytes < 0 || flow_shared_bytes > 48 * 1024)
     return (int)cudaErrorInvalidValue;
+  const int resident = resident_blocks(variant, fn, threads, flow_shared_bytes);
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  const unsigned long long wanted = ((unsigned long long)n_photons + threads - 1) / threads;
+  const int blocks = (int)(wanted < (unsigned long long)resident ? (wanted > 0 ? wanted : 1)
+                                                                 : resident);
   fn<<<blocks, threads, flow_shared_bytes, (cudaStream_t)stream>>>(
       T, scal, img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, flow_g, flow_t,
-      flow_shared_bytes);
+      flow_shared_bytes, R, next_id);
   return (int)cudaGetLastError();
 }
 
-// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_I, N_IMG_D, N_IMG_I}.
+// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, REC_W}.
 extern "C" int artes_pool_radial_layout(int* sizes) {
   sizes[0] = N_SCAL;
   sizes[1] = N_OUT_D;
-  sizes[2] = N_OUT_I;
+  sizes[2] = N_OUT_IR;
   sizes[3] = N_IMG_D;
   sizes[4] = N_IMG_I;
+  sizes[5] = REC_W;
   return 0;
 }
+
+#ifdef ARTES_POOL_CLOCKS
+// The instrumented build's phase clocks since the last reset: (N_PHASE + 1)
+// rows of {cycles, entries, active lanes at entry}; returns the rows written.
+extern "C" int artes_pool_radial_clocks(unsigned long long* host, int reset) {
+  cudaDeviceSynchronize();
+  if (cudaMemcpyFromSymbol(host, g_clocks, sizeof(g_clocks)) != cudaSuccess) return -1;
+  if (reset) {
+    static const unsigned long long zero[(N_PHASE + 1) * 3] = {0ull};
+    if (cudaMemcpyToSymbol(g_clocks, zero, sizeof(g_clocks)) != cudaSuccess) return -1;
+  }
+  return N_PHASE + 1;
+}
+#endif

@@ -9,14 +9,21 @@
 // (x >> 17) % npix and v0 = (x >> 8) * 2^-24. The splat kernel adds, per
 // lane and round, ncnt count features (v0 < 0.5 + 0.1 f) into an (npix,
 // ncnt) 64-bit count array and nvals value features v0 * (1 + 0.25 f) into
-// an (npix, nvals) double array with global atomics, as pool_radial.cu's
-// image instantiations add a peel (ncnt = 2, nvals = 8). The baseline kernel
-// runs the loop alone and stores each lane's last (x >> 8), so its time is
-// the loop overhead to subtract.
+// an (npix, nvals) double array, as pool_radial.cu's image instantiations add
+// a peel (ncnt = 2, nvals = 8). The baseline kernel runs the loop alone and
+// stores each lane's last (x >> 8), so its time is the loop overhead to
+// subtract.
+//
+// The splat adds every feature with a global atomic at the L2. The 8192
+// lanes run in 128 blocks of 64, so that every SM of the card but four works
+// (blocks of 256 filled 32 of 132); the baseline keeps its 32 blocks of 256.
+// A privatised copy of the detector in each block's shared memory, flushed
+// once, was slower at 625 and 2025 pixels on an H100: shared f64 and 64-bit
+// atomic adds compile to compare-and-swap loops (PERF.md, row 3).
 //
 // What bounds it: atomic throughput at the L2 and its serialisation on the
-// same address; 8192 lanes fill 32 blocks, a quarter of the SMs, as the
-// TPU probe fills one core. Plain PyTorch version: artes_tpu_torch/probe_splat.py.
+// same address (the TPU probe's 625 hot pixels). Plain PyTorch version:
+// artes_tpu_torch/probe_splat.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -24,11 +31,12 @@
 namespace {
 
 constexpr int LANES = 8192;
+constexpr int THREADS = 64;
 constexpr float TWO_M24 = 5.9604644775390625e-8f;   // 2^-24
 
 __device__ __forceinline__ uint32_t lcg(uint32_t x) { return x * 1664525u + 1013904223u; }
 
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(THREADS)
 probe_splat_kernel(int npix, int n_rounds, uint32_t seed, int nvals, int ncnt,
                    double* __restrict__ vals, unsigned long long* __restrict__ counts) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -61,8 +69,8 @@ extern "C" int artes_probe_splat_launch(int npix, int n_rounds, unsigned int see
                                         int ncnt, double* vals, unsigned long long* counts,
                                         void* stream) {
   if (npix < 1 || n_rounds < 0 || nvals < 0 || ncnt < 0) return (int)cudaErrorInvalidValue;
-  probe_splat_kernel<<<LANES / 256, 256, 0, (cudaStream_t)stream>>>(npix, n_rounds, seed, nvals,
-                                                                     ncnt, vals, counts);
+  probe_splat_kernel<<<LANES / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+      npix, n_rounds, seed, nvals, ncnt, vals, counts);
   return (int)cudaGetLastError();
 }
 

@@ -4,13 +4,13 @@ The Hopper counterpart of ``tools/probe_splat.py`` (two TPU kernels: the
 MXU one-hot splat and its loop-only baseline). 8192 fake lanes run an LCG
 for ``n_rounds`` rounds; each round every lane picks a pixel and adds
 ``ncnt`` count features and ``nvals`` value features into it. :func:`splat`
-and :func:`baseline` take the device of their output: on a CUDA device they
-launch the kernels, on the CPU they run the plain PyTorch versions
-(``index_add_`` per round). :func:`us_per_round` times the splat net of the
-loop, the cost model of ``pool_radial.cu``'s image splat (ten atomics a
-peel: 8 values, 2 counts).
-
-``LAUNCHES`` counts each kernel's launches where it is launched.
+and :func:`baseline` run on the card by default and take the device of their
+output: on a CUDA device they launch the kernels, on the CPU (asked for with
+``device="cpu"``) they run the plain PyTorch versions (``index_add_`` per
+round). :func:`us_per_round` times the splat net of the loop, the cost model
+of ``pool_radial.cu``'s image splat (ten global atomics a peel: 8 values, 2
+counts); :func:`library_yardsticks` times the library's calls for the same
+sums. ``LAUNCHES`` counts each kernel's launches where it is launched.
 
     python -m artes_tpu_torch.probe_splat [npix ...]     # on a card
 """
@@ -93,9 +93,9 @@ def baseline_plain(n_rounds=N_ROUNDS, seed=1, device="cpu"):
     return (x >> 8).to(torch.float64)
 
 
-def splat(npix, n_rounds=N_ROUNDS, seed=1, nvals=NVALS, ncnt=NCNT, device="cpu"):
-    """The splat on ``device``: the kernel on a CUDA device, the plain
-    version on the CPU."""
+def splat(npix, n_rounds=N_ROUNDS, seed=1, nvals=NVALS, ncnt=NCNT, device="cuda"):
+    """The splat on ``device`` (kernel on a CUDA device, the plain version on
+    the CPU)."""
     device = torch.device(device)
     if device.type != "cuda":
         return splat_plain(npix, n_rounds, seed, nvals, ncnt, device)
@@ -111,7 +111,7 @@ def splat(npix, n_rounds=N_ROUNDS, seed=1, nvals=NVALS, ncnt=NCNT, device="cpu")
     return vals, counts
 
 
-def baseline(n_rounds=N_ROUNDS, seed=1, device="cpu"):
+def baseline(n_rounds=N_ROUNDS, seed=1, device="cuda"):
     """The loop without the splat on ``device`` (kernel on a CUDA device)."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -138,6 +138,42 @@ def _event_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return sorted(times)[len(times) // 2]
+
+
+def library_yardsticks(npix, reps=5, device="cuda"):
+    """The library's calls for the splat's sums at ``npix``, the peels
+    materialised first (the kernel never stores them): ``(values_ms,
+    values_counts_ms)``, one ``index_add_`` of the peels' value features, and
+    that plus a second ``index_add_`` of their count features (int64), the
+    same function as the kernel. Both must equal the plain version's sums."""
+    device = torch.device(device)
+    x, pix, vals, cnts = _lanes(1, device), [], [], []
+    thresholds, scales = _features(NVALS, NCNT, device)
+    for _ in range(N_ROUNDS):
+        x = _step(x)
+        pix.append((x >> 17) % npix)
+        v0 = (x >> 8).to(torch.float32) * 2.0 ** -24
+        vals.append(v0[:, None] * scales)
+        cnts.append((v0[:, None] < thresholds).to(torch.int64))
+    pix, vals, cnts = torch.cat(pix), torch.cat(vals).to(torch.float64), torch.cat(cnts)
+    v_out = torch.zeros((npix, NVALS), dtype=torch.float64, device=device)
+    c_out = torch.zeros((npix, NCNT), dtype=torch.int64, device=device)
+
+    def values():
+        v_out.zero_().index_add_(0, pix, vals)
+
+    def both():
+        values()
+        c_out.zero_().index_add_(0, pix, cnts)
+
+    out = []
+    for fn in (values, both):
+        fn()                                                      # warm-up
+        out.append(_event_ms(fn, reps))
+    ref_v, ref_c = splat_plain(npix, device=device)
+    if not (torch.equal(c_out, ref_c) and torch.allclose(v_out, ref_v, rtol=VALUE_RTOL, atol=0)):
+        raise RuntimeError("index_add_ of the materialised peels is not the probe splat's sum")
+    return out[0], out[1]
 
 
 def us_per_round(sizes=(625, 2025, 10201), n_rounds=N_ROUNDS, reps=5, device="cuda"):

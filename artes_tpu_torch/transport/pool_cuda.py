@@ -12,11 +12,14 @@ kernels, chosen by the walks a configuration takes
   flow, marching walks for everything, the surface event and its peel, the
   flow booking, peel and prewalk errors.
 
-Stellar or thermal sources, any detector size, float32 tables.
-:func:`run_stream_cuda` takes the tables on a CUDA device and returns the
-tallies of :func:`~artes_tpu_torch.transport.kernel.run_stream`, its plain
-PyTorch version. It launches on PyTorch's current stream; the radial kernel
-does not synchronise, the others wait for their error records.
+Stellar or thermal sources, any detector size, float32 tables, with or
+without the Stokes-anomaly check of ``--debug-stokes`` and with scattering
+on or off (runtime flags). :func:`run_stream_cuda` takes the tables on a
+CUDA device and returns the tallies of
+:func:`~artes_tpu_torch.transport.kernel.run_stream`, its plain PyTorch
+version. It launches on PyTorch's current stream; a kernel that can abandon
+photons (any but the radial kernel without ``--debug-stokes``) is waited
+for, for its error records.
 
 Every kernel has an instantiation per source (stellar, thermal) and
 detector (single pixel, image), and the radial and marching ones per flow
@@ -49,16 +52,17 @@ VARIANTS_MARCH = tuple("march_" + v for v in VARIANTS + VARIANTS_FLOW)
 LAUNCHES = dict.fromkeys(VARIANTS + VARIANTS_FLOW + VARIANTS_3D + VARIANTS_MARCH, 0)
 
 THREADS = 256
-BLOCKS_PER_SM = 8
+BLOCKS_PER_SM = 8       # pool_grid3d and pool_march: blocks launched, per SM
 N_SCAL = 32
 N_OUT_D = 10
-N_OUT_I = 4
+N_OUT_I = 4             # scatter peels, photons capped, emitted, birth (and surface) peels
 N_IMG_D = 8
 N_IMG_I = 2
-N_OUT_I3 = 8            # pool_grid3d: N_OUT_I + photons abandoned, codes 031, 032, 034
-N_OUT_IM = 11           # pool_march: N_OUT_I3 + failed peel walks, cell_face passes, flow bookings
+N_OUT_IR = 5            # pool_radial: N_OUT_I + photons abandoned on a Stokes anomaly
+N_OUT_I3 = 9            # pool_grid3d: N_OUT_I + abandoned, codes 031, 032, 034, anomalies
+N_OUT_IM = 12           # pool_march: N_OUT_I3 + failed peel walks, cell_face passes, flow bookings
 FLOW_SHARED_MAX = 32 * 1024     # bytes of a block's shared flow sums, else global atomics
-F_CRESCENT, F_BIASED = 1, 2
+F_CRESCENT, F_BIASED, F_DEBUG_STOKES, F_NO_SCATTER = 1, 2, 4, 8
 # rows of the 3-D kernel's error-record buffer (64 bytes each); errors are
 # about 1e-4 of the photons, so one launch of up to 2^30 photons may drop
 # rows of the middle, never a count
@@ -72,66 +76,69 @@ REC_CAP = 1 << 16
 # "pixel_N" are sum_p |dI_p| / sum_p I_p and sum_p |dN_p| / sum_p N_p over
 # the pixels (the Stokes-I row), which see a shifted or transposed image;
 # "capped" is the photons stopped at max_scatter, "n_error" the photons
-# abandoned and "error_codes" the largest per-code difference, each as a
-# share of the photons emitted; "stokes" the sums of I, Q, U, V as |dS_k| <=
-# lim_k * I; "squares" each sum of squares relative to its own plain value;
+# abandoned but on a Stokes anomaly and "error_codes" the largest per-code
+# difference, each as a share of the photons emitted; "stokes" the sums of
+# I, Q, U, V as |dS_k| <= lim_k * I; "squares" each sum of squares relative
+# to its own plain value;
 # "flux_emitted" and "flux_exit" relative to the plain value (0 when both
 # are 0); "flow_global" sum |d flow| over all cells and columns relative to
 # the energy x distance the plain version booked in all (its "flow_path": the
 # signed projections nearly cancel in a cell, their unsigned total does not);
 # "flow_theta" sum |d flow| / sum flow, whose terms are energies (both 0 when
-# there is no flow). "error_codes" covers the peel-walk code of the marching
-# walks too. AGREE holds the closed-form
-# walks of radial grids, set from readings at 2^20 photons, seed 7; AGREE_3D
+# there is no flow); "stokes_anomaly" the photons abandoned on a Stokes
+# anomaly (--debug-stokes, error 050), as a share of the photons emitted.
+# "error_codes" covers the peel-walk code of the marching walks too. AGREE
+# holds the closed-form walks of radial grids, set from readings at 2^20
+# photons, seed 7; AGREE_3D
 # the jump walks of 3-D grids, whose cone and half-plane roots flip more
 # trajectories, set from readings at 2^18 photons, seed 7; AGREE_MARCH the
 # marching walks (Lambert surfaces on any grid, flow on 3-D grids), set from
 # readings at the photon counts chip_smoke.py gives those cells; there a
 # photon whose float32 geometry fails in one version only can book a chord
 # through the planet into one cell, so "flow_global" reads far above
-# "flow_theta". All on the chip_smoke.py cells (NVIDIA H100 80GB HBM3, 700
-# W); PERF.md section 2 has the readings.
+# "flow_theta". "stokes_anomaly" read 0 on all five --debug-stokes and
+# scattering-off cells at their gate photons, so each of its limits is 0.
+# All on the chip_smoke.py cells (NVIDIA H100 80GB HBM3, 700 W); PERF.md
+# section 2 has the readings.
 AGREE = {"count": 1.2e-4, "count_quv": 1.2e-4, "pixel_I": 8e-4, "pixel_N": 4.2e-4,
          "capped": 3e-6, "n_error": 0.0, "error_codes": 0.0,
          "stokes": (3e-4, 5e-6, 1e-4, 1e-4),
          "squares": (4.2e-4, 3.2e-4, 7e-4, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 6e-6,
-         "flow_global": 1.7e-4, "flow_theta": 4e-4}
+         "flow_global": 1.7e-4, "flow_theta": 4e-4, "stokes_anomaly": 0.0}
 AGREE_3D = {"count": 1.6e-3, "count_quv": 1.6e-3, "pixel_I": 1e-2, "pixel_N": 6.5e-3,
             "capped": 1.2e-5, "n_error": 2.3e-5, "error_codes": 2.3e-5,
             "stokes": (9e-4, 9.5e-4, 6.5e-4, 1e-4),
             "squares": (2.1e-3, 2.3e-3, 5.5e-3, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 7e-5,
-            "flow_global": 0.0, "flow_theta": 0.0}
+            "flow_global": 0.0, "flow_theta": 0.0, "stokes_anomaly": 0.0}
 AGREE_MARCH = {"count": 1.1e-2, "count_quv": 1.2e-2, "pixel_I": 3e-3, "pixel_N": 1.1e-2,
                "capped": 1.6e-3, "n_error": 9.2e-4, "error_codes": 1.7e-3,
                "stokes": (2.8e-3, 3.2e-3, 2.2e-3, 1e-4),
                "squares": (3.7e-3, 8.1e-3, 8.9e-3, 7e-4), "flux_emitted": 6.5e-8,
-               "flux_exit": 2.4e-4, "flow_global": 8.3e-2, "flow_theta": 5.5e-3}
+               "flux_exit": 2.4e-4, "flow_global": 8.3e-2, "flow_theta": 5.5e-3,
+               "stokes_anomaly": 0.0}
 
 _vp = ctypes.c_void_p
 _ARGTYPES = ([_vp] * 10 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
-             + [ctypes.c_int] * 5 + [_vp] * 6 + [ctypes.c_int] * 3 + [_vp])
+             + [ctypes.c_int] * 5 + [_vp] * 6 + [ctypes.c_int] + [_vp] * 2 + [ctypes.c_int]
+             + [_vp, ctypes.c_int, _vp])
 _ARGTYPES_3D = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 4
                 + [ctypes.c_int, ctypes.c_int, _vp])
 _ARGTYPES_MARCH = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 6
                    + [ctypes.c_int] * 3 + [_vp])
 
 
-def check_kernel(static: KernelStatic) -> None:
-    """Raise ``NotImplementedError`` for what only the plain version runs:
-    the Stokes-anomaly check and scattering switched off (in the JAX package
-    too the TPU kernel covers neither, ``pallas_stream.supports``)."""
-    if static.debug_stokes or not static.photon_scattering:
-        raise NotImplementedError("--debug-stokes and photon:scattering=off run the plain "
-                                  "version only: use --device cpu")
-
-
 def supports(tables: TransportTables, static: KernelStatic) -> bool:
-    """True when a kernel covers this configuration in float32."""
-    try:
-        check_kernel(static)
-    except NotImplementedError:
-        return False
+    """True when a kernel covers this configuration: every configuration in
+    float32 (float64 runs the plain version only)."""
     return tables.opacity.dtype == torch.float32
+
+
+def flags_of(static: KernelStatic) -> int:
+    """The runtime flags of a launch (``F_*`` of pool_common.cuh)."""
+    return ((F_CRESCENT if static.crescent else 0)
+            | (F_BIASED if static.photon_emission == 2 else 0)
+            | (F_DEBUG_STOKES if static.debug_stokes else 0)
+            | (0 if static.photon_scattering else F_NO_SCATTER))
 
 
 def variant_of(static: KernelStatic) -> int:
@@ -176,16 +183,23 @@ def gaps(kernel_out: dict, plain_out: dict) -> dict:
             "pixel_I": _rel(diff[:, 0, 0].abs().sum(), p[:, 0, 0].abs().sum()),
             "pixel_N": _rel(diff[:, 0, 2].abs().sum(), p[:, 0, 2].sum()),
             "capped": capped / n,
-            "n_error": abs(int(kernel_out["n_error"]) - int(plain_out["n_error"])) / n,
+            "n_error": abs(_geometry_errors(kernel_out) - _geometry_errors(plain_out)) / n,
             "error_codes": int(codes) / n,
-            "stokes": (tot_d[:, 0] / tot_p[0, 0].abs()).tolist(),
+            "stokes": [_rel(d, tot_p[0, 0]) for d in tot_d[:, 0]],
             "squares": [_rel(d, s) for d, s in zip(tot_d[:, 1], tot_p[:, 1])],
             "flux_emitted": _rel(float(kernel_out["flux_emitted"]) - float(plain_out["flux_emitted"]),
                                  plain_out["flux_emitted"]),
             "flux_exit": _rel(float(kernel_out["flux_exit"]) - float(plain_out["flux_exit"]),
                               plain_out["flux_exit"]),
             "flow_global": _flow_gap(kernel_out, plain_out, "flow_global"),
-            "flow_theta": _flow_gap(kernel_out, plain_out, "flow_theta")}
+            "flow_theta": _flow_gap(kernel_out, plain_out, "flow_theta"),
+            "stokes_anomaly": abs(int(kernel_out["n_stokes_anomaly"])
+                                  - int(plain_out["n_stokes_anomaly"])) / n}
+
+
+def _geometry_errors(out: dict) -> int:
+    """The photons a run abandoned but on a Stokes anomaly."""
+    return int(out["n_error"]) - int(out["n_stokes_anomaly"])
 
 
 def _flow_gap(kernel_out: dict, plain_out: dict, key: str) -> float:
@@ -214,10 +228,11 @@ def agrees(g: dict, limits: dict = AGREE) -> bool:
                for key in limits)
 
 
-def _library(name: str, argtypes, layout: tuple):
-    """The launch function of ``csrc/<name>.cu``, built at first use; its
-    table sizes must be the wrapper's."""
-    lib = _build.load(name)
+def _library(name: str, argtypes, layout: tuple, build: str | None = None):
+    """The launch function of ``csrc/<name>.cu`` (or of its variant build
+    ``build``, ``_build.VARIANT_BUILDS``), built at first use; its table sizes
+    must be the wrapper's."""
+    lib = _build.load(build or name)
     fn = getattr(lib, f"artes_{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -300,8 +315,7 @@ def _cell_tables(t: TransportTables, static: KernelStatic, scal, consts):
     dev = t.opacity.device
     theta_flags = (g.thetaplane_cone.to(torch.int32) | (g.theta_above.to(torch.int32) << 1)
                    ).contiguous()
-    rec = torch.zeros((REC_CAP, ERR_RECORD_W), dtype=torch.float32, device=dev)
-    rec_count = torch.zeros(1, dtype=torch.int32, device=dev)
+    rec, rec_count = _records(dev)
     phifront = G.phi_fronts(g).contiguous()
     # the jump tables: read by pool_grid3d only
     jump = [None] * 6 if j is None else [j.kbar, j.dk, j.dr, j.dtt, j.dpp, j.rf2]
@@ -316,8 +330,15 @@ def _cell_tables(t: TransportTables, static: KernelStatic, scal, consts):
     return tables, sizes, rec, rec_count, (theta_flags, phifront)
 
 
+def _records(dev):
+    """A kernel's error-record buffer and its row count, zeroed."""
+    return (torch.zeros((REC_CAP, ERR_RECORD_W), dtype=torch.float32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
 def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: int,
-                    seed: int, id_hi: int = 0, id_lo: int = 0, err_k: int = ERR_RECORD_K):
+                    seed: int, id_hi: int = 0, id_lo: int = 0, err_k: int = ERR_RECORD_K,
+                    clocks: bool = False):
     """Transport photons ``id_lo .. id_lo + n_photons - 1`` (high id word
     ``id_hi``) through the CUDA kernel of the configuration
     (:func:`kernel_of`); returns the tallies of
@@ -327,9 +348,12 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     the ``cell_face`` passes a marching kernel made, and ``n_flow_booked``,
     the walked segments (closed form) or passes (marching) that booked flow
     (``None`` where a kernel has no such count). The id range must not cross
-    a 2^32 boundary."""
-    check_kernel(static)
+    a 2^32 boundary. ``clocks`` launches the instrumented build of the radial
+    kernel, ``pool_radial_clocks`` (``python -m artes_tpu_torch.measure
+    clocks``), which ``LAUNCHES`` does not count."""
     source, name = kernel_of(tables, static)
+    if clocks and source != "pool_radial":
+        raise ValueError(f"pool_radial_clocks is a build of pool_radial, not of {source}")
     nr = _check_inputs(tables)
     if source == "pool_grid3d" and tables.jump is None:
         raise ValueError("jump walks need the jump tables (tables.build_tables makes them)")
@@ -345,8 +369,8 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     variant = variant_of(static)
     image = npix > 1
     ncell = t.opacity.shape[0]
-    # the radial kernel's flow instantiations count their bookings in a fifth counter
-    n_out_i = {"pool_radial": N_OUT_I + int(static.track_flow), "pool_grid3d": N_OUT_I3,
+    # the radial kernel's flow instantiations count their bookings in a sixth counter
+    n_out_i = {"pool_radial": N_OUT_IR + int(static.track_flow), "pool_grid3d": N_OUT_I3,
                "pool_march": N_OUT_IM}[source]
     out_d = torch.zeros(N_OUT_D, dtype=torch.float64, device=dev)
     out_i = torch.zeros(n_out_i, dtype=torch.int64, device=dev)
@@ -362,26 +386,32 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
                      shared if shared <= FLOW_SHARED_MAX else 0)
     records = torch.zeros((0, ERR_RECORD_W), dtype=torch.float64)
     n_records = 0
+    # only the radial kernel without the anomaly check abandons no photon
+    waits = source != "pool_radial" or static.debug_stokes
     if n > 0:
         scal = _scalars(t, static)
         consts = _constants(dev)
-        flags = (F_CRESCENT if static.crescent else 0) | \
-            (F_BIASED if static.photon_emission == 2 else 0)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         blocks = min(-(-n // THREADS), sms * BLOCKS_PER_SM)
         key_hi = R.key_hi(seed, id_hi)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            launch = (n, key_hi, int(id_lo), int(static.max_scatter), variant, flags)
+            launch = (n, key_hi, int(id_lo), int(static.max_scatter), variant, flags_of(static))
             if source == "pool_radial":
                 fn = _library("pool_radial", _ARGTYPES,
-                              (N_SCAL, N_OUT_D, N_OUT_I, N_IMG_D, N_IMG_I))
+                              (N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, ERR_RECORD_W),
+                              "pool_radial_clocks" if clocks else None)
+                rec, rec_count = _records(dev)
+                # the persistent grid's photon counter (pool_radial.cu::next_photon)
+                next_id = torch.zeros(1, dtype=torch.int64, device=dev)
                 rc = fn(g.rfront.data_ptr(), t.opacity.data_ptr(), t.albedo.data_ptr(),
                         t.scatter_rows.data_ptr(), t.alpha_prefix.data_ptr(),
                         t.p_int.data_ptr(), consts.data_ptr(), scal.data_ptr(),
                         t.emis_cum.data_ptr(), t.cell_weight.data_ptr(), nr, *launch,
                         static.nx, static.ny, img_d.data_ptr(), img_i.data_ptr(),
-                        out_d.data_ptr(), out_i.data_ptr(), *flow_args, blocks, THREADS, stream)
+                        out_d.data_ptr(), out_i.data_ptr(), *flow_args, rec.data_ptr(),
+                        rec_count.data_ptr(), REC_CAP, next_id.data_ptr(), THREADS, stream)
+                keep = (next_id,)
             else:
                 ptrs, sizes, rec, rec_count, keep = _cell_tables(t, static, scal, consts)
                 outs = (img_d.data_ptr(), img_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
@@ -401,11 +431,12 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
                             stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-        LAUNCHES[name] += 1
-        if source != "pool_radial":
+        if not clocks:
+            LAUNCHES[name] += 1
+        if waits:
             n_records = int(rec_count)                  # waits for the kernel
             records = _decode_records(rec[:min(n_records, REC_CAP)])
-            del keep
+        del keep
     if image:
         sums, counts = img_d.reshape(npix, 2, 4).transpose(1, 2), img_i
     else:
@@ -413,11 +444,13 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
         counts = torch.stack([out_i[0] + out_i[3], out_i[0]]).reshape(1, 2)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     if source == "pool_radial":
-        # the closed form has no failure modes: zeros there
-        n_error, codes = zero, torch.zeros(4, dtype=torch.int64, device=dev)
+        # the closed form has no failure modes: only Stokes anomalies abandon
+        n_error = anomalies = out_i[4]
+        codes = torch.zeros(4, dtype=torch.int64, device=dev)
     else:
-        peel = out_i[8] if source == "pool_march" else zero
-        n_error, codes = out_i[4], torch.cat([out_i[5:8], peel.reshape(1)])
+        peel = out_i[9] if source == "pool_march" else zero
+        n_error, anomalies = out_i[4], out_i[8]
+        codes = torch.cat([out_i[5:8], peel.reshape(1)])
     return {
         "detector": detector_from_tallies(sums, counts),
         "flux_emitted": out_d[8],
@@ -426,12 +459,12 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
         "flow_theta": flow_t,
         "n_error": n_error,
         "error_codes": codes,
-        "n_stokes_anomaly": zero,
+        "n_stokes_anomaly": anomalies,
         "n_alive_at_cap": out_i[1],
         "n_emitted": out_i[2],
         "error_records": select_error_records([records], err_k),
         "n_error_records": n_records,
-        "n_cell_face": out_i[9] if source == "pool_march" else None,
+        "n_cell_face": out_i[10] if source == "pool_march" else None,
         "n_flow_booked": None if not static.track_flow or source == "pool_grid3d"
-        else out_i[10 if source == "pool_march" else N_OUT_I],
+        else out_i[11 if source == "pool_march" else N_OUT_IR],
     }

@@ -38,11 +38,17 @@ Phases, one line each; any failure exits non-zero before the result lines:
    2^16 photons (the plain version marches every walk cell by cell), all
    within ``pool_cuda.AGREE_MARCH``; the closed-form flow hook on the nr=39
    grid, the scattering thermal shell and their 25x25 images at 2^20
-   photons within ``pool_cuda.AGREE``, the two flow arrays included;
-4. probe splat: the splat micro-benchmark kernel and its loop-only
-   baseline against their plain versions at 625, 2025 and 10201 pixels
-   (counts equal, values within ``probe_splat.VALUE_RTOL``), and the
-   splat's cost a round net of the loop;
+   photons within ``pool_cuda.AGREE``, the two flow arrays included; the
+   runtime flags: ``--debug-stokes`` on a Rayleigh layer whose matrix drives
+   Q above I (error 050) through each of the three kernels, and
+   ``photon:scattering=off`` on the flagship and the 2 x 3 x 4 grid, the
+   photons abandoned on an anomaly among the gaps;
+4. probe splat: the splat micro-benchmark kernel at 625, 2025 and 10201
+   pixels and its loop-only baseline against their plain versions
+   (counts equal, values within ``probe_splat.VALUE_RTOL``), the splat's
+   cost a round net of the loop, and the library's calls for the same sums:
+   one ``index_add_`` of the materialised peels' values, and with a second
+   ``index_add_`` of their counts;
 5. anchors, through the kernels: (a) the flagship at 2^27 photons with the
    ids and seed of the recorded TPU run (BENCH_r05.json ``detector_I_raw``
    = 6354867.5): I within 2e-3, no photon at the scattering cap; (b) the
@@ -82,7 +88,10 @@ Phases, one line each; any failure exits non-zero before the result lines:
    photons the quick-start input over a surface of albedo 0.5, the nr=39
    grid with both flow outputs and the 39 x 8 x 8 deck over a surface with
    both flow outputs, and at 2^22 photons one run for each other surface
-   or flow instantiation (three processes at a time), each checked for its
+   or flow instantiation, one with ``--debug-stokes`` on the layer that
+   drives Q above I and one with ``photon:scattering=off`` on the
+   self-luminous 3-D grid (its birth peels alone reach the detector; three
+   processes at a time), each checked for its
    launch, its ``spectrum.dat``
    or ``stokes.fits``, its ``flow_global.fits`` (unit vectors where not
    zero) and ``flow_latitudinal.fits``, and its ``error.log``; with
@@ -407,25 +416,18 @@ def phase_probe():
                      f"each); kernel {rows[npix]['ms']:.3f} ms, plain {plain_ms:.1f} ms for "
                      f"{P.N_ROUNDS} rounds; counts equal, max|dvalue| "
                      f"{rows[npix]['max_abs_err']:.3g}; bound {bound_ms:.4f} ms by {bound_by}")
-    # the library's call for the same sums: one index_add_ of all the peels'
-    # value features, materialised first (the kernel never stores them)
-    npix = PROBE_SIZES[0]
-    x, pix, vals = P._lanes(1, dev), [], []
-    _, scales = P._features(P.NVALS, P.NCNT, dev)
-    for _ in range(P.N_ROUNDS):
-        x = P._step(x)
-        pix.append((x >> 17) % npix)
-        vals.append(((x >> 8).to(torch.float32) * 2.0 ** -24)[:, None] * scales)
-    pix, vals = torch.cat(pix), torch.cat(vals).to(torch.float64)
-    target = torch.zeros((npix, P.NVALS), dtype=torch.float64, device=dev)
-    target.index_add_(0, pix, vals)                      # warm-up
-    library_ms, summed = timed(lambda: torch.zeros_like(target).index_add_(0, pix, vals), 5)
-    if not torch.allclose(summed, P.splat(npix, device=dev)[0], rtol=P.VALUE_RTOL, atol=0.0):
-        fail("index_add_ of the materialised peels is not the probe splat's sum")
-    del pix, vals
-    rows[npix]["library_ms"] = library_ms
-    say("probe", f"npix {npix}: one index_add_ of the {peels} materialised peels "
-                 f"{library_ms:.3f} ms")
+    # the library's calls for the same sums, the peels materialised first
+    # (the kernel never stores them): one index_add_ of their value features
+    # (library_ms), and with a second one of their counts, the same function
+    # as the kernel (library_counts_ms)
+    for npix in PROBE_SIZES:
+        values_ms, counts_ms = P.library_yardsticks(npix)
+        rows[npix].update(library_ms=values_ms, library_counts_ms=counts_ms)
+        say("probe", f"npix {npix}: one index_add_ of the {peels} "
+                     f"materialised peels' values {values_ms:.3f} ms, with a second of their "
+                     f"counts {counts_ms:.3f} ms")
+    say("probe", "launches in this phase: "
+                 + " ".join(f"{k}={v}" for k, v in P.LAUNCHES.items()))
     say("probe", f"baseline loop {base_us:.4f} us/round; kernel {base_ms:.3f} ms, plain "
                  f"{base_plain_ms:.1f} ms; sinks equal")
     # the loop alone: one multiply-add a lane a round, 8 bytes a lane out
@@ -593,10 +595,11 @@ def _cli(root, env, atm_name, run, *keys, photons=SMOKE_PHOTONS, extra=()):
 
 # the sites a record may name, by its code: a march (031, 032, 034) is a
 # scatter march or, with marching walks, a first walk; 031 also a prewalk; a
-# failed scatter peel is recorded as code 050
+# failed scatter peel (tallied under 05x) and a Stokes anomaly (050) are
+# recorded as code 050
 RECORD_SITES = {"031": ("scatter march", "first walk", "prewalk"),
                 "032": ("scatter march", "first walk"), "034": ("scatter march", "first walk"),
-                "050": ("detector peel",)}
+                "050": ("detector peel", "stokes anomaly")}
 
 
 def _read_error_log(path, marching=False):
@@ -616,9 +619,10 @@ def _read_error_log(path, marching=False):
                 tallies[tally.group(1)] = int(tally.group(2))
                 continue
             code = record.group(1) if record else None
-            if code is None or ("05x" if code == "050" else code) not in tallies \
-                    or record.group(3) not in RECORD_SITES[code] \
-                    or (not marching and record.group(3) != "scatter march"):
+            site = record.group(3) if record else None
+            if code is None or ("05x" if site == "detector peel" else code) not in tallies \
+                    or site not in RECORD_SITES[code] \
+                    or (not marching and site not in ("scatter march", "stokes anomaly")):
                 fail(f"{path}: line not understood: {line}")
             floats = [float(x) for x in (record.group(4) + "," + record.group(5)).split(",")]
             if len(floats) != 6 or not all(abs(x) <= 1.0 + 1e-5 for x in floats):
@@ -749,6 +753,7 @@ def phase_main_path():
         cells.write_artifact_input(root, "thermal_surf", cells.thermal_surface_shell(),
                                    ["photon:source=planet"])
         cells.write_artifact_input(root, "patchy", cells.patchy3d_small())
+        cells.write_artifact_input(root, "anomalous", cells.anomalous_rayleigh())
         surface, flow = "planet:surface_albedo=0.5", ["output:flow_global=on",
                                                       "output:flow_latitudinal=on"]
         small = MAIN_PATH_PHOTONS_SMALL
@@ -767,10 +772,15 @@ def phase_main_path():
                 ("patchy", "surface_flow_image_patchy", image + [surface] + flow,
                  "march_image_flow", small),
                 ("grid3d_thermal", "surface_flow_image_grid3d_thermal",
-                 image + [surface] + flow, "march_thermal_image_flow", small))
+                 image + [surface] + flow, "march_thermal_image_flow", small),
+                ("anomalous", "debug_stokes_anomalous", [], "stellar", small),
+                ("grid3d_thermal", "noscatter_grid3d_thermal", ["photon:scattering=off"],
+                 "grid3d_thermal", small))
+        extra = {"debug_stokes_anomalous": ["--debug-stokes"]}
 
         def drive(spec):
-            return _cli(root, env, spec[0], spec[1], *spec[2], photons=spec[4])
+            return _cli(root, env, spec[0], spec[1], *spec[2], photons=spec[4],
+                        extra=extra.get(spec[1], []))
 
         # the three 2^24 runs one after the other, so that their wall times
         # stand alone; the nine small ones, which are mostly process start,
@@ -790,7 +800,9 @@ def phase_main_path():
                 rows = np.loadtxt(os.path.join(out, "spectrum.dat"), ndmin=2)
                 total_i = float(rows[0, 1])
                 ok = rows.shape == (1, 5) and bool(np.isfinite(rows).all())
-            if not (ok and total_i > 0.0):
+            # on the anomalous layer every photon is abandoned at its first
+            # scattering, before its peel: nothing reaches the detector
+            if not (ok and (total_i > 0.0 or run in extra)):
                 fail(f"cli {run}: output is not physical (I {total_i})")
             flow_note = ""
             if flow[0] in keys:
@@ -808,6 +820,8 @@ def phase_main_path():
                 fail(f"cli {run} wrote flow files without being asked to")
             n_err, n_rec = _read_error_log(os.path.join(root, "output", run, "error.log"),
                                            marching=variant.startswith("march_"))
+            if run in extra and not n_rec:
+                fail(f"cli {run}: --debug-stokes abandoned no photon on the anomalous layer")
             say("main-path", f"cli {run} {photons} photons: I {total_i:.6e}{flow_note}; "
                              f"{n_err} error events, {n_rec} records in error.log; launches "
                              f"{ {k: v for k, v in by.items() if v} }; {wall:.1f} s wall")
@@ -1083,7 +1097,8 @@ def main():
                     "max_abs_err": max(r["max_abs_err"] for r in probe_rows.values()),
                     "ms": probe["ms"], "plain_ms": probe["plain_ms"],
                     "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
-                    "library_ms": probe["library_ms"]})
+                    "library_ms": probe["library_ms"],
+                    "library_counts_ms": probe["library_counts_ms"]})
     kernels.append({"name": "probe_splat_baseline", "route": "cuda",
                     "source": "artes_tpu_torch/csrc/probe_splat.cu",
                     "replaces": "tools/probe_splat.py:134",

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from artes_tpu_torch import _build, probe_splat
+from artes_tpu_torch import _build, cells, config, probe_splat
 from artes_tpu_torch.parallel import mesh
 from artes_tpu_torch.cells import CELLS, KERNEL_CELLS, gate_photons, spectrum_tables
 from artes_tpu_torch.transport import kernel, pool_cuda
@@ -77,6 +77,7 @@ def held_against_plain(tables, static, n):
     assert k["detector"].isfinite().all()
     assert k["detector"].shape == p["detector"].shape == (static.nx * static.ny, 4, 3)
     g = pool_cuda.gaps(k, p)
+    print(f"gaps [{variant}]: {g}")
     assert pool_cuda.agrees(g, pool_cuda.limits_of(tables, static)), g
     return k, p
 
@@ -96,11 +97,15 @@ def test_cuda_instantiations_match_plain(cuda, name):
     assert len(rec) == min(k["n_error_records"], 2 * kernel.ERR_RECORD_K)
     assert torch.equal(rec[:, 1], torch.sort(rec[:, 1]).values)          # photon-id order
     n_err = int(k["n_error"])
+    # a Stokes anomaly (--debug-stokes) is code 50 at site 4
+    anomaly = (rec[:, 0] == 50.0) & (rec[:, 15] == 4.0)
+    assert static.debug_stokes or (not anomaly.any() and int(k["n_stokes_anomaly"]) == 0)
     if mode == "jumps":
         # one record per abandoned photon, each also an event of the plain
         # version unless its trajectory flipped
         assert k["n_error_records"] == n_err
-        assert set(rec[:, 0].tolist()) <= {31.0, 32.0, 34.0} and (rec[:, 15] == 0).all()
+        assert set(rec[:, 0].tolist()) <= {31.0, 32.0, 34.0, 50.0}
+        assert ((rec[:, 15] == 0) | anomaly).all()
         shared = set(rec[:, 1].tolist()) & set(p["error_records"][:, 1].tolist())
         assert len(shared) >= len(rec) // 2
     elif mode == "march":
@@ -109,10 +114,12 @@ def test_cuda_instantiations_match_plain(cuda, name):
         peel = int(k["error_codes"][3])
         assert n_err - peel <= k["n_error_records"] <= n_err + peel
         assert set(rec[:, 0].tolist()) <= {31.0, 32.0, 34.0, 50.0}
-        assert ((rec[:, 0] == 50.0) == (rec[:, 15] == 3.0)).all()
+        assert ((rec[:, 0] == 50.0) == ((rec[:, 15] == 3.0) | anomaly)).all()
         assert int(k["n_cell_face"]) > int(k["n_emitted"])
     else:
-        assert n_err == k["n_error_records"] == 0
+        # the closed form abandons photons on Stokes anomalies alone
+        assert n_err == k["n_error_records"] == int(k["n_stokes_anomaly"])
+        assert anomaly.all()
     assert (k["flow_global"] is not None) == static.track_flow
     if static.track_flow:
         # every transport march books at least the segment or pass it ends in
@@ -169,6 +176,15 @@ MUTANTS = {
         "          ? (path.surface ? M_FLOOR : M_EXIT)\n"
         "          : march_cells<IMAGE, FLOW>(",
         ("lambert_tau05", "grid3d_2496_flow")),
+    # the runtime flags of --debug-stokes and photon:scattering=off
+    "Stokes-anomaly check dropped, closed form": (
+        "pool_radial.cu", "const bool anomalous = debug_stokes && stokes_anomaly(st);",
+        "const bool anomalous = false;",
+        ("anomaly_radial",)),
+    "scattering-off flag ignored, jump walks": (
+        "pool_grid3d.cu", "const bool no_scatter = (flags & F_NO_SCATTER) != 0;",
+        "const bool no_scatter = false;",
+        ("noscatter_patchy3d",)),
 }
 
 
@@ -222,22 +238,46 @@ def test_cuda_grid_of_5184_blended_cells(cuda):
     assert k["detector"].isfinite().all()
 
 
-@pytest.mark.gpu
-def test_cuda_refuses_what_only_the_plain_version_runs(cuda):
-    import dataclasses
-    tables, static = KERNEL_CELLS["patchy3d_small"](cuda)
-    for keys in (dict(debug_stokes=True), dict(photon_scattering=False)):
-        with pytest.raises(NotImplementedError, match="--device cpu"):
-            pool_cuda.run_stream_cuda(tables, dataclasses.replace(static, **keys), 64, SEED)
+# the gate cells of --debug-stokes and photon:scattering=off, by kernel
+FLAG_CELLS = {"anomaly_radial": "pool_radial", "anomaly_grid3d": "pool_grid3d",
+              "anomaly_surface": "pool_march", "noscatter_flagship": "pool_radial",
+              "noscatter_patchy3d": "pool_grid3d"}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("npix", [625, 10201])
+@pytest.mark.parametrize("name", sorted(FLAG_CELLS))
+def test_cuda_runs_debug_stokes_and_scattering_off(cuda, name):
+    """The Stokes-anomaly check and scattering off run in the kernels: each
+    cell through its kernel within its limits (``stokes_anomaly`` among the
+    gaps), anomalies recorded as code 50 at site 4, no peel without
+    scattering; float64 still refuses the card."""
+    tables, static = KERNEL_CELLS[name](cuda)
+    assert pool_cuda.kernel_of(tables, static)[0] == FLAG_CELLS[name]
+    k, p = held_against_plain(tables, static, gate_photons(tables, static))
+    if static.debug_stokes:
+        assert int(k["n_stokes_anomaly"]) > int(k["n_emitted"]) // 100
+        assert int(p["n_stokes_anomaly"]) > 0
+        rec = k["error_records"]
+        assert ((rec[:, 0] == 50.0) & (rec[:, 15] == 4.0)).any()
+    else:
+        assert float(k["detector"][:, 1:, 2].sum()) == 0.0 == float(p["detector"][:, 1:, 2].sum())
+        assert int(k["n_alive_at_cap"]) == 0
+    from artes_tpu_torch import runner
+    with pytest.raises(NotImplementedError, match="--device cpu"):
+        runner.run_wavelength(cells.flagship(), config.ArtesConfig(), config.detector_setup(
+            config.ArtesConfig(), 1.0), 0, 16, dtype=torch.float64, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("npix", [625, 2025, 10201])
 def test_probe_splat_kernels_match_plain(cuda, npix):
+    """The splat kernel (128 blocks of 64, global atomics): counts bit-equal
+    and values within ``VALUE_RTOL`` of the plain version, at the full 2000
+    rounds."""
     before = dict(probe_splat.LAUNCHES)
-    vals, counts = probe_splat.splat(npix, 50, device=cuda)
+    vals, counts = probe_splat.splat(npix, device=cuda)
     sink = probe_splat.baseline(50, device=cuda)
-    ref_vals, ref_counts = probe_splat.splat_plain(npix, 50, device=cuda)
+    ref_vals, ref_counts = probe_splat.splat_plain(npix, device=cuda)
     assert torch.equal(counts, ref_counts)
     torch.testing.assert_close(vals, ref_vals, rtol=probe_splat.VALUE_RTOL, atol=0.0)
     assert torch.equal(sink, probe_splat.baseline_plain(50, device=cuda))

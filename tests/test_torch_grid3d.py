@@ -158,13 +158,21 @@ def test_error_032_records_found_in_port():
     assert few["n_error_records"] == got["n_error_records"]
 
 
-@pytest.mark.parametrize("theta_deg", [(0.0, 180.0), (0.0, 90.0, 180.0)])
+@pytest.mark.parametrize("theta_deg", [(0.0, 180.0), (0.0, 90.0, 180.0), "over a surface"])
 def test_stokes_anomaly_matches_jax(theta_deg):
-    """Error 050 on a radial and on a 3-D grid: an unphysical matrix (m21 = 3
+    """Error 050 on a radial grid, on a 3-D grid and on a radial grid over a
+    surface of albedo 0.5 (the marching walks): an unphysical matrix (m21 = 3
     P11) drives Q above I (tests/test_forensics.py:44)."""
-    atm = presets.rayleigh_single_layer(tau=3.0, theta_deg=theta_deg)
+    surface = theta_deg == "over a surface"
+    atm = presets.rayleigh_single_layer(tau=3.0, theta_deg=(0.0, 180.0) if surface else theta_deg)
     atm.scatter[..., 4] = 3.0 * atm.scatter[..., 0]
-    jt, static, tt, st = degenerate(dict(debug_stokes=True), atm)
+    if surface:
+        jt, static, tt, st = setup(atm, "float64", surface_albedo=0.5)
+        static = dataclasses.replace(static, debug_stokes=True)
+        st = convert.static_from_jax(static)
+        assert TK.walk_mode(tt, st) == "march"
+    else:
+        jt, static, tt, st = degenerate(dict(debug_stokes=True), atm)
     ref, got = assert_matches_jax_3d(jt, static, tt, st, 200, seed=3)
     assert int(got["n_stokes_anomaly"]) > 0
     assert int(got["n_error"]) >= int(got["n_stokes_anomaly"])

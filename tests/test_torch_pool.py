@@ -180,10 +180,13 @@ def test_supports():
         assert out["n_emitted"] == 16 and bool(out["detector"].isfinite().all())
         with pytest.raises(ValueError, match="CUDA device"):     # and the kernel needs a card
             pool_cuda.run_stream_cuda(tt, st, 16, SEED)
-    _, _, tt, st = setup(presets.rayleigh_single_layer(tau=1.0), "float32", debug_stokes=True)
-    assert not pool_cuda.supports(tt, st)
-    with pytest.raises(NotImplementedError, match="--device cpu"):
-        pool_cuda.run_stream_cuda(tt, st, 16, SEED)
+    # the Stokes-anomaly check and scattering off are runtime flags of every kernel
+    for keys in (dict(debug_stokes=True), dict(photon_scattering=False)):
+        _, _, tt, st = setup(presets.rayleigh_single_layer(tau=1.0), "float32", **keys)
+        assert pool_cuda.supports(tt, st), keys
+        assert pool_cuda.flags_of(st) in (pool_cuda.F_DEBUG_STOKES, pool_cuda.F_NO_SCATTER)
+        with pytest.raises(ValueError, match="CUDA device"):
+            pool_cuda.run_stream_cuda(tt, st, 16, SEED)
 
 
 def test_agreement_check_holds_every_tally():
