@@ -548,41 +548,87 @@ static_assert(N_SCAL == S_BIAS + 1, "scalar layout");
 // the flow diagnostics (ARTES.f90:4992-5047): g is (ncell, 3), energy x
 // distance projected on the local (r, theta, phi) unit vectors; t is (ncell,
 // 4), the energy of full crossings up / down / south / north. Both double,
-// added into with atomics: the pointers lead into the block's shared memory
-// where the cells fit there (flow_begin, flushed once by flow_end), else
-// into the global result
+// in global memory, added into with red.global.add.f64, a reduction that
+// returns nothing: the thread goes on at once. (An atomicAdd through a
+// pointer that may be shared or global compiles to a generic atomic whose
+// result the thread waits for, a round trip to the L2 on every booking.)
+// Where the caller gives `buf`, a zeroed buffer of gridDim.x x 7 ncell
+// doubles, a block adds into its own copy of both, which flow_end adds into
+// the result once; else every add goes straight into the result, where the
+// blocks meet on the same addresses
 struct Flow {
   double* g;
   double* t;
 };
 
-__device__ __forceinline__ Flow flow_begin(double* flow_g, double* flow_t, double* shared,
-                                           int ncell, bool use_shared) {
-  if (!use_shared) return Flow{flow_g, flow_t};
-  for (int i = threadIdx.x; i < 7 * ncell; i += blockDim.x) shared[i] = 0.0;
-  __syncthreads();
-  return Flow{shared, shared + 3 * ncell};
+__device__ __forceinline__ void red_add(double* p, double v) {
+  asm volatile("red.global.add.f64 [%0], %1;" ::"l"(p), "d"(v) : "memory");
 }
 
-__device__ __forceinline__ void flow_end(double* flow_g, double* flow_t, const double* shared,
-                                         int ncell, bool use_shared) {
-  if (!use_shared) return;
+__device__ __forceinline__ Flow flow_begin(double* flow_g, double* flow_t, double* buf,
+                                           int ncell) {
+  if (buf == nullptr) return Flow{flow_g, flow_t};
+  double* own = buf + (size_t)blockIdx.x * 7 * ncell;
+  return Flow{own, own + 3 * ncell};
+}
+
+__device__ __forceinline__ void flow_end(double* flow_g, double* flow_t, const Flow& fl,
+                                         int ncell) {
+  if (fl.g == flow_g) return;
   __syncthreads();
   for (int i = threadIdx.x; i < 7 * ncell; i += blockDim.x) {
-    const double v = shared[i];
-    if (v != 0.0) atomicAdd(i < 3 * ncell ? flow_g + i : flow_t + (i - 3 * ncell), v);
+    const double v = __ldcg(fl.g + i);
+    if (v != 0.0) red_add(i < 3 * ncell ? flow_g + i : flow_t + (i - 3 * ncell), v);
   }
 }
 
-__device__ __forceinline__ void flow_add_g(const Flow& fl, int cell, float wr, float wt,
-                                           float wp) {
-  atomicAdd(fl.g + 3 * cell, (double)wr);
-  atomicAdd(fl.g + 3 * cell + 1, (double)wt);
-  atomicAdd(fl.g + 3 * cell + 2, (double)wp);
+// book one step of a photon into cell `cell`: the three projections and, for
+// a full crossing (column 0-3, else -1), its energy in that column
+__device__ __forceinline__ void flow_add(const Flow& fl, int cell, float wr, float wt, float wp,
+                                         int column, float energy) {
+  red_add(fl.g + 3 * cell, (double)wr);
+  red_add(fl.g + 3 * cell + 1, (double)wt);
+  red_add(fl.g + 3 * cell + 2, (double)wp);
+  if (column >= 0) red_add(fl.t + 4 * cell + column, (double)energy);
 }
 
-__device__ __forceinline__ void flow_add_t(const Flow& fl, int cell, int column, float energy) {
-  atomicAdd(fl.t + 4 * cell + column, (double)energy);
+// --------------------------------------------------------- persistence ----
+
+// the next photon of the launch for each active lane: one atomicAdd on the
+// launch's counter for the lanes that ask together, each lane its own slot
+__device__ __forceinline__ unsigned long long next_photon(unsigned long long* next_id) {
+  const unsigned int mask = __activemask();
+  const int leader = __ffs(mask) - 1;
+  const int lane = threadIdx.x & 31;
+  unsigned long long base = 0ull;
+  if (lane == leader) base = atomicAdd(next_id, (unsigned long long)__popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return base + (unsigned long long)__popc(mask & ((1u << lane) - 1u));
+}
+
+// the blocks of `threads` the card holds at once for kernel `fn`
+// (instantiation `variant` of at most 8): queried once for each (the first
+// launch's device), 0 when the query fails
+template <typename Fn>
+int resident_blocks(int variant, Fn fn, int threads) {
+  static int cached_threads[8] = {0}, cached_blocks[8] = {0};
+  if (cached_blocks[variant] > 0 && cached_threads[variant] == threads)
+    return cached_blocks[variant];
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, 0) != cudaSuccess)
+    return 0;
+  cached_threads[variant] = threads;
+  cached_blocks[variant] = per_sm * sms;
+  return cached_blocks[variant];
+}
+
+// the persistent grid of a launch of n photons: the resident blocks, fewer
+// for a small launch
+inline int persistent_blocks(int resident, unsigned int n, int threads) {
+  const unsigned long long wanted = ((unsigned long long)n + threads - 1) / threads;
+  return (int)(wanted < (unsigned long long)resident ? (wanted > 0 ? wanted : 1) : resident);
 }
 
 // ---------------------------------------------------------- reduction ----

@@ -16,13 +16,22 @@
 // (pool_common.cuh) and, with pool_march.cu, the cell_face step, the cell
 // lookups and the error records (pool_geom3d.cuh).
 //
-// Design. One thread runs whole photons, grid-stride over the photon ids, on
-// the per-photon draw-site schedule of the JAX pool:
+// Design. A persistent grid, as pool_radial.cu's: the blocks the card holds
+// at once, each lane taking photon ids from the launch's counter
+// (pool_common.cuh::next_photon) and running one step of its photon a loop
+// iteration: a new photon's emission, prewalk and first march, or one
+// scattering round and its march. A lane whose photon dies takes the next id
+// in the next iteration, so no lane waits for the longest photon of a static
+// share. Photon streams are keyed by (seed, photon id, draw site), on the
+// per-photon draw-site schedule of the JAX pool:
 //   emission: sites 0, 1 (stellar) or 0-5 (thermal);
 //   prewalk fused with the forced first interaction: one site;
 //   every scattering round: 5 sites (roulette, azimuth x2, zenith, tau);
 //   every pass of a march's crossing loop: 3 sites, reserved for the
 //     in-march Lambert draws whether or not a surface consumes them.
+// Each photon's arithmetic is the same whichever lane runs it, so counts do
+// not depend on the launch; only the order of the per-thread double sums
+// moves.
 // Peels, the prewalk and the exit precheck are jump walks: the closed-form
 // radial chords carry the baseline opacity kbar[shell], and every face the
 // ray crosses (nr-1 radial, NT-1 theta, NP phi faces, at run-time sizes)
@@ -46,7 +55,7 @@
 // memory bandwidth. Marches differ by tens of crossings between the photons
 // of a warp; a jump walk costs (2 nr + 2 NT + NP) crossings times NP plane
 // evaluations; the per-cell scatter tables (36 MB at 2,496 cells) are
-// gathered at random from L2. This version is the simple one.
+// gathered at random from L2.
 
 #include "pool_geom3d.cuh"
 
@@ -249,13 +258,15 @@ __device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float
 
 // -------------------------------------------------------------- kernel ----
 
-// two blocks of 256 threads an SM hold ptxas to 128 registers a thread; left
-// free, it gives the stellar instantiation 80 and spills 636 bytes
+// four blocks of 256 threads an SM hold ptxas to 64 registers a thread: of
+// one, two, three and four blocks, timed on an H100 (PERF.md), the
+// fastest on grid3d_2496, grid3d_thermal and blended_5184, though it spills
 template <bool THERMAL, bool IMAGE>
-__global__ void __launch_bounds__(256, 2)
+__global__ void __launch_bounds__(256, 4)
 pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
                    uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
-                   int flags, double* __restrict__ out_d, unsigned long long* __restrict__ out_i) {
+                   int flags, double* __restrict__ out_d, unsigned long long* __restrict__ out_i,
+                   unsigned long long* next_id) {
   const Scal S = load_scal(scal);
   const bool crescent = (flags & F_CRESCENT) != 0;
   const bool biased = (flags & F_BIASED) != 0;
@@ -268,92 +279,81 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
   // abandoned, codes 031 / 032 / 034, Stokes anomalies
   unsigned long long cnt[N_OUT_I3] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
 
-  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
-  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_photons; i += stride) {
-    const uint32_t pid = id_lo + (uint32_t)i;
-    cnt[2] += 1;
-    float d[6];
-    float pos[3], dir[3];
-    int cell[3], face[2];
-    float st[4] = {1.0f, 0.0f, 0.0f, 0.0f};
-    uint32_t ctr;
+  // the lane's photon: alive between an interaction and the scattering round
+  // that follows it; tau is the optical depth its next march runs to, and
+  // tau_path (path_surface) the exact total of its path, the exit precheck
+  bool alive = false, path_surface = false;
+  uint32_t pid = 0u, ctr = 0u;
+  int n_scat = 0;
+  float pos[3], dir[3], st[4], d[6];
+  int cell[3], face[2];
+  float tau = 0.0f, tau_path = 0.0f;
 
-    if constexpr (THERMAL) {
-      draws6(key_hi, pid, d);
-      st[0] = emit_thermal(T, G, S, d, biased, pos, dir, cell);
-      face[0] = face[1] = 0;
-      acc[8] += (double)st[0];
-      ctr = 6;
-      // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598)
-      bool surf;
-      const float tau_b = tau_walk_jumps(T, G, S, pos, S.det, cell, surf);
-      const int pix = pixel_of<IMAGE>(S, img, pos);
-      if (!surf && tau_b < 50.0f && pix >= 0) {
-        const float v = expf(-fminf(tau_b, 500.0f)) / FOUR_PI_F * st[0];
-        book<IMAGE, 1>(img, pix, &v, acc);
-        cnt[3] += 1;
-      }
-    } else {
-      draws(key_hi, pid, 0u, 2, d);
-      emit_stellar(S, d, crescent, pos, dir);
-      // the entry cell lies in the outermost shell, behind the outer face
-      const float x = pos[0] * S.ob[0], y = pos[1] * S.ob[1], z = pos[2] * S.ob[2];
-      cell[0] = T.nr - 1;
-      locate_tp(G, x, y, z, sqrtf(x * x + y * y + z * z), cell[1], cell[2]);
-      face[0] = 1;
-      face[1] = T.nr;
-      ctr = 2;
-    }
-
-    // prewalk along the photon's direction + forced first interaction; the
-    // prewalk's total is the exit precheck of the first march
-    bool path_surface;
-    float tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface);
-    draws(key_hi, pid, ctr, 1, d);
-    ctr += 1;
-    const bool thin = tau_path < 1.0e-6f;
-    if (thin && !path_surface) continue;       // vacuum, no surface
-    const bool forced = !thin && tau_path < 50.0f;
-    const float one_m_exp = 1.0f - expf(-tau_path);
-    float tau = forced ? -logf(1.0f - d[0] * one_m_exp) : -logf(1.0f - d[0]);
-    if (forced) st[0] *= one_m_exp;
-
-    // scattering rounds (ARTES.f90:786-951); round 0 is the first march
-    for (int n_scat = 0;; ++n_scat) {
-      int out;
-      if (tau >= tau_path) {
-        out = path_surface ? M_FLOOR : M_EXIT;    // cannot reach tau: no march
-      } else {
-        bool e031, e032, e034;
-        out = march_cells(T, G, S, pos, dir, cell, face, tau, ctr, e031, e032, e034);
-        if (out == M_ERROR) {
-          cnt[C_ERR] += 1;
-          cnt[C_E031] += e031;
-          cnt[C_E032] += e032;
-          cnt[C_E034] += e034;
-          record_error(G.rec, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat,
-                       0.0f);
+  // one loop iteration: a new photon's emission, prewalk and first march for
+  // a lane without one, a scattering round and its march for a lane with one
+  while (true) {
+    if (!alive) {
+      const unsigned long long i = next_photon(next_id);
+      if (i >= n_photons) break;
+      pid = id_lo + (uint32_t)i;
+      cnt[2] += 1;
+      st[0] = 1.0f;
+      st[1] = st[2] = st[3] = 0.0f;
+      if constexpr (THERMAL) {
+        draws6(key_hi, pid, d);
+        st[0] = emit_thermal(T, G, S, d, biased, pos, dir, cell);
+        face[0] = face[1] = 0;
+        acc[8] += (double)st[0];
+        ctr = 6;
+        // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598)
+        bool surf;
+        const float tau_b = tau_walk_jumps(T, G, S, pos, S.det, cell, surf);
+        const int pix = pixel_of<IMAGE>(S, img, pos);
+        if (!surf && tau_b < 50.0f && pix >= 0) {
+          const float v = expf(-fminf(tau_b, 500.0f)) / FOUR_PI_F * st[0];
+          book<IMAGE, 1>(img, pix, &v, acc);
+          cnt[3] += 1;
         }
+      } else {
+        draws(key_hi, pid, 0u, 2, d);
+        emit_stellar(S, d, crescent, pos, dir);
+        // the entry cell lies in the outermost shell, behind the outer face
+        const float x = pos[0] * S.ob[0], y = pos[1] * S.ob[1], z = pos[2] * S.ob[2];
+        cell[0] = T.nr - 1;
+        locate_tp(G, x, y, z, sqrtf(x * x + y * y + z * z), cell[1], cell[2]);
+        face[0] = 1;
+        face[1] = T.nr;
+        ctr = 2;
       }
-      if (out != M_INTER) {
-        if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
-        break;
-      }
-      if (no_scatter) break;                         // only the first march
+
+      // prewalk along the photon's direction + forced first interaction; the
+      // prewalk's total is the exit precheck of the first march
+      tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface);
+      draws(key_hi, pid, ctr, 1, d);
+      ctr += 1;
+      const bool thin = tau_path < 1.0e-6f;
+      if (thin && !path_surface) continue;       // vacuum, no surface
+      const bool forced = !thin && tau_path < 50.0f;
+      const float one_m_exp = 1.0f - expf(-tau_path);
+      tau = forced ? -logf(1.0f - d[0] * one_m_exp) : -logf(1.0f - d[0]);
+      if (forced) st[0] *= one_m_exp;
+      n_scat = 0;
+    } else {
+      // the scattering round after march n_scat (ARTES.f90:786-951)
+      alive = false;
       if (n_scat > 0 && n_scat >= max_scatter) {
         cnt[1] += 1;
-        break;
+        continue;
       }
-
       heal_cell(T, G, S, pos, cell);
       const int cf = (cell[0] * G.nt + cell[1]) * G.np + cell[2];
       draws(key_hi, pid, ctr, 5, d);
       ctr += 5;
-      if (d[0] < S.fstop) break;                     // roulette
+      if (d[0] < S.fstop) continue;                  // roulette
       const float alb = __ldg(T.albedo + cf);
       const float gamma = (alb < 1.0f && alb > 0.0f) ? alb / (1.0f - S.fstop) : 1.0f;
       for (int k = 0; k < 4; ++k) st[k] *= gamma;
-      if (st[0] <= S.pmin) break;
+      if (st[0] <= S.pmin) continue;
 
       float contrib[4];
       peel_prep(T, S, dir, cf, st, contrib);
@@ -372,7 +372,7 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
         cnt[C_ERR] += 1;
         cnt[C_ANOM] += 1;
         record_error(G.rec, 50.0f, pid, pos, dir, cell, face, st[0], n_scat, 4.0f);
-        break;
+        continue;
       }
 
       bool peel_surface;
@@ -387,14 +387,35 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
 
       tau = -logf(1.0f - d[4]);
       tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface);
+      n_scat += 1;
     }
+
+    // march n_scat (the first march is march 0)
+    int out;
+    if (tau >= tau_path) {
+      out = path_surface ? M_FLOOR : M_EXIT;    // cannot reach tau: no march
+    } else {
+      bool e031, e032, e034;
+      out = march_cells(T, G, S, pos, dir, cell, face, tau, ctr, e031, e032, e034);
+      if (out == M_ERROR) {
+        cnt[C_ERR] += 1;
+        cnt[C_E031] += e031;
+        cnt[C_E032] += e032;
+        cnt[C_E034] += e034;
+        record_error(G.rec, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat,
+                     0.0f);
+      }
+    }
+    if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
+    // scattering off: only the first march
+    alive = out == M_INTER && !no_scatter;
   }
 
   reduce_block<N_OUT_D, N_OUT_I3>(acc, cnt, out_d, out_i);
 }
 
 using KernelFn = void (*)(Tables, Grid3, const float*, Image, uint32_t, uint32_t, uint32_t, int,
-                          int, double*, unsigned long long*);
+                          int, double*, unsigned long long*, unsigned long long*);
 KernelFn variant_fn(int variant) {
   switch (variant) {
     case 0: return pool_grid3d_kernel<false, false>;
@@ -411,16 +432,19 @@ KernelFn variant_fn(int variant) {
 // thermal, bit 1 image) on `stream` and returns cudaGetLastError().
 // Per-cell tables are flat over (r, theta, phi). `tables` holds the 24 device
 // pointers in the order of the Tables then the Grid3 fields up to rec_count
-// (consts and scal after p_int, as the radial entry point has them, rec and rec_count last); `sizes`
-// holds {nr, nt, np, cell_depth, max_crossings, rec_cap, nx, ny}; `eps` holds
-// {same_eps, sel2, boundary_tol}. out_d: 10 doubles as the radial kernel's;
-// out_i: its first 4 counters, then photons abandoned, codes 031 / 032 / 034
-// and Stokes anomalies. `flags` as pool_radial's.
+// (consts and scal after p_int, as the radial entry point has them, rec and
+// rec_count last); `sizes` holds {nr, nt, np, cell_depth, max_crossings,
+// rec_cap, nx, ny}; `eps` holds {same_eps, sel2, boundary_tol}. out_d: 10
+// doubles as the radial kernel's; out_i: its first 4 counters, then photons
+// abandoned, codes 031 / 032 / 034 and Stokes anomalies. `flags` as
+// pool_radial's. The grid is persistent, as pool_radial's: the blocks the
+// card holds at once, whose lanes take photon ids id_lo + *next_id from the
+// launch's counter, which the caller zeroes.
 extern "C" int artes_pool_grid3d_launch(
     const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
     double* img_sums, unsigned long long* img_counts, double* out_d, unsigned long long* out_i,
-    int blocks, int threads, void* stream) {
+    unsigned long long* next_id, int threads, void* stream) {
   auto f = [&](int i) { return (const float*)tables[i]; };
   Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
   Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
@@ -430,10 +454,12 @@ extern "C" int artes_pool_grid3d_launch(
           eps[0], eps[1], eps[2]};
   Image img{img_sums, img_counts, sizes[6], sizes[7]};
   const KernelFn fn = variant_fn(variant);
-  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1)
+  if (fn == nullptr || threads > 256 || threads % 32 != 0 || threads < 32)
     return (int)cudaErrorInvalidValue;
-  fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(T, G, f(7), img, n_photons, key_hi, id_lo,
-                                                   max_scatter, flags, out_d, out_i);
+  const int resident = resident_blocks(variant, fn, threads);
+  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+  fn<<<persistent_blocks(resident, n_photons, threads), threads, 0, (cudaStream_t)stream>>>(
+      T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, next_id);
   return (int)cudaGetLastError();
 }
 

@@ -36,9 +36,10 @@
 // Flow. Every pass of a transport march adds energy x step projected on the
 // local (r, theta, phi) unit vectors at the advanced position into the cell
 // the step was made in, and every full crossing of a radial or theta face
-// its energy (up / down / south / north): double atomics into the block's
-// shared memory where 7 ncell doubles fit there, flushed once a block, else
-// into the global result.
+// its energy (up / down / south / north): double reductions
+// (red.global.add.f64, which the thread does not wait for) into the block's
+// copy in a global buffer, added into the result once a block, or straight
+// into the result where the copies would not fit (pool_common.cuh).
 //
 // Errors. A failed transport march (031, 032, 034) or prewalk (tallied under
 // 031) or thermal birth peel (tallied under "peel") abandons the photon; a
@@ -51,8 +52,7 @@
 //
 // What bounds it on an H100: arithmetic, divergence and table latency, as
 // pool_grid3d.cu, with longer marches (escaping photons cross the whole grid)
-// and, with FLOW, four to five double atomics a pass. This version is the
-// simple one.
+// and, with FLOW, four to five double reductions a pass.
 
 #include "pool_geom3d.cuh"
 
@@ -117,13 +117,12 @@ __device__ void flow_book(const Flow& fl, const Grid3& G, const float* p, const 
   const float phi = atan2f(p[1], p[0]);
   const float s_t = sinf(theta), c_t = cosf(theta), s_p = sinf(phi), c_p = cosf(phi);
   const float w = energy * step;
-  flow_add_g(fl, cf, (s_t * c_p * d[0] + s_t * s_p * d[1] + c_t * d[2]) * w,
-             (c_t * c_p * d[0] + c_t * s_p * d[1] - s_t * d[2]) * w,
-             (-s_p * d[0] + c_p * d[1]) * w);
-  if (crossing && (st.axis == 1 || st.axis == 2)) {
-    const bool outward = st.axis == 2 ? st.cell[1] > cell[1] : st.cell[0] > cell[0];
-    flow_add_t(fl, cf, st.axis == 1 ? (outward ? 0 : 1) : (outward ? 2 : 3), energy);
-  }
+  const bool outward = st.axis == 2 ? st.cell[1] > cell[1] : st.cell[0] > cell[0];
+  const int column = !(crossing && (st.axis == 1 || st.axis == 2))
+      ? -1 : (st.axis == 1 ? (outward ? 0 : 1) : (outward ? 2 : 3));
+  flow_add(fl, cf, (s_t * c_p * d[0] + s_t * s_p * d[1] + c_t * d[2]) * w,
+           (c_t * c_p * d[0] + c_t * s_p * d[1] - s_t * d[2]) * w,
+           (-s_p * d[0] + c_p * d[1]) * w, column, energy);
 }
 
 // march cell by cell until the running optical depth passes tau
@@ -212,11 +211,10 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
                   uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
                   int flags, float surface_albedo, double* __restrict__ out_d,
                   unsigned long long* __restrict__ out_i, double* flow_g, double* flow_t,
-                  int flow_shared) {
-  extern __shared__ double flow_sh[];
+                  double* flow_buf) {
   const int ncell = T.nr * G.nt * G.np;
   Flow fl{nullptr, nullptr};
-  if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_sh, ncell, flow_shared != 0);
+  if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_buf, ncell);
   const Scal S = load_scal(scal);
   const bool crescent = (flags & F_CRESCENT) != 0;
   const bool biased = (flags & F_BIASED) != 0;
@@ -373,12 +371,12 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
     }
   }
 
-  if constexpr (FLOW) flow_end(flow_g, flow_t, flow_sh, ncell, flow_shared != 0);
+  if constexpr (FLOW) flow_end(flow_g, flow_t, fl, ncell);
   reduce_block<N_OUT_D, N_OUT_IM>(acc, cnt, out_d, out_i);
 }
 
 using KernelFn = void (*)(Tables, Grid3, const float*, Image, uint32_t, uint32_t, uint32_t, int,
-                          int, float, double*, unsigned long long*, double*, double*, int);
+                          int, float, double*, unsigned long long*, double*, double*, double*);
 // the instantiation of a variant: bit 0 thermal, bit 1 image, bit 2 flow
 KernelFn variant_fn(int variant) {
   switch (variant) {
@@ -405,14 +403,15 @@ KernelFn variant_fn(int variant) {
 // {same_eps, sel2, boundary_tol, surface_albedo}. out_d: 10 doubles as the
 // radial kernel's; out_i: pool_grid3d's 9 counters, then the scatter and
 // birth peel walks that failed, the passes of cell_face made and the passes
-// that booked flow. `flags` as pool_radial's. The flow
-// diagnostics go into flow_g (ncell, 3) and flow_t (ncell, 4), summed per
-// block in `flow_shared_bytes` of shared memory when that is not 0.
+// that booked flow. `flags` as pool_radial's. The flow diagnostics go into
+// flow_g (ncell, 3) and flow_t (ncell, 4), through a copy a block in
+// flow_buf where that is given, a zeroed buffer of `blocks` x 7 ncell
+// doubles (pool_common.cuh::flow_begin), else straight.
 extern "C" int artes_pool_march_launch(
     const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
     double* img_sums, unsigned long long* img_counts, double* out_d, unsigned long long* out_i,
-    double* flow_g, double* flow_t, int flow_shared_bytes, int blocks, int threads,
+    double* flow_g, double* flow_t, double* flow_buf, int blocks, int threads,
     void* stream) {
   auto f = [&](int i) { return (const float*)tables[i]; };
   Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
@@ -423,12 +422,11 @@ extern "C" int artes_pool_march_launch(
           eps[0], eps[1], eps[2]};
   Image img{img_sums, img_counts, sizes[6], sizes[7]};
   const KernelFn fn = variant_fn(variant);
-  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1 ||
-      flow_shared_bytes < 0 || flow_shared_bytes > 48 * 1024)
+  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  fn<<<blocks, threads, flow_shared_bytes, (cudaStream_t)stream>>>(
+  fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, eps[3], out_d, out_i,
-      flow_g, flow_t, flow_shared_bytes);
+      flow_g, flow_t, flow_buf);
   return (int)cudaGetLastError();
 }
 

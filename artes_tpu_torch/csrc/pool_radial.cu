@@ -21,9 +21,10 @@
 //   FLOW: every shell segment a march walks books energy x length on the
 //     local (r, theta, phi) unit vectors at the segment's end, and every
 //     full crossing its energy up or down (the flow hook of radial.march,
-//     pallas_stream.py:1626-1665, :1970-1988): double atomics into the
-//     block's shared memory, 7 nr sums flushed once a block, or into the
-//     global result where the shells do not fit there.
+//     pallas_stream.py:1626-1665, :1970-1988): double reductions
+//     (red.global.add.f64, which the thread does not wait for) into the
+//     block's copy of the 7 nr sums in a global buffer, added into the
+//     result once a block (pool_common.cuh).
 // Crescent sampling and the off-axis stellar beam are runtime scalars.
 //
 // Design. A persistent grid: exactly the blocks the card holds at once,
@@ -104,8 +105,8 @@ __device__ __forceinline__ void book_segment(const Flow& fl, const FlowRay& f, i
   const float inv_rho = rsqrtf(fmaxf(rho2, 1.0e-30f));
   const float w = energy * dist;
   const float tnum = (f.pz + t * f.dz) * (f.pdxy + t * f.dq2) - rho2 * f.dz;
-  flow_add_g(fl, m, (f.pd + t) * inv_r * w, tnum * (inv_rho * inv_r) * w, f.lz * inv_rho * w);
-  if (crossed) flow_add_t(fl, m, column, energy);
+  flow_add(fl, m, (f.pd + t) * inv_r * w, tnum * (inv_rho * inv_r) * w, f.lz * inv_rho * w,
+           crossed ? column : -1, energy);
   n_booked += 1;
 }
 
@@ -216,18 +217,6 @@ __device__ float emit_thermal(const Tables& T, const Scal& S, const float* u, bo
 
 // ------------------------------------------------------------- kernel ----
 
-// the next photon of the launch for each active lane: one atomicAdd on the
-// launch's counter for the lanes that ask together, each lane its own slot
-__device__ __forceinline__ unsigned long long next_photon(unsigned long long* next_id) {
-  const unsigned int mask = __activemask();
-  const int leader = __ffs(mask) - 1;
-  const int lane = threadIdx.x & 31;
-  unsigned long long base = 0ull;
-  if (lane == leader) base = atomicAdd(next_id, (unsigned long long)__popc(mask));
-  base = __shfl_sync(mask, base, leader);
-  return base + (unsigned long long)__popc(mask & ((1u << lane) - 1u));
-}
-
 #ifdef ARTES_POOL_CLOCKS
 // Instrumented build (the library pool_radial_clocks, never the main path):
 // each warp adds the clock64 cycles it spends in a phase, the times it
@@ -272,11 +261,10 @@ __global__ void __launch_bounds__(256, MinBlocks<THERMAL, IMAGE, FLOW>::value)
 pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t n_photons,
                    uint32_t key_hi, uint32_t id_lo, int max_scatter, int flags,
                    double* __restrict__ out_d, unsigned long long* __restrict__ out_i,
-                   double* flow_g, double* flow_t, int flow_shared, Records rec,
+                   double* flow_g, double* flow_t, double* flow_buf, Records rec,
                    unsigned long long* next_id) {
-  extern __shared__ double flow_sh[];
   Flow fl{nullptr, nullptr};
-  if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_sh, T.nr, flow_shared != 0);
+  if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_buf, T.nr);
 #ifdef ARTES_POOL_CLOCKS
   __shared__ unsigned long long clk_sh[(N_PHASE + 1) * 3];
   for (int k = threadIdx.x; k < (N_PHASE + 1) * 3; k += blockDim.x) clk_sh[k] = 0ull;
@@ -438,7 +426,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
     CLOCK_END(P_MARCH);
   }
 
-  if constexpr (FLOW) flow_end(flow_g, flow_t, flow_sh, T.nr, flow_shared != 0);
+  if constexpr (FLOW) flow_end(flow_g, flow_t, fl, T.nr);
   reduce_block<N_OUT_D, NI>(acc, cnt, out_d, out_i);
 #ifdef ARTES_POOL_CLOCKS
   if ((threadIdx.x & 31) == 0) {
@@ -455,7 +443,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
 
 // the instantiation of a variant: bit 0 thermal, bit 1 image, bit 2 flow
 using KernelFn = void (*)(Tables, const float*, Image, uint32_t, uint32_t, uint32_t, int, int,
-                          double*, unsigned long long*, double*, double*, int, Records,
+                          double*, unsigned long long*, double*, double*, double*, Records,
                           unsigned long long*);
 KernelFn variant_fn(int variant) {
   switch (variant) {
@@ -469,25 +457,6 @@ KernelFn variant_fn(int variant) {
     case 7: return pool_radial_kernel<true, true, true>;
     default: return nullptr;
   }
-}
-
-// the blocks the card holds at once for an instantiation, its threads and
-// its dynamic shared memory: queried once for each (the first launch's device)
-int resident_blocks(int variant, KernelFn fn, int threads, int shared_bytes) {
-  static int cached_threads[8] = {0}, cached_shared[8] = {0}, cached_blocks[8] = {0};
-  if (cached_blocks[variant] > 0 && cached_threads[variant] == threads &&
-      cached_shared[variant] == shared_bytes)
-    return cached_blocks[variant];
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, shared_bytes) !=
-          cudaSuccess)
-    return 0;
-  cached_threads[variant] = threads;
-  cached_shared[variant] = shared_bytes;
-  cached_blocks[variant] = per_sm * sms;
-  return cached_blocks[variant];
 }
 
 }  // namespace
@@ -504,8 +473,10 @@ int resident_blocks(int variant, KernelFn fn, int threads, int shared_bytes) {
 // at max_scatter, photons emitted, birth peels, photons abandoned on a Stokes
 // anomaly, and with flow a sixth: the segments that booked flow). An image
 // (nx * ny pixels) is added into img_sums (npix, 8) and img_counts (npix, 2);
-// the flow diagnostics into flow_g (nr, 3) and flow_t (nr, 4), summed per
-// block in `flow_shared_bytes` of shared memory when that is not 0. Stokes
+// the flow diagnostics into flow_g (nr, 3) and flow_t (nr, 4), through a
+// copy a block in flow_buf where that is given, a zeroed buffer of
+// flow_buf_blocks x 7 nr doubles (pool_common.cuh::flow_begin;
+// artes_pool_radial_blocks gives the launch's blocks), else straight. Stokes
 // anomalies leave records (pool_common.cuh::record_error) in rec (rec_cap,
 // 16), their count in rec_count.
 extern "C" int artes_pool_radial_launch(
@@ -514,25 +485,31 @@ extern "C" int artes_pool_radial_launch(
     const float* emis_cum, const float* cell_weight, int nr, unsigned int n_photons,
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags, int nx,
     int ny, double* img_sums, unsigned long long* img_counts, double* out_d,
-    unsigned long long* out_i, double* flow_g, double* flow_t, int flow_shared_bytes,
-    float* rec, unsigned int* rec_count, int rec_cap, unsigned long long* next_id, int threads,
-    void* stream) {
+    unsigned long long* out_i, double* flow_g, double* flow_t, double* flow_buf,
+    int flow_buf_blocks, float* rec, unsigned int* rec_count, int rec_cap,
+    unsigned long long* next_id, int threads, void* stream) {
   Tables T{rfront, opacity, albedo, scatter, prefix, p_int, consts, emis_cum, cell_weight, nr};
   Image img{img_sums, img_counts, nx, ny};
   Records R{rec, rec_count, (unsigned int)rec_cap};
   const KernelFn fn = variant_fn(variant);
-  if (fn == nullptr || threads > 256 || threads % 32 != 0 || threads < 32 || rec_cap < 0 ||
-      flow_shared_bytes < 0 || flow_shared_bytes > 48 * 1024)
+  if (fn == nullptr || threads > 256 || threads % 32 != 0 || threads < 32 || rec_cap < 0)
     return (int)cudaErrorInvalidValue;
-  const int resident = resident_blocks(variant, fn, threads, flow_shared_bytes);
+  const int resident = resident_blocks(variant, fn, threads);
   if (resident < 1) return (int)cudaErrorInvalidConfiguration;
-  const unsigned long long wanted = ((unsigned long long)n_photons + threads - 1) / threads;
-  const int blocks = (int)(wanted < (unsigned long long)resident ? (wanted > 0 ? wanted : 1)
-                                                                 : resident);
-  fn<<<blocks, threads, flow_shared_bytes, (cudaStream_t)stream>>>(
+  const int blocks = persistent_blocks(resident, n_photons, threads);
+  if (flow_buf != nullptr && blocks > flow_buf_blocks) return (int)cudaErrorInvalidValue;
+  fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       T, scal, img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, flow_g, flow_t,
-      flow_shared_bytes, R, next_id);
+      flow_buf, R, next_id);
   return (int)cudaGetLastError();
+}
+
+// The blocks of a launch of `variant` with n_photons and `threads` a block
+// (the persistent grid), 0 when the occupancy query fails.
+extern "C" int artes_pool_radial_blocks(int variant, unsigned int n_photons, int threads) {
+  const KernelFn fn = variant_fn(variant);
+  const int resident = fn == nullptr ? 0 : resident_blocks(variant, fn, threads);
+  return resident < 1 ? 0 : persistent_blocks(resident, n_photons, threads);
 }
 
 // Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, REC_W}.

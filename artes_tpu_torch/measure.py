@@ -4,18 +4,22 @@ Run from the root of a checkout on a machine with a CUDA card::
 
     python -m artes_tpu_torch.measure compare <other checkout>
     python -m artes_tpu_torch.measure rates
+    python -m artes_tpu_torch.measure contraction
     python -m artes_tpu_torch.measure clocks [--cells flagship,hydrostatic39] [--photons N]
 
 ``compare`` times the kernels of another checkout of this repository (an
 earlier commit, unpacked beside this one) and of this one on the same card,
-in turns (other, this, this, other), one process each: the radial pool
-kernel on the flagship at 2^20 and 2^24 photons and on hydrostatic39,
-imaging25, thermal_iso and hydrostatic39_flow at 2^20, the 3-D kernel on
-grid3d_2496 at 2^18 and the marching kernel on lambert_tau05 at 2^20
-(``cells.KERNEL_CELLS``, seed 7), and the probe splat at 625, 2025 and 10201
-pixels. It prints each time (median of 5 after a warm launch, CUDA events),
-whether every count is equal and every sum within 1e-12 relative between the
-two checkouts, and the probe splat's library yardsticks
+in turns (other, this, this, other), one process each, on the cells of
+``COMPARE_CELLS`` (``cells.KERNEL_CELLS``, seed 7): the radial pool kernel on
+the flagship at 2^20 and 2^24 photons and on hydrostatic39, imaging25 and
+thermal_iso at 2^20; every flow instantiation (the closed-form ones at 2^20,
+the marching ones at 2^16); the 3-D kernel on grid3d_2496, grid3d_thermal
+and blended_5184 at 2^18; the marching kernel on lambert_tau05 at 2^20; and
+the probe splat at 625, 2025 and 10201 pixels. It prints each time (median
+of 5 after a warm launch, CUDA events), whether every count (the detector's,
+the photons emitted, capped and abandoned, the error codes and the flow
+bookings) is equal and every sum within 1e-12 relative between the two
+checkouts, and the probe splat's library yardsticks
 (``probe_splat.library_yardsticks``).
 
 ``rates`` holds the float32 error tallies of the marching kernel against its
@@ -32,6 +36,15 @@ the share of them that fails again says whether a lone failure is the
 recorded state's float32 rounding or the version's own. Last, the 3-D
 kernel's abandoned photons on grid3d_2496 at 2^24 photons, seed 30 (the
 seed of the TPU's 774 of 2^25).
+
+``contraction`` builds variants of ``csrc/pool_march.cu`` under ``build/``
+(never loaded by the main path): nvcc's default, the whole file with
+``-fmad=false``, that with the sphere quadratic's constant term ``qc`` alone
+fused (``__fmaf_rn``), and the default with one site at a time rounded op by
+op (``__fmul_rn``, ``__fadd_rn``): ``qc``, ``qb``, ``qa``, the discriminant,
+the phi half-plane and the position updates. Each runs the uncut surface
+cells of ``rates`` at 2^16 and 2^20 photons, seed 7, and prints its error
+tallies: the failed peels say which contraction decides them.
 
 ``clocks`` runs the instrumented build of the radial kernel,
 ``pool_radial_clocks`` (``csrc/pool_radial.cu`` with ``ARTES_POOL_CLOCKS``,
@@ -61,7 +74,12 @@ import sys
 PHOTONS = 1 << 20
 COMPARE_CELLS = (("flagship", 1 << 20), ("flagship", 1 << 24), ("hydrostatic39", PHOTONS),
                  ("imaging25", PHOTONS), ("thermal_iso", PHOTONS),
-                 ("hydrostatic39_flow", PHOTONS), ("grid3d_2496", 1 << 18),
+                 ("hydrostatic39_flow", PHOTONS), ("thermal_flow", PHOTONS),
+                 ("imaging25_flow", PHOTONS), ("thermal_imaging25_flow", PHOTONS),
+                 ("grid3d_2496_flow", 1 << 16), ("grid3d_thermal_flow", 1 << 16),
+                 ("patchy3d_imaging25_surface_flow", 1 << 16),
+                 ("grid3d_thermal_surface_flow", 1 << 16), ("grid3d_2496", 1 << 18),
+                 ("grid3d_thermal", 1 << 18), ("blended_5184", 1 << 18),
                  ("lambert_tau05", PHOTONS))
 PROBE_SIZES = (625, 2025, 10201)
 REPS = 5
@@ -99,7 +117,8 @@ for name, n in cells:
     res["cells"][f"{name}@{n}"] = dict(
         ms=ms, detector=out["detector"].cpu().reshape(-1).tolist(),
         fluxes=[float(out["flux_emitted"]), float(out["flux_exit"])], flow=flow,
-        ints=[int(out[k]) for k in ("n_emitted", "n_alive_at_cap", "n_error")])
+        ints=[int(out[k]) for k in ("n_emitted", "n_alive_at_cap", "n_error", "n_flow_booked")
+              if out.get(k) is not None] + out["error_codes"].cpu().tolist())
 for npix in sizes:
     ms, (vals, counts) = timed(lambda: P.splat(npix, device=dev))
     res["probe"][str(npix)] = dict(ms=ms, vals=float(vals.sum()), counts=int(counts.sum()))
@@ -245,6 +264,96 @@ def rates() -> int:
     return 0 if ok else 1
 
 
+# pool_march.cu's float32 sites, rounded op by op: (site, file, text, replacement)
+_ROUNDED = "__fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(a2, {0}[0]), {1}[0]), " \
+    "__fmul_rn(__fmul_rn(b2, {0}[1]), {1}[1])), __fmul_rn(__fmul_rn(c2, {0}[2]), {1}[2]))"
+_SITES = (
+    ("qc", "pool_common.cuh", "r.Cq = a2 * p[0] * p[0] + b2 * p[1] * p[1] + c2 * p[2] * p[2];",
+     "r.Cq = " + _ROUNDED.format("p", "p") + ";"),
+    ("qc", "pool_geom3d.cuh", "r.Cq - r_face * r_face", "__fsub_rn(r.Cq, __fmul_rn(r_face, r_face))"),
+    ("qb", "pool_common.cuh", "r.Bq = a2 * p[0] * d[0] + b2 * p[1] * d[1] + c2 * p[2] * d[2];",
+     "r.Bq = " + _ROUNDED.format("p", "d") + ";"),
+    ("qa", "pool_common.cuh", "r.A = a2 * d[0] * d[0] + b2 * d[1] * d[1] + c2 * d[2] * d[2];",
+     "r.A = " + _ROUNDED.format("d", "d") + ";"),
+    ("disc", "pool_geom3d.cuh", "const float disc = qb * qb - 4.0f * qa * qc;",
+     "const float disc = __fsub_rn(__fmul_rn(qb, qb), __fmul_rn(__fmul_rn(4.0f, qa), qc));"),
+    ("phi", "pool_geom3d.cuh",
+     "const float denom = S.ob[1] * d[1] * cos_p - S.ob[0] * d[0] * sin_p;",
+     "const float denom = __fsub_rn(__fmul_rn(__fmul_rn(S.ob[1], d[1]), cos_p), "
+     "__fmul_rn(__fmul_rn(S.ob[0], d[0]), sin_p));"),
+    ("phi", "pool_geom3d.cuh",
+     "const float s = (S.ob[0] * p[0] * sin_p - S.ob[1] * p[1] * cos_p)",
+     "const float s = __fsub_rn(__fmul_rn(__fmul_rn(S.ob[0], p[0]), sin_p), "
+     "__fmul_rn(__fmul_rn(S.ob[1], p[1]), cos_p))"),
+    ("pos", "pool_march.cu", "pos[i] += st.dist * d[i];",
+     "pos[i] = __fadd_rn(pos[i], __fmul_rn(st.dist, d[i]));"),
+    ("pos", "pool_march.cu", "for (int i = 0; i < 3; ++i) pos[i] += step * dir[i];",
+     "for (int i = 0; i < 3; ++i) pos[i] = __fadd_rn(pos[i], __fmul_rn(step, dir[i]));"),
+    ("qc fused", "pool_common.cuh",
+     "r.Cq = a2 * p[0] * p[0] + b2 * p[1] * p[1] + c2 * p[2] * p[2];",
+     "r.Cq = __fmaf_rn(__fmul_rn(c2, p[2]), p[2], __fmaf_rn(__fmul_rn(a2, p[0]), p[0], "
+     "__fmul_rn(__fmul_rn(b2, p[1]), p[1])));"),
+    ("qc fused", "pool_geom3d.cuh", "r.Cq - r_face * r_face", "__fmaf_rn(-r_face, r_face, r.Cq)"),
+)
+# variant -> (sites rounded or fused, extra nvcc flags)
+_CONTRACTION = {"default": ((), ()), "-fmad=false": ((), ("-fmad=false",)),
+                "-fmad=false, qc fused": (("qc fused",), ("-fmad=false",)),
+                **{f"{site} op by op": ((site,), ()) for site in
+                   ("qc", "qb", "qa", "disc", "phi", "pos")}}
+
+
+def _contraction_build(label: str) -> str:
+    """Build pool_march.cu's variant ``label`` under build/; its path."""
+    import shutil
+    from artes_tpu_torch import _build
+    sites, extra = _CONTRACTION[label]
+    root = os.path.join(os.path.dirname(_build.BUILD_DIR), "contraction",
+                        re.sub(r"\W+", "_", label))
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, root)
+    for site, name, old, new in _SITES:
+        if site in sites:
+            path = os.path.join(root, name)
+            with open(path) as fh:
+                text = fh.read()
+            if text.count(old) != 1:
+                raise RuntimeError(f"{label}: {name} holds {text.count(old)} of {old!r}")
+            with open(path, "w") as fh:
+                fh.write(text.replace(old, new))
+    lib = os.path.join(root, "libpool_march.so")
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *extra, "-o", lib,
+                           os.path.join(root, "pool_march.cu")], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: nvcc failed\n{proc.stdout}{proc.stderr}")
+    return lib
+
+
+def contraction() -> int:
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from artes_tpu_torch import _build, cells
+    from artes_tpu_torch.transport import pool_cuda
+    card = card_line()
+    with ThreadPoolExecutor(len(_CONTRACTION)) as pool:
+        libs = dict(zip(_CONTRACTION, pool.map(_contraction_build, _CONTRACTION)))
+    setups = [(name, *cells.run_tables(atm, "cuda", surface_albedo=0.5)) for name, atm in
+              (("hydrostatic39_surface", cells.hydrostatic39()),
+               ("grid3d_2496_surface", cells.grid3d_2496()))]
+    try:
+        for label, lib in libs.items():
+            _build._LIBS["pool_march"] = ctypes.CDLL(lib)
+            for name, tables, static in setups:
+                for n in (1 << 16, 1 << 20):
+                    out = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+                    torch.cuda.synchronize()
+                    print(f"[contraction] pool_march {label}: {name} uncut, {n} photons, seed "
+                          f"{SEED}: 031 / 032 / 034 / peel {out['error_codes'].tolist()}, "
+                          f"capped {int(out['n_alive_at_cap'])}; {card}", flush=True)
+    finally:
+        _build._LIBS.pop("pool_march", None)
+    return 0
+
+
 def ptxas_summary(name: str) -> str:
     """Registers and spills of the stellar instantiation
     (``pool_radial_kernel<false, false, false>``) from library ``name``'s
@@ -315,6 +424,7 @@ def main(argv=None) -> int:
     sub = p.add_subparsers(dest="what", required=True)
     sub.add_parser("compare").add_argument("checkout")
     sub.add_parser("rates")
+    sub.add_parser("contraction")
     c = sub.add_parser("clocks")
     c.add_argument("--cells", default="flagship,hydrostatic39")
     c.add_argument("--photons", type=int, default=PHOTONS)
@@ -326,6 +436,8 @@ def main(argv=None) -> int:
         return compare(args.checkout)
     if args.what == "rates":
         return rates()
+    if args.what == "contraction":
+        return contraction()
     return clocks(args.cells.split(","), args.photons)
 
 

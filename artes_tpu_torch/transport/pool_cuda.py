@@ -52,7 +52,7 @@ VARIANTS_MARCH = tuple("march_" + v for v in VARIANTS + VARIANTS_FLOW)
 LAUNCHES = dict.fromkeys(VARIANTS + VARIANTS_FLOW + VARIANTS_3D + VARIANTS_MARCH, 0)
 
 THREADS = 256
-BLOCKS_PER_SM = 8       # pool_grid3d and pool_march: blocks launched, per SM
+BLOCKS_PER_SM = 8       # pool_march: blocks launched, per SM (2048 threads)
 N_SCAL = 32
 N_OUT_D = 10
 N_OUT_I = 4             # scatter peels, photons capped, emitted, birth (and surface) peels
@@ -61,7 +61,7 @@ N_IMG_I = 2
 N_OUT_IR = 5            # pool_radial: N_OUT_I + photons abandoned on a Stokes anomaly
 N_OUT_I3 = 9            # pool_grid3d: N_OUT_I + abandoned, codes 031, 032, 034, anomalies
 N_OUT_IM = 12           # pool_march: N_OUT_I3 + failed peel walks, cell_face passes, flow bookings
-FLOW_SHARED_MAX = 32 * 1024     # bytes of a block's shared flow sums, else global atomics
+FLOW_BUF_MAX = 256 << 20        # bytes of the blocks' copies of the flow sums
 F_CRESCENT, F_BIASED, F_DEBUG_STOKES, F_NO_SCATTER = 1, 2, 4, 8
 # rows of the 3-D kernel's error-record buffer (64 bytes each); errors are
 # about 1e-4 of the photons, so one launch of up to 2^30 photons may drop
@@ -119,12 +119,12 @@ AGREE_MARCH = {"count": 1.1e-2, "count_quv": 1.2e-2, "pixel_I": 3e-3, "pixel_N":
 
 _vp = ctypes.c_void_p
 _ARGTYPES = ([_vp] * 10 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
-             + [ctypes.c_int] * 5 + [_vp] * 6 + [ctypes.c_int] + [_vp] * 2 + [ctypes.c_int]
+             + [ctypes.c_int] * 5 + [_vp] * 7 + [ctypes.c_int] + [_vp] * 2 + [ctypes.c_int]
              + [_vp, ctypes.c_int, _vp])
-_ARGTYPES_3D = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 4
-                + [ctypes.c_int, ctypes.c_int, _vp])
-_ARGTYPES_MARCH = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 6
-                   + [ctypes.c_int] * 3 + [_vp])
+_ARGTYPES_3D = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 5
+                + [ctypes.c_int, _vp])
+_ARGTYPES_MARCH = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 7
+                   + [ctypes.c_int] * 2 + [_vp])
 
 
 def supports(tables: TransportTables, static: KernelStatic) -> bool:
@@ -158,6 +158,16 @@ def kernel_of(tables: TransportTables, static: KernelStatic) -> tuple[str, str]:
     if mode == "jumps":
         return "pool_grid3d", VARIANTS_3D[variant]
     return "pool_march", VARIANTS_MARCH[variant]
+
+
+def flow_buf(ncell: int, blocks: int) -> int:
+    """The doubles of the buffer that holds a copy of the flow sums for each
+    of a launch's ``blocks`` blocks on a grid of ``ncell`` cells
+    (``pool_common.cuh::flow_begin``); 0 where it would pass
+    ``FLOW_BUF_MAX`` bytes, and the kernel adds straight into the result
+    instead, where the blocks meet on the same addresses."""
+    n = blocks * 7 * ncell
+    return n if 8 * n <= FLOW_BUF_MAX else 0
 
 
 def _rel(d, ref) -> float:
@@ -245,6 +255,26 @@ def _library(name: str, argtypes, layout: tuple, build: str | None = None):
         if tuple(sizes) != layout:
             raise RuntimeError(f"{name} layout {tuple(sizes)} does not match the wrapper")
     return fn
+
+
+def launch_blocks(tables: TransportTables, static: KernelStatic, n: int,
+                  lib: str = "pool_radial") -> int:
+    """The blocks of ``THREADS`` that :func:`run_stream_cuda` launches for
+    ``n`` photons: the radial kernel's persistent grid (from library ``lib``,
+    built at first use), else the marching kernel's grid (the 3-D kernel
+    sizes its persistent grid itself and takes no flow)."""
+    dev = tables.opacity.device
+    if kernel_of(tables, static)[0] != "pool_radial":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return min(-(-n // THREADS), sms * BLOCKS_PER_SM)
+    fn = _build.load(lib).artes_pool_radial_blocks
+    fn.argtypes = [ctypes.c_int, ctypes.c_uint, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        blocks = fn(variant_of(static), n, THREADS)
+    if blocks < 1:
+        raise RuntimeError(f"{lib}: no resident blocks for variant {variant_of(static)}")
+    return blocks
 
 
 def _scalars(t: TransportTables, static: KernelStatic) -> torch.Tensor:
@@ -377,13 +407,9 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     img_d = torch.zeros((npix if image else 1, N_IMG_D), dtype=torch.float64, device=dev)
     img_i = torch.zeros((npix if image else 1, N_IMG_I), dtype=torch.int64, device=dev)
     flow_g = flow_t = None
-    flow_args = (None, None, 0)
     if static.track_flow:
         flow_g = torch.zeros((ncell, 3), dtype=torch.float64, device=dev)
         flow_t = torch.zeros((ncell, 4), dtype=torch.float64, device=dev)
-        shared = 7 * 8 * ncell
-        flow_args = (flow_g.data_ptr(), flow_t.data_ptr(),
-                     shared if shared <= FLOW_SHARED_MAX else 0)
     records = torch.zeros((0, ERR_RECORD_W), dtype=torch.float64)
     n_records = 0
     # only the radial kernel without the anomaly check abandons no photon
@@ -391,27 +417,34 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     if n > 0:
         scal = _scalars(t, static)
         consts = _constants(dev)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = min(-(-n // THREADS), sms * BLOCKS_PER_SM)
         key_hi = R.key_hi(seed, id_hi)
+        lib = "pool_radial_clocks" if clocks else "pool_radial"
+        blocks = launch_blocks(tables, static, n, lib)
+        # the blocks' copies of the flow sums, zeroed, where they fit
+        n_buf = flow_buf(ncell, blocks) if static.track_flow else 0
+        buf = (torch.zeros(n_buf, dtype=torch.float64, device=dev) if n_buf
+                   else None)
+        flow_ptrs = (None if flow_g is None else flow_g.data_ptr(),
+                     None if flow_t is None else flow_t.data_ptr(),
+                     None if buf is None else buf.data_ptr())
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             launch = (n, key_hi, int(id_lo), int(static.max_scatter), variant, flags_of(static))
             if source == "pool_radial":
                 fn = _library("pool_radial", _ARGTYPES,
-                              (N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, ERR_RECORD_W),
-                              "pool_radial_clocks" if clocks else None)
+                              (N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, ERR_RECORD_W), lib)
                 rec, rec_count = _records(dev)
-                # the persistent grid's photon counter (pool_radial.cu::next_photon)
+                # the persistent grid's photon counter (pool_common.cuh::next_photon)
                 next_id = torch.zeros(1, dtype=torch.int64, device=dev)
                 rc = fn(g.rfront.data_ptr(), t.opacity.data_ptr(), t.albedo.data_ptr(),
                         t.scatter_rows.data_ptr(), t.alpha_prefix.data_ptr(),
                         t.p_int.data_ptr(), consts.data_ptr(), scal.data_ptr(),
                         t.emis_cum.data_ptr(), t.cell_weight.data_ptr(), nr, *launch,
                         static.nx, static.ny, img_d.data_ptr(), img_i.data_ptr(),
-                        out_d.data_ptr(), out_i.data_ptr(), *flow_args, rec.data_ptr(),
-                        rec_count.data_ptr(), REC_CAP, next_id.data_ptr(), THREADS, stream)
-                keep = (next_id,)
+                        out_d.data_ptr(), out_i.data_ptr(), *flow_ptrs, blocks,
+                        rec.data_ptr(), rec_count.data_ptr(), REC_CAP, next_id.data_ptr(),
+                        THREADS, stream)
+                keep = (next_id, buf)
             else:
                 ptrs, sizes, rec, rec_count, keep = _cell_tables(t, static, scal, consts)
                 outs = (img_d.data_ptr(), img_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
@@ -419,16 +452,20 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
                     fn = _library("pool_grid3d", _ARGTYPES_3D,
                                   (N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, ERR_RECORD_W))
                     eps = (ctypes.c_float * 3)(g.same_eps, g.sel2, g.boundary_tol)
+                    next_id = torch.zeros(1, dtype=torch.int64, device=dev)
+                    keep = (*keep, next_id)
                     rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
-                            ctypes.addressof(eps), *launch, *outs, blocks, THREADS, stream)
+                            ctypes.addressof(eps), *launch, *outs, next_id.data_ptr(), THREADS,
+                            stream)
                 else:
                     fn = _library("pool_march", _ARGTYPES_MARCH,
                                   (N_SCAL, N_OUT_D, N_OUT_IM, N_IMG_D, N_IMG_I, ERR_RECORD_W))
                     eps = (ctypes.c_float * 4)(g.same_eps, g.sel2, g.boundary_tol,
                                                float(t.surface_albedo))
                     rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
-                            ctypes.addressof(eps), *launch, *outs, *flow_args, blocks, THREADS,
+                            ctypes.addressof(eps), *launch, *outs, *flow_ptrs, blocks, THREADS,
                             stream)
+                    keep = (*keep, buf)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         if not clocks:

@@ -142,22 +142,22 @@ MUTANTS = {
         ("lambert_tau05", "thermal_surface")),
     # faults of the flow_global projections alone, which flow_theta cannot see
     "flow_global theta projection with its sign turned": (
-        "pool_common.cuh", "atomicAdd(fl.g + 3 * cell + 1, (double)wt);",
-        "atomicAdd(fl.g + 3 * cell + 1, -(double)wt);",
+        "pool_common.cuh", "red_add(fl.g + 3 * cell + 1, (double)wt);",
+        "red_add(fl.g + 3 * cell + 1, -(double)wt);",
         ("grid3d_2496_flow", "hydrostatic39_flow")),
     "flow_global theta and phi projections swapped, marching": (
         "pool_march.cu",
         "(c_t * c_p * d[0] + c_t * s_p * d[1] - s_t * d[2]) * w,\n"
-        "             (-s_p * d[0] + c_p * d[1]) * w);",
+        "           (-s_p * d[0] + c_p * d[1]) * w, column, energy);",
         "(-s_p * d[0] + c_p * d[1]) * w,\n"
-        "             (c_t * c_p * d[0] + c_t * s_p * d[1] - s_t * d[2]) * w);",
+        "           (c_t * c_p * d[0] + c_t * s_p * d[1] - s_t * d[2]) * w, column, energy);",
         ("grid3d_2496_flow",)),
     "flow_theta up and down swapped, marching": (
         "pool_march.cu", "st.axis == 1 ? (outward ? 0 : 1)", "st.axis == 1 ? (outward ? 1 : 0)",
         ("grid3d_2496_flow", "grid3d_thermal_surface_flow")),
     "flow_theta up and down swapped, closed form": (
-        "pool_radial.cu", "if (crossed) flow_add_t(fl, m, column, energy);",
-        "if (crossed) flow_add_t(fl, m, 1 - column, energy);",
+        "pool_radial.cu", "crossed ? column : -1, energy);",
+        "crossed ? 1 - column : -1, energy);",
         ("hydrostatic39_flow", "thermal_flow")),
     "flow booked into the cell entered": (
         "pool_march.cu",
@@ -285,7 +285,7 @@ def test_probe_splat_kernels_match_plain(cuda, npix):
 
 
 # the mesh launch (parallel.mesh): the photon axis over sub-ranges and ranks
-SPLIT_CELLS = ("grid3d_2496", "grid3d_thermal_surface_flow")
+SPLIT_CELLS = ("grid3d_2496", "grid3d_thermal_surface_flow", "grid3d_thermal_imaging25")
 
 
 @pytest.mark.gpu
@@ -294,7 +294,8 @@ def test_split_over_sub_ranges_equals_one_launch(cuda, name):
     """The mesh's arithmetic on one card: k = 2, 3 and 7 sub-ranges of
     ``mesh.split_ids`` launched in turn and merged equal one launch of the
     same photons, every count and error record equal and the sums within
-    ``mesh.SPLIT_RTOL`` (each photon is one thread's, from its id alone)."""
+    ``mesh.SPLIT_RTOL``: each photon's draws come from its id alone, whichever
+    lane of the persistent grids (pool_radial, pool_grid3d) runs it."""
     tables, static = KERNEL_CELLS[name](cuda)
     n = gate_photons(tables, static)
     one = pool_cuda.run_stream_cuda(tables, static, n, SEED)
@@ -303,6 +304,33 @@ def test_split_over_sub_ranges_equals_one_launch(cuda, name):
         g = mesh.split_gaps(mesh.run_split(tables, static, n, SEED, k), one)
         print(f"{name} split {k}: {g}")
         assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= mesh.SPLIT_RTOL, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hydrostatic39_flow", "thermal_imaging25_flow",
+                                  "patchy3d_imaging25_surface_flow"])
+def test_flow_block_copies_alike_split_and_straight(cuda, name, monkeypatch):
+    """The same photons with the flow sums in a copy a block (a global
+    buffer, added into the result once a block), as 2, 3 and 7 sub-ranges of
+    ``mesh.split_ids`` launched in turn and merged, and added straight into
+    the result (``FLOW_BUF_MAX`` 0): every count, error record and
+    ``n_flow_booked`` equal, the flow and Stokes sums within 1e-12 of their
+    largest (only the order of the additions moves)."""
+    tables, static = KERNEL_CELLS[name](cuda)
+    n = gate_photons(tables, static)
+    blocks = pool_cuda.launch_blocks(tables, static, n)
+    assert pool_cuda.flow_buf(tables.opacity.shape[0], blocks) > 0
+    copies = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    for k in (2, 3, 7):
+        g = mesh.split_gaps(mesh.run_split(tables, static, n, SEED, k), copies)
+        print(f"{name} split {k}: {g}")
+        assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= 1e-12, g
+    monkeypatch.setattr(pool_cuda, "FLOW_BUF_MAX", 0)
+    straight = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    assert int(straight["n_flow_booked"]) == int(copies["n_flow_booked"]) > 0
+    g = mesh.split_gaps(straight, copies)
+    print(f"{name} block copies against straight adds: {g}")
+    assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= 1e-12, g
 
 
 @pytest.mark.gpu
