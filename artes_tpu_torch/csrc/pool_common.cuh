@@ -136,6 +136,12 @@ __device__ __forceinline__ void draws(uint32_t k0, uint32_t k1, uint32_t s, int 
 
 // ------------------------------------------------- closed-form radial ----
 
+// x^2 + y^2 + z^2 rounded as XLA compiles the reference's float32
+// expression, fma(z, z, fma(x, x, y y)) (the plain version's geometry.norm2)
+__device__ __forceinline__ float norm2(float x, float y, float z) {
+  return __fmaf_rn(z, z, __fmaf_rn(x, x, __fmul_rn(y, y)));
+}
+
 struct Ray {
   float A, Bq, Cq, inv_a, mb, sgn_b;
 };

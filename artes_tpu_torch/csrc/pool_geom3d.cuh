@@ -33,11 +33,26 @@ struct Grid3 {
   float same_eps, sel2, boundary_tol;
 };
 
+// a^2 u_x v_x + b^2 u_y v_y + c^2 u_z v_z as fma(c^2 u_z, v_z, fma(a^2 u_x,
+// v_x, b^2 u_y v_y)), the chain XLA compiles of the reference's float32
+// expression (the plain version's geometry._form and jumps.quad_terms).
+// These kernels' walks round their float32 geometry in such explicit
+// chains, as the plain version does (geometry.fmadd): how nvcc would
+// contract the same expressions depends on the code around them, and the
+// chains decide which walks graze a face. The closed-form radial kernel
+// keeps nvcc's contraction (pool_common.cuh::make_ray, emit_stellar), with
+// which its limits were read.
+__device__ __forceinline__ float form(const Scal& S, const float* u, const float* v) {
+  const float a2 = S.ob[0] * S.ob[0], b2 = S.ob[1] * S.ob[1], c2 = S.ob[2] * S.ob[2];
+  return __fmaf_rn(__fmul_rn(c2, u[2]), v[2],
+                   __fmaf_rn(__fmul_rn(a2, u[0]), v[0], __fmul_rn(__fmul_rn(b2, u[1]), v[1])));
+}
+
 // ----------------------------------------------------------- cell_face ----
 
 // stable quadratic roots, q-form (geometry._quadratic); absent roots are 0
 __device__ __forceinline__ void quadratic(float qa, float qb, float qc, float& s1, float& s2) {
-  const float disc = qb * qb - 4.0f * qa * qc;
+  const float disc = __fmaf_rn(qb, qb, -__fmul_rn(__fmul_rn(4.0f, qa), qc));
   const bool ok = disc >= 0.0f;
   const float sd = sqrtf(ok ? disc : 0.0f);
   const float q = qb == 0.0f ? -0.5f * sd : -0.5f * (qb + copysignf(sd, qb));
@@ -52,9 +67,14 @@ __device__ __forceinline__ float pick_root(float s1, float s2, float eps) {
   return (v1 && v2) ? fminf(s1, s2) : (v1 ? s1 : (v2 ? s2 : 0.0f));
 }
 
-__device__ __forceinline__ float sphere_distance(const Ray& r, float r_face, float eps) {
+// the sphere quadratic's A, B/2 and C + r^2 along a ray (geometry.sphere_quadratic)
+struct Quad {
+  float A, Bq, Cq;
+};
+
+__device__ __forceinline__ float sphere_distance(const Quad& r, float r_face, float eps) {
   float s1, s2;
-  quadratic(r.A, 2.0f * r.Bq, r.Cq - r_face * r_face, s1, s2);
+  quadratic(r.A, 2.0f * r.Bq, __fmaf_rn(-r_face, r_face, r.Cq), s1, s2);
   return pick_root(s1, s2, eps);
 }
 
@@ -70,14 +90,21 @@ __device__ float theta_distance(const Scal& S, const float* p, const float* d, f
   }
   const bool above = (flags & 2) != 0;
   const float a2 = S.ob[0] * S.ob[0], b2 = S.ob[1] * S.ob[1], c2 = S.ob[2] * S.ob[2];
-  const float t2 = tan_t * tan_t;
-  const float qa = a2 * d[0] * d[0] + b2 * d[1] * d[1] - c2 * nz * nz * t2;
-  const float qb = 2.0f * (a2 * p[0] * d[0] + b2 * p[1] * d[1] - c2 * z * nz * t2);
-  const float qc = a2 * p[0] * p[0] + b2 * p[1] * p[1] - c2 * z * z * t2;
+  const float t2 = __fmul_rn(tan_t, tan_t);
+  // geometry.cone_quadratic
+  const float qa = __fmaf_rn(-__fmul_rn(__fmul_rn(c2, nz), nz), t2,
+                             __fmaf_rn(__fmul_rn(a2, d[0]), d[0],
+                                       __fmul_rn(__fmul_rn(b2, d[1]), d[1])));
+  const float qb = 2.0f * __fmaf_rn(-__fmul_rn(__fmul_rn(c2, z), nz), t2,
+                                    __fmaf_rn(__fmul_rn(a2, p[0]), d[0],
+                                              __fmul_rn(__fmul_rn(b2, p[1]), d[1])));
+  const float qc = __fmaf_rn(-__fmul_rn(__fmul_rn(c2, z), z), t2,
+                             __fmaf_rn(__fmul_rn(a2, p[0]), p[0],
+                                       __fmul_rn(__fmul_rn(b2, p[1]), p[1])));
   float s[2];
   quadratic(qa, qb, qc, s[0], s[1]);
   for (int i = 0; i < 2; ++i) {
-    const float z_test = z + s[i] * nz;
+    const float z_test = __fmaf_rn(s[i], nz, z);
     const bool wrong = (z_test > 0.0f && !above) || (z_test < 0.0f && above);
     if (s[i] > S.pos_eps && wrong) s[i] = 0.0f;
   }
@@ -87,8 +114,10 @@ __device__ float theta_distance(const Scal& S, const float* p, const float* d, f
 // distance to a phi half-plane (geometry._phi_plane_distance)
 __device__ __forceinline__ float phi_distance(const Scal& S, const float* p, const float* d,
                                               float sin_p, float cos_p, float eps) {
-  const float denom = S.ob[1] * d[1] * cos_p - S.ob[0] * d[0] * sin_p;
-  const float s = (S.ob[0] * p[0] * sin_p - S.ob[1] * p[1] * cos_p)
+  const float denom = __fmaf_rn(__fmul_rn(S.ob[1], d[1]), cos_p,
+                                -__fmul_rn(__fmul_rn(S.ob[0], d[0]), sin_p));
+  const float s = __fmaf_rn(__fmul_rn(S.ob[0], p[0]), sin_p,
+                            -__fmul_rn(__fmul_rn(S.ob[1], p[1]), cos_p))
       / (denom == 0.0f ? 1.0f : denom);
   return (fabsf(denom) > 0.0f && s > eps && s < BIG) ? s : 0.0f;
 }
@@ -107,7 +136,7 @@ __device__ void cell_face(const Tables& T, const Grid3& G, const Scal& S, const 
   const int cr = cell[0], ct = cell[1], cp = cell[2];
   const int axis = face[0], fidx = face[1];
   const bool cur_r = axis == 1, cur_t = axis == 2, cur_p = axis == 3;
-  const Ray ray = make_ray(S, p, d);
+  const Quad ray{form(S, d, d), form(S, p, d), form(S, p, p)};
   float dist[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};   // r, theta, phi in; then out
 
   // radial: the inner sphere is skipped right after an outward crossing of
@@ -208,7 +237,7 @@ __device__ void locate_tp(const Grid3& G, float x, float y, float z, float r, in
 __device__ void heal_cell(const Tables& T, const Grid3& G, const Scal& S, const float* p,
                           int* cell) {
   const float x = p[0] * S.ob[0], y = p[1] * S.ob[1], z = p[2] * S.ob[2];
-  const float rho = sqrtf(x * x + y * y + z * z);
+  const float rho = sqrtf(norm2(x, y, z));
   const float r_lo = __ldg(T.rfront + min(max(cell[0], 0), T.nr - 1));
   const float r_hi = __ldg(T.rfront + min(max(cell[0] + 1, 0), T.nr));
   if (!(rho < r_lo - S.sel1 || rho > r_hi + S.sel1)) return;
@@ -227,6 +256,22 @@ __device__ __forceinline__ float error_code(bool e031, bool e034) {
 }
 
 // ------------------------------------------------------------ emission ----
+
+// stellar birth as pool_common.cuh::emit_stellar, the entry point in the
+// chains XLA compiles (kernel.disk_depth2, kernel.disk_position)
+__device__ __forceinline__ void emit_stellar_fma(const Scal& S, const float* d, bool crescent,
+                                                 float* pos, float* dir) {
+  const float u1 = crescent ? 0.81f + 0.19f * d[0] : d[0];
+  const float r_disk = sqrtf(u1);
+  const float phi = TWO_PI_F * d[1];
+  const float disk1 = r_disk * sinf(phi), disk2 = r_disk * cosf(phi);
+  const float depth = sqrtf(fmaxf(__fmaf_rn(-disk2, disk2, __fmaf_rn(-disk1, disk1, 1.0f)), 0.0f));
+  for (int k = 0; k < 3; ++k) {
+    pos[k] = __fmaf_rn(-depth, S.w_hat[k],
+                       __fmaf_rn(disk1, S.e1[k], __fmul_rn(disk2, S.e2[k]))) / S.ob[k];
+    dir[k] = S.u_hat[k];
+  }
+}
 
 // thermal birth (kernel._emit_thermal): the cell from the emissivity CDF
 // over all cells, a point inside it, an isotropic or Gordon-biased

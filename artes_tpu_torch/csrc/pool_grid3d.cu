@@ -78,6 +78,62 @@ __device__ __forceinline__ bool stable_roots(float A, float Bh, float C, float& 
   return ok || lin_ok;
 }
 
+// the ray's squared radius A s^2 + 2 Bq s + Cq in the chains XLA compiles
+// (jumps.quad_terms), where the closed-form kernel's make_ray
+// (pool_common.cuh) leaves it to nvcc
+__device__ __forceinline__ Ray make_ray_fma(const Scal& S, const float* p, const float* d) {
+  Ray r;
+  r.A = form(S, d, d);
+  r.Bq = form(S, p, d);
+  r.Cq = form(S, p, p);
+  r.inv_a = 1.0f / r.A;
+  r.mb = -r.Bq * r.inv_a;
+  r.sgn_b = r.Bq >= 0.0f ? 1.0f : -1.0f;
+  return r;
+}
+
+// stable q-form roots of the face sphere r_face, Cq - r^2 and the
+// discriminant in the chains XLA compiles (jumps.chord_disc), where the
+// closed-form kernel's roots leaves them to nvcc
+__device__ __forceinline__ bool roots_fma(const Ray& r, float r_face, float& lo, float& hi) {
+  const float Cj = __fmaf_rn(-r_face, r_face, r.Cq);
+  const float disc = __fmaf_rn(r.Bq, r.Bq, -__fmul_rn(r.A, Cj));
+  const bool ok = disc > 0.0f;
+  const float q = -(r.Bq + r.sgn_b * sqrtf(ok ? disc : 0.0f));
+  const float r1 = q * r.inv_a;
+  const float r2 = Cj / (q == 0.0f ? 1.0f : q);
+  lo = ok ? fminf(r1, r2) : r.mb;
+  hi = ok ? fmaxf(r1, r2) : r.mb;
+  return ok;
+}
+
+// the jump walk's baseline: the optical depth of the shells' kbar along the
+// ray's chords to the boundary or the floor at s_surf (radial.tau_walk)
+__device__ float tau_kbar(const Tables& T, const Grid3& G, const Ray& r, bool surface_hit,
+                          float s_surf) {
+  float tau = 0.0f, lo, hi;
+  roots_fma(r, __ldg(T.rfront + T.nr), lo, hi);
+  float e_hi = fmaxf(lo, 0.0f);
+  for (int m = T.nr - 1; m >= 0; --m) {
+    roots_fma(r, __ldg(T.rfront + m), lo, hi);
+    const float e_lo = fmaxf(lo, 0.0f);
+    const float seg = fmaxf(fminf(e_lo, s_surf) - fminf(e_hi, s_surf), 0.0f);
+    tau += __ldg(G.kbar + m) * seg;
+    e_hi = e_lo;
+  }
+  if (!surface_hit) {
+    roots_fma(r, __ldg(T.rfront), lo, hi);
+    float h_lo = fmaxf(hi, 0.0f);
+    for (int m = 0; m < T.nr; ++m) {
+      roots_fma(r, __ldg(T.rfront + m + 1), lo, hi);
+      const float h_hi = fmaxf(hi, 0.0f);
+      tau += __ldg(G.kbar + m) * fmaxf(h_hi - h_lo, 0.0f);
+      h_lo = h_hi;
+    }
+  }
+  return tau;
+}
+
 // a ray for the jump walk: the sphere quadratic and what the crossings need
 struct JumpRay {
   const float* p;
@@ -132,21 +188,22 @@ __device__ __forceinline__ float jump_term(float delta, float s_end, float t) {
 // (jumps.tau_walk_jumps); `cell` is the caller's current cell
 __device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, const float* p,
                                 const float* d, const int* cell, bool& surface_hit) {
-  Tables Tb = T;
-  Tb.opacity = G.kbar;
-  const float tau_bar = tau_walk(Tb, S, p, d, surface_hit);
   JumpRay J;
   J.p = p;
   J.d = d;
-  J.r = make_ray(S, p, d);
+  J.r = make_ray_fma(S, p, d);
   J.ax = S.ob[0];
   J.by = S.ob[1];
   J.sq_c = S.ob[2];
   J.cp0 = cell[2];
   J.lz_pos = (p[0] * d[1] - p[1] * d[0]) > 0.0f;
-  float s_surf;
-  floor_hit(J.r, S, s_surf);
-  J.s_end = surface_hit ? s_surf : face_out(J.r, __ldg(T.rfront + T.nr));
+  // the floor: hit where the forward path enters the photon-floor sphere
+  float lo_f, hi_f, lo_o, hi_o;
+  surface_hit = roots_fma(J.r, S.rfloor, lo_f, hi_f) && lo_f > S.pos_eps;
+  const float s_surf = surface_hit ? lo_f : BIG;
+  const float tau_bar = tau_kbar(T, G, J.r, surface_hit, s_surf);
+  roots_fma(J.r, __ldg(T.rfront + T.nr), lo_o, hi_o);
+  J.s_end = surface_hit ? s_surf : fmaxf(hi_o, 0.0f);
   const float s_end = J.s_end;
   const int nr = T.nr, NT = G.nt, NP = G.np;
   const float pz = p[2], dz = d[2];
@@ -157,7 +214,7 @@ __device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, 
   for (int j = 1; j < nr; ++j) {
     const float rf = __ldg(T.rfront + j);
     float lo, hi;
-    roots(J.r, rf, lo, hi);
+    roots_fma(J.r, rf, lo, hi);
     const float inv_rf = 1.0f / rf;
     const float* row = G.dr + (size_t)(j - 1) * NT * NP;
     for (int k = 0; k < 2; ++k) {
@@ -231,10 +288,11 @@ __device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float
     Step st;
     cell_face(T, G, S, pos, dir, cell, face, st);
     const float k = __ldg(T.opacity + (cell[0] * G.nt + cell[1]) * G.np + cell[2]);
-    const float tau_cell = st.dist * k;
-    const bool interact = tau_run + tau_cell > tau;
+    // the running optical depth as XLA compiles it (kernel._march_cells)
+    const float tau_cell = __fmul_rn(st.dist, k);
+    const bool interact = __fmaf_rn(st.dist, k, tau_run) > tau;
     const float step = interact ? (tau - tau_run) / (k == 0.0f ? 1.0f : k) : st.dist;
-    for (int i = 0; i < 3; ++i) pos[i] += step * dir[i];
+    for (int i = 0; i < 3; ++i) pos[i] = __fmaf_rn(step, dir[i], pos[i]);
     ctr += 3;
     e031 = st.nocand;
     e034 = st.degen;
@@ -250,7 +308,7 @@ __device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float
     // without a Lambert surface the photon floor absorbs
     if (st.axis == 1 && st.idx == G.cell_depth) return M_FLOOR;
     if (st.grid_exit) return M_EXIT;
-    tau_run += tau_cell;
+    tau_run = __fadd_rn(tau_run, tau_cell);
   }
   e032 = true;
   return M_ERROR;
@@ -316,11 +374,11 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
         }
       } else {
         draws(key_hi, pid, 0u, 2, d);
-        emit_stellar(S, d, crescent, pos, dir);
+        emit_stellar_fma(S, d, crescent, pos, dir);
         // the entry cell lies in the outermost shell, behind the outer face
         const float x = pos[0] * S.ob[0], y = pos[1] * S.ob[1], z = pos[2] * S.ob[2];
         cell[0] = T.nr - 1;
-        locate_tp(G, x, y, z, sqrtf(x * x + y * y + z * z), cell[1], cell[2]);
+        locate_tp(G, x, y, z, sqrtf(norm2(x, y, z)), cell[1], cell[2]);
         face[0] = 1;
         face[1] = T.nr;
         ctr = 2;

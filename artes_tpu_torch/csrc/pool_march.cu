@@ -16,18 +16,28 @@
 // surface) the floor absorbs through the same `u > albedo` test. A radial
 // grid runs with nt = np = 1.
 //
-// Design. One thread runs whole photons, grid-stride over the photon ids, on
-// the per-photon draw-site schedule of the JAX pool:
+// Design. A persistent grid, as pool_grid3d.cu's: the blocks the card holds
+// at once (four of 256 an SM for the surface instantiations, two with flow),
+// each lane taking photon ids from the launch's counter
+// (pool_common.cuh::next_photon) and running one step of its photon a loop
+// iteration: a new photon's emission, birth peel (thermal), prewalk and
+// first march, or one scattering round with its peel and its march. A lane
+// whose photon dies takes the next id in the next iteration, so no lane
+// waits for the longest photon of a static share. Photon streams are keyed
+// by (seed, photon id, draw site), on the per-photon draw-site schedule of
+// the JAX pool:
 //   emission: sites 0, 1 (stellar) or 0-5 (thermal);
 //   the forced first interaction: one site (the prewalk before it draws none);
 //   every scattering round: 5 sites (roulette, azimuth x2, zenith, tau);
 //   every pass of a transport march: 3 sites, the Lambert draws of a crossing
 //     onto the floor face, reserved on every pass.
-// There is no exit precheck: every photon marches to its end, so its site
-// counter advances as the JAX pool's does. A thread that reflects draws its
-// Lambertian direction about the ellipsoid normal, books the surface peel
+// Each photon's arithmetic is the same whichever lane runs it, so counts do
+// not depend on the launch; only the order of the per-thread double sums
+// moves. There is no exit precheck: every photon marches to its end, so its
+// site counter advances as the JAX pool's does. A lane that reflects draws
+// its Lambertian direction about the ellipsoid normal, books the surface peel
 // (a marching walk from the cell above, e^-tau cos / pi on Stokes I alone,
-// counted in the Stokes-I row only) and goes on marching in the same loop
+// counted in the Stokes-I row only) and goes on marching in the same march
 // with the optical depth it has left: the TPU kernel's SURF_PEEL stage and
 // banked budget have no counterpart. Peels and the prewalk march cell_face
 // too, stop at the grid's edge, the floor face or an error, and fail when
@@ -52,7 +62,9 @@
 //
 // What bounds it on an H100: arithmetic, divergence and table latency, as
 // pool_grid3d.cu, with longer marches (escaping photons cross the whole grid)
-// and, with FLOW, four to five double reductions a pass.
+// and, with FLOW, four to five double reductions a pass. A lane still waits
+// for the longest march of its warp within one loop iteration (a march made
+// resumable, one pass an iteration, lost on the surface cells: PERF.md).
 
 #include "pool_geom3d.cuh"
 
@@ -84,13 +96,14 @@ __device__ Walk tau_walk_march(const Tables& T, const Grid3& G, const Scal& S, c
     Step st;
     cell_face(T, G, S, pos, d, cell, face, st);
     passes += 1;
-    w.tau += st.dist * __ldg(T.opacity + (cell[0] * G.nt + cell[1]) * G.np + cell[2]);
+    w.tau = __fadd_rn(w.tau, __fmul_rn(st.dist, __ldg(T.opacity + (cell[0] * G.nt + cell[1])
+                                                      * G.np + cell[2])));
     w.exited = st.grid_exit;
     w.surface = st.axis == 1 && st.idx == G.cell_depth;
     w.error = st.nocand || st.degen;
     if (w.exited || w.surface || w.error) return w;
     for (int i = 0; i < 3; ++i) {
-      pos[i] += st.dist * d[i];
+      pos[i] = __fmaf_rn(st.dist, d[i], pos[i]);
       cell[i] = st.cell[i];
     }
     face[0] = st.axis;
@@ -144,10 +157,11 @@ __device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float
     cnt[C_PASSES] += 1;
     const int cf = (cell[0] * G.nt + cell[1]) * G.np + cell[2];
     const float k = __ldg(T.opacity + cf);
-    const float tau_cell = st.dist * k;
-    const bool interact = tau_run + tau_cell > tau;
+    // the running optical depth as XLA compiles it (kernel._march_cells)
+    const float tau_cell = __fmul_rn(st.dist, k);
+    const bool interact = __fmaf_rn(st.dist, k, tau_run) > tau;
     const float step = interact ? (tau - tau_run) / (k == 0.0f ? 1.0f : k) : st.dist;
-    for (int i = 0; i < 3; ++i) pos[i] += step * dir[i];
+    for (int i = 0; i < 3; ++i) pos[i] = __fmaf_rn(step, dir[i], pos[i]);
     if constexpr (FLOW) {
       flow_book(fl, G, pos, dir, stokes[0], step, cf, st, cell, !interact);
       cnt[C_BOOKED] += 1;
@@ -195,7 +209,7 @@ __device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float
     if (err) return M_ERROR;
     if (absorbed) return M_FLOOR;
     if (st.grid_exit) return M_EXIT;
-    tau_run += tau_cell;
+    tau_run = __fadd_rn(tau_run, tau_cell);
   }
   e032 = true;
   return M_ERROR;
@@ -203,15 +217,16 @@ __device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float
 
 // -------------------------------------------------------------- kernel ----
 
-// two blocks of 256 threads an SM hold ptxas to 128 registers a thread, as
-// it chooses for the other pool kernels
+// Registers budgeted for four blocks of 256 an SM on a surface (64, spilling:
+// more warps hide the latency), two with flow (128, no spills), the fastest
+// of one to four on an H100 (PERF.md)
 template <bool THERMAL, bool IMAGE, bool FLOW>
-__global__ void __launch_bounds__(256, 2)
+__global__ void __launch_bounds__(256, FLOW ? 2 : 4)
 pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
                   uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
                   int flags, float surface_albedo, double* __restrict__ out_d,
                   unsigned long long* __restrict__ out_i, double* flow_g, double* flow_t,
-                  double* flow_buf) {
+                  double* flow_buf, unsigned long long* next_id) {
   const int ncell = T.nr * G.nt * G.np;
   Flow fl{nullptr, nullptr};
   if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_buf, ncell);
@@ -229,106 +244,95 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
   unsigned long long cnt[N_OUT_IM] = {0ull, 0ull, 0ull, 0ull, 0ull, 0ull,
                                       0ull, 0ull, 0ull, 0ull, 0ull, 0ull};
 
-  const uint64_t stride = (uint64_t)gridDim.x * blockDim.x;
-  for (uint64_t i = (uint64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_photons; i += stride) {
-    const uint32_t pid = id_lo + (uint32_t)i;
-    cnt[2] += 1;
-    float d[6];
-    float pos[3], dir[3];
-    int cell[3], face[2];
-    float st[4] = {1.0f, 0.0f, 0.0f, 0.0f};
-    uint32_t ctr;
+  // the lane's photon: alive between an interaction and the scattering round
+  // that follows it; tau is the optical depth its next march runs to. A
+  // scatter peel that failed is recorded after the round's march, with the
+  // walk's input state, unless that march failed too
+  bool alive = false, peel_failed = false;
+  uint32_t pid = 0u, ctr = 0u;
+  int n_scat = 0;
+  float pos[3], dir[3], st[4], d[6];
+  int cell[3], face[2];
+  float tau = 0.0f;
+  float peel_pos[3] = {0.0f, 0.0f, 0.0f};
+  int peel_cell[3] = {0, 0, 0}, peel_face[2] = {0, 0};
 
-    if constexpr (THERMAL) {
-      draws6(key_hi, pid, d);
-      st[0] = emit_thermal(T, G, S, d, biased, pos, dir, cell);
-      face[0] = face[1] = 0;
-      acc[8] += (double)st[0];
-      ctr = 6;
-      // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598); a
-      // failed walk abandons the photon
-      const Walk w = tau_walk_march(T, G, S, pos, S.det, cell, face, cnt[C_PASSES]);
-      if (w.error) {
+  // one loop iteration: a new photon's emission, prewalk and first march for
+  // a lane without one, a scattering round, its peel and its march for a lane
+  // with one
+  while (true) {
+    if (!alive) {
+      const unsigned long long i = next_photon(next_id);
+      if (i >= n_photons) break;
+      pid = id_lo + (uint32_t)i;
+      cnt[2] += 1;
+      st[0] = 1.0f;
+      st[1] = st[2] = st[3] = 0.0f;
+      if constexpr (THERMAL) {
+        draws6(key_hi, pid, d);
+        st[0] = emit_thermal(T, G, S, d, biased, pos, dir, cell);
+        face[0] = face[1] = 0;
+        acc[8] += (double)st[0];
+        ctr = 6;
+        // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598); a
+        // failed walk abandons the photon
+        const Walk w = tau_walk_march(T, G, S, pos, S.det, cell, face, cnt[C_PASSES]);
+        if (w.error) {
+          cnt[C_ERR] += 1;
+          cnt[C_EPEEL] += 1;
+          continue;
+        }
+        const int pix = pixel_of<IMAGE>(S, img, pos);
+        if (w.exited && w.tau < 50.0f && pix >= 0) {
+          const float v = expf(-fminf(w.tau, 500.0f)) / FOUR_PI_F * st[0];
+          book<IMAGE, 1>(img, pix, &v, acc);
+          cnt[3] += 1;
+        }
+      } else {
+        draws(key_hi, pid, 0u, 2, d);
+        emit_stellar_fma(S, d, crescent, pos, dir);
+        // the entry cell lies in the outermost shell, behind the outer face
+        const float x = pos[0] * S.ob[0], y = pos[1] * S.ob[1], z = pos[2] * S.ob[2];
+        cell[0] = T.nr - 1;
+        locate_tp(G, x, y, z, sqrtf(norm2(x, y, z)), cell[1], cell[2]);
+        face[0] = 1;
+        face[1] = T.nr;
+        ctr = 2;
+      }
+
+      // prewalk along the photon's direction, then the forced first interaction
+      const Walk pre = tau_walk_march(T, G, S, pos, dir, cell, face, cnt[C_PASSES]);
+      if (pre.error) {
         cnt[C_ERR] += 1;
-        cnt[C_EPEEL] += 1;
+        cnt[C_E031] += 1;
+        record_error(G.rec, 31.0f, pid, pos, dir, cell, face, st[0], 0, 2.0f);
         continue;
       }
-      const int pix = pixel_of<IMAGE>(S, img, pos);
-      if (w.exited && w.tau < 50.0f && pix >= 0) {
-        const float v = expf(-fminf(w.tau, 500.0f)) / FOUR_PI_F * st[0];
-        book<IMAGE, 1>(img, pix, &v, acc);
-        cnt[3] += 1;
-      }
+      draws(key_hi, pid, ctr, 1, d);
+      ctr += 1;
+      const bool thin = pre.tau < 1.0e-6f;
+      if (thin && !pre.surface) continue;       // vacuum, no surface
+      const bool forced = !thin && pre.tau < 50.0f;
+      const float one_m_exp = 1.0f - expf(-pre.tau);
+      tau = forced ? -logf(1.0f - d[0] * one_m_exp) : -logf(1.0f - d[0]);
+      if (forced) st[0] *= one_m_exp;
+      n_scat = 0;
     } else {
-      draws(key_hi, pid, 0u, 2, d);
-      emit_stellar(S, d, crescent, pos, dir);
-      // the entry cell lies in the outermost shell, behind the outer face
-      const float x = pos[0] * S.ob[0], y = pos[1] * S.ob[1], z = pos[2] * S.ob[2];
-      cell[0] = T.nr - 1;
-      locate_tp(G, x, y, z, sqrtf(x * x + y * y + z * z), cell[1], cell[2]);
-      face[0] = 1;
-      face[1] = T.nr;
-      ctr = 2;
-    }
-
-    // prewalk along the photon's direction, then the forced first interaction
-    const Walk pre = tau_walk_march(T, G, S, pos, dir, cell, face, cnt[C_PASSES]);
-    if (pre.error) {
-      cnt[C_ERR] += 1;
-      cnt[C_E031] += 1;
-      record_error(G.rec, 31.0f, pid, pos, dir, cell, face, st[0], 0, 2.0f);
-      continue;
-    }
-    draws(key_hi, pid, ctr, 1, d);
-    ctr += 1;
-    const bool thin = pre.tau < 1.0e-6f;
-    if (thin && !pre.surface) continue;       // vacuum, no surface
-    const bool forced = !thin && pre.tau < 50.0f;
-    const float one_m_exp = 1.0f - expf(-pre.tau);
-    float tau = forced ? -logf(1.0f - d[0] * one_m_exp) : -logf(1.0f - d[0]);
-    if (forced) st[0] *= one_m_exp;
-
-    // scattering rounds (ARTES.f90:786-951); round 0 is the first march. A
-    // scatter peel that failed is recorded after the round's march, with the
-    // walk's input state, unless that march failed too
-    bool peel_failed = false;
-    float peel_pos[3] = {0.0f, 0.0f, 0.0f};
-    int peel_cell[3] = {0, 0, 0}, peel_face[2] = {0, 0};
-    for (int n_scat = 0;; ++n_scat) {
-      bool e031, e032, e034;
-      const int out = march_cells<IMAGE, FLOW>(T, G, S, surface_albedo, img, fl, key_hi, pid, pos,
-                                               dir, cell, face, st, tau, ctr, acc, cnt, e031,
-                                               e032, e034);
-      if (out == M_ERROR) {
-        cnt[C_ERR] += 1;
-        cnt[C_E031] += e031;
-        cnt[C_E032] += e032;
-        cnt[C_E034] += e034;
-        record_error(G.rec, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat,
-                     n_scat == 0 ? 1.0f : 0.0f);
-      } else if (peel_failed) {
-        record_error(G.rec, 50.0f, pid, peel_pos, dir, peel_cell, peel_face, st[0], n_scat, 3.0f);
-      }
-      peel_failed = false;
-      if (out != M_INTER) {
-        if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
-        break;
-      }
-      if (no_scatter) break;                         // only the first march
+      // the scattering round after march n_scat (ARTES.f90:786-951)
+      alive = false;
       if (n_scat > 0 && n_scat >= max_scatter) {
         cnt[1] += 1;
-        break;
+        continue;
       }
-
       heal_cell(T, G, S, pos, cell);
       const int cf = (cell[0] * G.nt + cell[1]) * G.np + cell[2];
       draws(key_hi, pid, ctr, 5, d);
       ctr += 5;
-      if (d[0] < S.fstop) break;                     // roulette
+      if (d[0] < S.fstop) continue;                  // roulette
       const float alb = __ldg(T.albedo + cf);
       const float gamma = (alb < 1.0f && alb > 0.0f) ? alb / (1.0f - S.fstop) : 1.0f;
       for (int k = 0; k < 4; ++k) st[k] *= gamma;
-      if (st[0] <= S.pmin) break;
+      if (st[0] <= S.pmin) continue;
 
       float contrib[4];
       peel_prep(T, S, dir, cf, st, contrib);
@@ -343,10 +347,11 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
                             dir_new[2], false);
       for (int k = 0; k < 3; ++k) dir[k] = dir_new[k];
       if (debug_stokes && stokes_anomaly(st)) {
+        // abandoned before its peel and march, recorded at site 4
         cnt[C_ERR] += 1;
         cnt[C_ANOM] += 1;
         record_error(G.rec, 50.0f, pid, pos, dir, cell, face, st[0], n_scat, 4.0f);
-        break;
+        continue;
       }
 
       const Walk peel = tau_walk_march(T, G, S, pos, S.det, cell, face, cnt[C_PASSES]);
@@ -366,9 +371,29 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
         book<IMAGE, 4>(img, pix, v, acc);
         cnt[0] += 1;
       }
-
       tau = -logf(1.0f - d[4]);
+      n_scat += 1;
     }
+
+    // march n_scat (the first march is march 0)
+    bool e031, e032, e034;
+    const int out = march_cells<IMAGE, FLOW>(T, G, S, surface_albedo, img, fl, key_hi, pid, pos,
+                                             dir, cell, face, st, tau, ctr, acc, cnt, e031, e032,
+                                             e034);
+    if (out == M_ERROR) {
+      cnt[C_ERR] += 1;
+      cnt[C_E031] += e031;
+      cnt[C_E032] += e032;
+      cnt[C_E034] += e034;
+      record_error(G.rec, error_code(e031, e034), pid, pos, dir, cell, face, st[0], n_scat,
+                   n_scat == 0 ? 1.0f : 0.0f);
+    } else if (peel_failed) {
+      record_error(G.rec, 50.0f, pid, peel_pos, dir, peel_cell, peel_face, st[0], n_scat, 3.0f);
+    }
+    peel_failed = false;
+    if (THERMAL && out == M_EXIT) acc[9] += (double)st[0];
+    // scattering off: only the first march
+    alive = out == M_INTER && !no_scatter;
   }
 
   if constexpr (FLOW) flow_end(flow_g, flow_t, fl, ncell);
@@ -376,7 +401,8 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
 }
 
 using KernelFn = void (*)(Tables, Grid3, const float*, Image, uint32_t, uint32_t, uint32_t, int,
-                          int, float, double*, unsigned long long*, double*, double*, double*);
+                          int, float, double*, unsigned long long*, double*, double*, double*,
+                          unsigned long long*);
 // the instantiation of a variant: bit 0 thermal, bit 1 image, bit 2 flow
 KernelFn variant_fn(int variant) {
   switch (variant) {
@@ -387,9 +413,15 @@ KernelFn variant_fn(int variant) {
     case 4: return pool_march_kernel<false, false, true>;
     case 5: return pool_march_kernel<true, false, true>;
     case 6: return pool_march_kernel<false, true, true>;
-    case 7: return pool_march_kernel<true, true, true>;
-    default: return nullptr;
+    default: return pool_march_kernel<true, true, true>;
   }
+}
+
+// the persistent grid of a launch of `variant` with n photons; 0 blocks when
+// the card's occupancy cannot be read
+int launch_grid(int variant, unsigned int n, int threads) {
+  const int resident = resident_blocks(variant, variant_fn(variant), threads);
+  return resident < 1 ? 0 : persistent_blocks(resident, n, threads);
 }
 
 }  // namespace
@@ -403,16 +435,20 @@ KernelFn variant_fn(int variant) {
 // {same_eps, sel2, boundary_tol, surface_albedo}. out_d: 10 doubles as the
 // radial kernel's; out_i: pool_grid3d's 9 counters, then the scatter and
 // birth peel walks that failed, the passes of cell_face made and the passes
-// that booked flow. `flags` as pool_radial's. The flow diagnostics go into
-// flow_g (ncell, 3) and flow_t (ncell, 4), through a copy a block in
-// flow_buf where that is given, a zeroed buffer of `blocks` x 7 ncell
-// doubles (pool_common.cuh::flow_begin), else straight.
+// that booked flow. `flags` as pool_radial's. The grid is persistent, as
+// pool_grid3d's: the blocks the card holds at once (fewer for a small
+// launch; artes_pool_march_blocks gives them), whose lanes take photon ids
+// id_lo + *next_id from the launch's counter, which the caller zeroes. The
+// flow diagnostics go into flow_g (ncell, 3) and flow_t (ncell, 4), through
+// a copy a block in flow_buf where that is given, a zeroed buffer of
+// flow_buf_blocks x 7 ncell doubles (pool_common.cuh::flow_begin), else
+// straight.
 extern "C" int artes_pool_march_launch(
     const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
     double* img_sums, unsigned long long* img_counts, double* out_d, unsigned long long* out_i,
-    double* flow_g, double* flow_t, double* flow_buf, int blocks, int threads,
-    void* stream) {
+    double* flow_g, double* flow_t, double* flow_buf, int flow_buf_blocks,
+    unsigned long long* next_id, int threads, void* stream) {
   auto f = [&](int i) { return (const float*)tables[i]; };
   Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
   Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
@@ -421,13 +457,22 @@ extern "C" int artes_pool_march_launch(
           sizes[1], sizes[2], sizes[3], sizes[4],
           eps[0], eps[1], eps[2]};
   Image img{img_sums, img_counts, sizes[6], sizes[7]};
-  const KernelFn fn = variant_fn(variant);
-  if (fn == nullptr || threads > 256 || threads % 32 != 0 || blocks < 1)
+  if (variant < 0 || variant > 7 || threads > 256 || threads % 32 != 0 || threads < 32)
     return (int)cudaErrorInvalidValue;
-  fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = launch_grid(variant, n_photons, threads);
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  if (flow_buf != nullptr && blocks > flow_buf_blocks) return (int)cudaErrorInvalidValue;
+  variant_fn(variant)<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, eps[3], out_d, out_i,
-      flow_g, flow_t, flow_buf);
+      flow_g, flow_t, flow_buf, next_id);
   return (int)cudaGetLastError();
+}
+
+// The blocks of a launch of `variant` with n_photons and `threads` a block
+// (0 when the card's occupancy cannot be read).
+extern "C" int artes_pool_march_blocks(int variant, unsigned int n_photons, int threads) {
+  if (variant < 0 || variant > 7) return 0;
+  return launch_grid(variant, n_photons, threads);
 }
 
 // Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_IM, N_IMG_D, N_IMG_I, REC_W}.

@@ -176,7 +176,7 @@ __device__ int march(const Tables& T, const Scal& S, const float* p, const float
 // (geometry.heal_cell, radial part)
 __device__ int heal_cell(const Tables& T, const Scal& S, const float* p, int cr) {
   const float x = p[0] * S.ob[0], y = p[1] * S.ob[1], z = p[2] * S.ob[2];
-  const float rho = sqrtf(x * x + y * y + z * z);
+  const float rho = sqrtf(norm2(x, y, z));
   const float r_lo = __ldg(T.rfront + min(max(cr, 0), T.nr - 1));
   const float r_hi = __ldg(T.rfront + min(cr + 1, T.nr));
   if (!(rho < r_lo - S.sel1 || rho > r_hi + S.sel1)) return cr;

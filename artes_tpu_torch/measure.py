@@ -12,15 +12,17 @@ earlier commit, unpacked beside this one) and of this one on the same card,
 in turns (other, this, this, other), one process each, on the cells of
 ``COMPARE_CELLS`` (``cells.KERNEL_CELLS``, seed 7): the radial pool kernel on
 the flagship at 2^20 and 2^24 photons and on hydrostatic39, imaging25 and
-thermal_iso at 2^20; every flow instantiation (the closed-form ones at 2^20,
-the marching ones at 2^16); the 3-D kernel on grid3d_2496, grid3d_thermal
-and blended_5184 at 2^18; the marching kernel on lambert_tau05 at 2^20; and
-the probe splat at 625, 2025 and 10201 pixels. It prints each time (median
-of 5 after a warm launch, CUDA events), whether every count (the detector's,
-the photons emitted, capped and abandoned, the error codes and the flow
-bookings) is equal and every sum within 1e-12 relative between the two
-checkouts, and the probe splat's library yardsticks
-(``probe_splat.library_yardsticks``).
+thermal_iso at 2^20; the closed-form flow instantiations at 2^20; the 3-D
+kernel on grid3d_2496, grid3d_thermal and blended_5184 at 2^18; the marching
+kernel on every surface and marching flow cell at its gate photons
+(``MARCH_CELLS``); the probe splat at 625, 2025 and 10201 pixels; and the
+mesh reduction alone, a flagship launch of 2^20 photons summed over a
+one-rank NCCL group as ``run_stream_mesh`` sums it. It prints each time
+(median of 5 after a warm launch, CUDA events), whether every count (the
+detector's, the photons emitted, capped and abandoned, the error codes, the
+``cell_face`` passes and the flow bookings) is equal and every sum within
+1e-12 relative between the two checkouts, and the probe splat's library
+yardsticks (``probe_splat.library_yardsticks``).
 
 ``rates`` holds the float32 error tallies of the marching kernel against its
 plain version where ``cells.SURFACE_MAX_SCATTER`` cuts the gate's orders:
@@ -38,13 +40,15 @@ kernel's abandoned photons on grid3d_2496 at 2^24 photons, seed 30 (the
 seed of the TPU's 774 of 2^25).
 
 ``contraction`` builds variants of ``csrc/pool_march.cu`` under ``build/``
-(never loaded by the main path): nvcc's default, the whole file with
-``-fmad=false``, that with the sphere quadratic's constant term ``qc`` alone
-fused (``__fmaf_rn``), and the default with one site at a time rounded op by
-op (``__fmul_rn``, ``__fadd_rn``): ``qc``, ``qb``, ``qa``, the discriminant,
-the phi half-plane and the position updates. Each runs the uncut surface
-cells of ``rates`` at 2^16 and 2^20 photons, seed 7, and prints its error
-tallies: the failed peels say which contraction decides them.
+(never loaded by the main path): the default (the walks' geometry in
+explicit chains of fused multiply-adds, the rest as nvcc contracts it), the
+rest with ``-fmad=false``, that with the chains rounded op by op too, and
+the default with one chain at a time rounded op by op (``__fmul_rn``,
+``__fadd_rn``): the sphere quadratic's constant term ``qc``, its ``qa``,
+``qb`` and ``Cq``, the discriminant, the phi half-plane and the position
+updates. Each runs the uncut surface cells of ``rates`` at 2^16 and 2^20
+photons, seed 7, and prints its error tallies: the failed peels say which
+chain decides them.
 
 ``clocks`` runs the instrumented build of the radial kernel,
 ``pool_radial_clocks`` (``csrc/pool_radial.cu`` with ``ARTES_POOL_CLOCKS``,
@@ -72,15 +76,19 @@ import subprocess
 import sys
 
 PHOTONS = 1 << 20
+# the surface cells and the marching flow cells, each at its gate photons
+MARCH_CELLS = (("lambert_tau05", PHOTONS), ("thermal_surface", PHOTONS),
+               ("lambert_imaging25", PHOTONS), ("thermal_surface_imaging25", PHOTONS),
+               ("lambert_thick", 1 << 16), ("hydrostatic39_surface", 1 << 16),
+               ("grid3d_2496_surface", 1 << 16), ("grid3d_2496_flow", 1 << 16),
+               ("grid3d_thermal_flow", 1 << 16), ("patchy3d_imaging25_surface_flow", 1 << 16),
+               ("grid3d_thermal_surface_flow", 1 << 16))
 COMPARE_CELLS = (("flagship", 1 << 20), ("flagship", 1 << 24), ("hydrostatic39", PHOTONS),
                  ("imaging25", PHOTONS), ("thermal_iso", PHOTONS),
                  ("hydrostatic39_flow", PHOTONS), ("thermal_flow", PHOTONS),
                  ("imaging25_flow", PHOTONS), ("thermal_imaging25_flow", PHOTONS),
-                 ("grid3d_2496_flow", 1 << 16), ("grid3d_thermal_flow", 1 << 16),
-                 ("patchy3d_imaging25_surface_flow", 1 << 16),
-                 ("grid3d_thermal_surface_flow", 1 << 16), ("grid3d_2496", 1 << 18),
-                 ("grid3d_thermal", 1 << 18), ("blended_5184", 1 << 18),
-                 ("lambert_tau05", PHOTONS))
+                 ("grid3d_2496", 1 << 18), ("grid3d_thermal", 1 << 18),
+                 ("blended_5184", 1 << 18)) + MARCH_CELLS
 PROBE_SIZES = (625, 2025, 10201)
 REPS = 5
 SUM_RTOL = 1e-12
@@ -117,11 +125,32 @@ for name, n in cells:
     res["cells"][f"{name}@{n}"] = dict(
         ms=ms, detector=out["detector"].cpu().reshape(-1).tolist(),
         fluxes=[float(out["flux_emitted"]), float(out["flux_exit"])], flow=flow,
-        ints=[int(out[k]) for k in ("n_emitted", "n_alive_at_cap", "n_error", "n_flow_booked")
+        ints=[int(out[k]) for k in ("n_emitted", "n_alive_at_cap", "n_error", "n_cell_face",
+                                    "n_flow_booked")
               if out.get(k) is not None] + out["error_codes"].cpu().tolist())
 for npix in sizes:
     ms, (vals, counts) = timed(lambda: P.splat(npix, device=dev))
     res["probe"][str(npix)] = dict(ms=ms, vals=float(vals.sum()), counts=int(counts.sum()))
+# the mesh reduction alone: a flagship launch of 2^20 photons summed over a
+# one-rank NCCL group, as run_stream_mesh launches it
+import inspect, os, socket
+from artes_tpu_torch.parallel import mesh, multihost
+with socket.socket() as sock:
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0",
+                  LOCAL_RANK="0")
+multihost.initialize("nccl", timeout_s=300)
+m = mesh.make_mesh("cuda")
+tables, static = KERNEL_CELLS["flagship"](dev)
+kw = ({"host_records": False} if "host_records" in
+      inspect.signature(pool_cuda.run_stream_cuda).parameters else {})
+mine = pool_cuda.run_stream_cuda(tables, static, 1 << 20, 7, **kw)
+mesh.all_reduce_outputs(mine, m)
+reduce_ms, got = timed(lambda: mesh.all_reduce_outputs(mine, m))
+res["mesh"] = dict(ms=reduce_ms, counts=int(got["detector"][..., 2].sum()),
+                   sums=float(got["detector"][..., 0].sum()))
+torch.distributed.destroy_process_group()
 print(json.dumps(res))
 '''
 
@@ -193,6 +222,15 @@ def compare(other: str) -> int:
               f"{t[0]:.3f} / {t[1]:.3f} ms ({min(o) / min(t):.3f}x); totals "
               f"{'equal' if same else 'DIFFERENT'}; index_add_ values {lib_v:.3f} ms, values "
               f"and counts {lib_vc:.3f} ms; {card}")
+    t = [r["mesh"]["ms"] for r in got["this"]]
+    o = [r["mesh"]["ms"] for r in got["other"]]
+    mine = got["this"][0]["mesh"]
+    same = all(mine["counts"] == r["mesh"]["counts"]
+               and _rel([mine["sums"]], [r["mesh"]["sums"]]) <= SUM_RTOL for r in got["other"])
+    ok = ok and same
+    print(f"[compare] mesh reduction alone (flagship, 2^20 photons, one NCCL rank): other "
+          f"{o[0] * 1e3:.1f} / {o[1] * 1e3:.1f} us, this {t[0] * 1e3:.1f} / {t[1] * 1e3:.1f} us "
+          f"({min(o) / min(t):.3f}x); totals {'equal' if same else 'DIFFERENT'}; {card}")
     return 0 if ok else 1
 
 
@@ -264,42 +302,39 @@ def rates() -> int:
     return 0 if ok else 1
 
 
-# pool_march.cu's float32 sites, rounded op by op: (site, file, text, replacement)
-_ROUNDED = "__fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(a2, {0}[0]), {1}[0]), " \
-    "__fmul_rn(__fmul_rn(b2, {0}[1]), {1}[1])), __fmul_rn(__fmul_rn(c2, {0}[2]), {1}[2]))"
+# pool_march.cu's float32 chains, rounded op by op: (site, file, text, replacement)
+_OP_BY_OP_FORM = ("__fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(a2, u[0]), v[0]), "
+                  "__fmul_rn(__fmul_rn(b2, u[1]), v[1])), __fmul_rn(__fmul_rn(c2, u[2]), v[2]))")
 _SITES = (
-    ("qc", "pool_common.cuh", "r.Cq = a2 * p[0] * p[0] + b2 * p[1] * p[1] + c2 * p[2] * p[2];",
-     "r.Cq = " + _ROUNDED.format("p", "p") + ";"),
-    ("qc", "pool_geom3d.cuh", "r.Cq - r_face * r_face", "__fsub_rn(r.Cq, __fmul_rn(r_face, r_face))"),
-    ("qb", "pool_common.cuh", "r.Bq = a2 * p[0] * d[0] + b2 * p[1] * d[1] + c2 * p[2] * d[2];",
-     "r.Bq = " + _ROUNDED.format("p", "d") + ";"),
-    ("qa", "pool_common.cuh", "r.A = a2 * d[0] * d[0] + b2 * d[1] * d[1] + c2 * d[2] * d[2];",
-     "r.A = " + _ROUNDED.format("d", "d") + ";"),
-    ("disc", "pool_geom3d.cuh", "const float disc = qb * qb - 4.0f * qa * qc;",
-     "const float disc = __fsub_rn(__fmul_rn(qb, qb), __fmul_rn(__fmul_rn(4.0f, qa), qc));"),
+    ("qc", "pool_geom3d.cuh", "__fmaf_rn(-r_face, r_face, r.Cq)",
+     "__fsub_rn(r.Cq, __fmul_rn(r_face, r_face))"),
+    ("qa, qb, Cq", "pool_geom3d.cuh",
+     "return __fmaf_rn(__fmul_rn(c2, u[2]), v[2],\n"
+     "                   __fmaf_rn(__fmul_rn(a2, u[0]), v[0], "
+     "__fmul_rn(__fmul_rn(b2, u[1]), v[1])));",
+     "return " + _OP_BY_OP_FORM + ";"),
+    ("disc", "pool_geom3d.cuh", "__fmaf_rn(qb, qb, -__fmul_rn(__fmul_rn(4.0f, qa), qc))",
+     "__fsub_rn(__fmul_rn(qb, qb), __fmul_rn(__fmul_rn(4.0f, qa), qc))"),
     ("phi", "pool_geom3d.cuh",
-     "const float denom = S.ob[1] * d[1] * cos_p - S.ob[0] * d[0] * sin_p;",
-     "const float denom = __fsub_rn(__fmul_rn(__fmul_rn(S.ob[1], d[1]), cos_p), "
-     "__fmul_rn(__fmul_rn(S.ob[0], d[0]), sin_p));"),
+     "__fmaf_rn(__fmul_rn(S.ob[1], d[1]), cos_p,\n"
+     "                                -__fmul_rn(__fmul_rn(S.ob[0], d[0]), sin_p))",
+     "__fsub_rn(__fmul_rn(__fmul_rn(S.ob[1], d[1]), cos_p), "
+     "__fmul_rn(__fmul_rn(S.ob[0], d[0]), sin_p))"),
     ("phi", "pool_geom3d.cuh",
-     "const float s = (S.ob[0] * p[0] * sin_p - S.ob[1] * p[1] * cos_p)",
-     "const float s = __fsub_rn(__fmul_rn(__fmul_rn(S.ob[0], p[0]), sin_p), "
+     "__fmaf_rn(__fmul_rn(S.ob[0], p[0]), sin_p,\n"
+     "                            -__fmul_rn(__fmul_rn(S.ob[1], p[1]), cos_p))",
+     "__fsub_rn(__fmul_rn(__fmul_rn(S.ob[0], p[0]), sin_p), "
      "__fmul_rn(__fmul_rn(S.ob[1], p[1]), cos_p))"),
-    ("pos", "pool_march.cu", "pos[i] += st.dist * d[i];",
+    ("pos", "pool_march.cu", "pos[i] = __fmaf_rn(st.dist, d[i], pos[i]);",
      "pos[i] = __fadd_rn(pos[i], __fmul_rn(st.dist, d[i]));"),
-    ("pos", "pool_march.cu", "for (int i = 0; i < 3; ++i) pos[i] += step * dir[i];",
-     "for (int i = 0; i < 3; ++i) pos[i] = __fadd_rn(pos[i], __fmul_rn(step, dir[i]));"),
-    ("qc fused", "pool_common.cuh",
-     "r.Cq = a2 * p[0] * p[0] + b2 * p[1] * p[1] + c2 * p[2] * p[2];",
-     "r.Cq = __fmaf_rn(__fmul_rn(c2, p[2]), p[2], __fmaf_rn(__fmul_rn(a2, p[0]), p[0], "
-     "__fmul_rn(__fmul_rn(b2, p[1]), p[1])));"),
-    ("qc fused", "pool_geom3d.cuh", "r.Cq - r_face * r_face", "__fmaf_rn(-r_face, r_face, r.Cq)"),
+    ("pos", "pool_march.cu", "pos[i] = __fmaf_rn(step, dir[i], pos[i]);",
+     "pos[i] = __fadd_rn(pos[i], __fmul_rn(step, dir[i]));"),
 )
-# variant -> (sites rounded or fused, extra nvcc flags)
+_CHAIN_SITES = ("qc", "qa, qb, Cq", "disc", "phi", "pos")
+# variant -> (sites rounded op by op, extra nvcc flags)
 _CONTRACTION = {"default": ((), ()), "-fmad=false": ((), ("-fmad=false",)),
-                "-fmad=false, qc fused": (("qc fused",), ("-fmad=false",)),
-                **{f"{site} op by op": ((site,), ()) for site in
-                   ("qc", "qb", "qa", "disc", "phi", "pos")}}
+                "-fmad=false, chains op by op": (_CHAIN_SITES, ("-fmad=false",)),
+                **{f"{site} op by op": ((site,), ()) for site in _CHAIN_SITES}}
 
 
 def _contraction_build(label: str) -> str:

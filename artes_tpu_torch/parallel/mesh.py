@@ -7,12 +7,19 @@ loop over photons with per-thread detectors reduced at the end
 group takes a contiguous sub-range of a chunk's photon ids
 (:func:`split_ids`), runs it through the kernel of the configuration on its
 own card (``pool_cuda.run_stream_cuda``; on the CPU the plain
-``kernel.run_stream``), and the tallies are summed over the ranks with
-``all_reduce`` (NCCL on cards, gloo on the CPU). The photon id, not the
-rank, keys the random numbers, so the counts do not depend on the number of
-ranks and the sums only on the order of their double additions. The error
-records are gathered and cut to the first and last ``ERR_RECORD_K`` by
-photon id, the records a one-device run keeps.
+``kernel.run_stream``), and the tallies are summed over the ranks, the
+counterpart of the JAX mesh's one ``psum`` over the tally tiles. A kernel
+launch keeps every tally in one float64 and one int64 allocation
+(``pool_cuda.result_of``), and the mesh sums those two with one
+``all_reduce`` each (NCCL on cards), then takes the result's tallies as
+views of the sums: nothing waits on the host until a caller reads a value.
+A plain result is packed into the same two vectors first (gloo on the
+CPU). The photon id, not the rank, keys the random numbers, so the counts
+do not depend on the number of ranks and the sums only on the order of
+their double additions. Each rank's error records travel as a fixed block
+of the first and last ``ERR_RECORD_K`` by photon id (built on the card for a
+kernel launch, ``pool_cuda.record_block``), gathered in the integer
+``all_reduce`` and cut to the records a one-device run keeps.
 """
 
 from __future__ import annotations
@@ -129,16 +136,19 @@ def run_stream_mesh(tables, static, n_photons: int, seed: int, id_hi: int, id_lo
                        split_ids(n_photons, seed, id_hi, id_lo, mesh.size)[mesh.rank])
     if mesh.device.type == "cuda":
         _ensure_built(mesh, pool_cuda.kernel_of(tables, static)[0])
-    out = _launch(tables, static, count, seed, id_hi, start, width)
+    out = _launch(tables, static, count, seed, id_hi, start, width, host_records=False)
     LAUNCHES["mesh"] += 1
     return all_reduce_outputs(out, mesh)
 
 
-def _launch(tables, static, n, seed, id_hi, id_lo, width=None, plain=False):
-    """One sub-range through the CUDA kernel (CUDA tables) or the plain
-    version (CPU tables, or ``plain``)."""
+def _launch(tables, static, n, seed, id_hi, id_lo, width=None, plain=False,
+            host_records=True):
+    """One sub-range through the CUDA kernel (CUDA tables; its error records
+    left on the card without ``host_records``) or the plain version (CPU
+    tables, or ``plain``)."""
     if tables.opacity.device.type == "cuda" and not plain:
-        return pool_cuda.run_stream_cuda(tables, static, n, seed, id_hi, id_lo)
+        return pool_cuda.run_stream_cuda(tables, static, n, seed, id_hi, id_lo,
+                                         host_records=host_records)
     return run_stream(tables, static, n, seed, width or max(1, min(n, 1 << 17)), id_hi, id_lo)
 
 
@@ -158,7 +168,10 @@ def _pack(out: dict, keys, dtype, device) -> torch.Tensor:
 
 def pack_tallies(out: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The summed tallies of a result as one float64 and one int64 vector on
-    ``device``: the payload of the mesh's two ``all_reduce`` calls."""
+    ``device``: the payload of the mesh's two ``all_reduce`` calls; a kernel
+    launch's own two allocations where the result has them."""
+    if "packed" in out:
+        return out["packed"][1], out["packed"][2]
     fkeys, ikeys = _summed_keys(out)
     return _pack(out, fkeys, torch.float64, device), _pack(out, ikeys, torch.int64, device)
 
@@ -183,28 +196,49 @@ def _summed_keys(out: dict):
     return [k for k in present if k in FLOAT_KEYS], [k for k in present if k in INT_KEYS]
 
 
-def all_reduce_outputs(out: dict, mesh: Mesh) -> dict:
-    """One rank's result summed over the mesh (the ``psum`` of
-    ``pallas_stream._get_mesh_fn``): the float and the integer tallies each
-    in one ``all_reduce``, on the rank's device; the error records gathered
-    as fixed ``(2 ERR_RECORD_K, ERR_RECORD_W)`` blocks behind a row count and
-    merged in rank order, which is photon-id order."""
-    dev = mesh.device
-    fkeys, ikeys = _summed_keys(out)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)     # peers wait at the collective for the imbalance only
-    flat_f, flat_i = pack_tallies(out, dev)
-    dist.all_reduce(flat_f, group=mesh.group)
-    dist.all_reduce(flat_i, group=mesh.group)
+def _record_block(out: dict, device) -> torch.Tensor:
+    """A result's error records as the fixed block the mesh gathers: row 0
+    holds the number of rows kept (``pool_cuda.record_block``)."""
+    if "record_block" in out:
+        return out["record_block"]
     rec = torch.as_tensor(out["error_records"], dtype=torch.float64).cpu()
     block = torch.zeros((2 * ERR_RECORD_K + 1, ERR_RECORD_W), dtype=torch.float64)
     block[0, 0] = rec.shape[0]
     block[1:1 + rec.shape[0]] = rec
-    blocks = [torch.empty_like(block, device=dev) for _ in range(mesh.size)]
-    dist.all_gather(blocks, block.to(dev), group=mesh.group)
-    res = _unpack(_unpack(out, fkeys, flat_f), ikeys, flat_i)
-    res["error_records"] = select_error_records(
-        [b.cpu()[1:1 + int(b[0, 0])] for b in blocks], ERR_RECORD_K)
+    return block.to(device)
+
+
+def all_reduce_outputs(out: dict, mesh: Mesh) -> dict:
+    """One rank's result summed over the mesh (the ``psum`` of
+    ``pallas_stream._get_mesh_fn``) on the rank's device: the float tallies
+    in one ``all_reduce``, the integer tallies in another, a kernel launch's
+    own two allocations (copied, so ``out`` keeps its values) or a plain
+    result's packed tallies. The second also gathers the error records: each
+    rank puts its fixed ``(2 ERR_RECORD_K + 1, ERR_RECORD_W)`` block, as int64
+    bit patterns, in its own slot behind the integer tallies, zeros
+    elsewhere. The blocks merge in rank order, which is photon-id order. A
+    kernel launch's tallies are views of the sums, read on the host by
+    nobody here; only the gathered records come to the host."""
+    dev = mesh.device
+    if "packed" in out:
+        layout, flat_f, flat_i = out["packed"]
+        flat_f = flat_f.clone()
+    else:
+        flat_f, flat_i = pack_tallies(out, dev)
+    block = _record_block(out, dev)
+    n_i, n_b = flat_i.numel(), block.numel()
+    ints = torch.zeros(n_i + mesh.size * n_b, dtype=torch.int64, device=dev)
+    ints[:n_i] = flat_i
+    ints[n_i + mesh.rank * n_b:n_i + (mesh.rank + 1) * n_b] = block.reshape(-1).view(torch.int64)
+    dist.all_reduce(flat_f, group=mesh.group)
+    dist.all_reduce(ints, group=mesh.group)
+    blocks = ints[n_i:].view(torch.float64).reshape(mesh.size, *block.shape).cpu()
+    records = select_error_records([b[1:1 + int(b[0, 0])] for b in blocks], ERR_RECORD_K)
+    if "packed" in out:
+        return pool_cuda.result_of(layout, flat_f, ints[:n_i], records)
+    fkeys, ikeys = _summed_keys(out)
+    res = _unpack(_unpack(out, fkeys, flat_f), ikeys, ints[:n_i])
+    res["error_records"] = records
     return res
 
 
@@ -244,7 +278,7 @@ def merge_outputs(outs) -> dict:
     host as :func:`all_reduce_outputs` merges them over a mesh."""
     outs = list(outs)
     fkeys, ikeys = _summed_keys(outs[0])
-    res = dict(outs[0])
+    res = {k: v for k, v in outs[0].items() if k not in ("packed", "record_block")}
     for k in fkeys + ikeys:
         total = outs[0][k]
         for o in outs[1:]:

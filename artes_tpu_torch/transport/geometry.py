@@ -107,10 +107,47 @@ def make_grid_geometry(atm, oblateness=0.0, dtype=torch.float64,
     return grid, r_scale
 
 
+def fmadd(a, b, c):
+    """``a * b + c``. In float32 rounded once, as a fused multiply-add: XLA
+    and nvcc contract the reference's float32 geometry into such chains, and
+    their rounding decides which walks graze a face (PERF.md). The product
+    is exact in float64 and the sum is rounded to float64, then to float32;
+    the two roundings differ from one only where the float64 sum falls on a
+    float32 tie. In float64 op by op, as before."""
+    if a.dtype != torch.float32:
+        return a * b + c
+    return (a.double() * b.double() + c.double()).float()
+
+
+def norm2(x, y, z):
+    """``x^2 + y^2 + z^2`` as the chain ``fma(z, z, fma(x, x, y y))``."""
+    return fmadd(z, z, fmadd(x, x, y * y))
+
+
+def _form(g: GridGeometry, u, v):
+    """``a^2 u_x v_x + b^2 u_y v_y + c^2 u_z v_z`` as the chain
+    ``fma(c^2 u_z, v_z, fma(a^2 u_x, v_x, b^2 u_y v_y))``."""
+    a, b, c = g.ob_ax, g.ob_by, g.ob_cz
+    ux, uy, uz = u.unbind(-1)
+    vx, vy, vz = v.unbind(-1)
+    return fmadd(c * c * uz, vz, fmadd(a * a * ux, vx, b * b * uy * vy))
+
+
+def sphere_qc(g: GridGeometry, pos, r_face):
+    """Constant term of the sphere quadratic, ``a^2 x^2 + b^2 y^2 + c^2 z^2 -
+    r^2``: ``fma(-r, r, fma(c^2 z, z, fma(a^2 x, x, b^2 y y)))`` in float32."""
+    return fmadd(-r_face, r_face, _form(g, pos, pos))
+
+
+def discriminant(qa, qb, qc):
+    """``qb^2 - 4 qa qc``: ``fma(qb, qb, -(4 qa qc))`` in float32."""
+    return fmadd(qb, qb, -(4.0 * qa * qc))
+
+
 def _quadratic(qa, qb, qc):
     """Numerically stable quadratic roots, q-form (ARTES.f90:4154-4173).
     Returns ``(s1, s2)``; absent roots are 0 (the reference's sentinel)."""
-    disc = qb * qb - 4.0 * qa * qc
+    disc = discriminant(qa, qb, qc)
     ok = disc >= 0.0
     sqrt_disc = torch.sqrt(torch.where(ok, disc, 0.0))
     q = -0.5 * (qb + torch.sign(qb) * sqrt_disc)
@@ -128,32 +165,38 @@ def _pick_root(s1, s2, eps):
                        torch.where(v1, s1, torch.where(v2, s2, 0.0)))
 
 
+def sphere_quadratic(g: GridGeometry, pos, dirn, r_face):
+    """``(qa, qb, qc)`` of the (oblate) sphere of scaled radius ``r_face``
+    along the ray, each a chain of fused multiply-adds in float32."""
+    return _form(g, dirn, dirn), 2.0 * _form(g, pos, dirn), sphere_qc(g, pos, r_face)
+
+
 def _sphere_distance(g: GridGeometry, pos, dirn, r_face, eps):
     """Distance to the (oblate) sphere of scaled radius ``r_face``."""
+    return _pick_root(*_quadratic(*sphere_quadratic(g, pos, dirn, r_face)), eps)
+
+
+def cone_quadratic(g: GridGeometry, pos, dirn, t2):
+    """``(qa, qb, qc)`` of the cone ``a^2 x^2 + b^2 y^2 = c^2 z^2 t2`` along
+    the ray, each a chain of fused multiply-adds in float32."""
     a, b, c = g.ob_ax, g.ob_by, g.ob_cz
     x, y, z = pos.unbind(-1)
     nx, ny, nz = dirn.unbind(-1)
-    qa = a * a * nx * nx + b * b * ny * ny + c * c * nz * nz
-    qb = 2.0 * (a * a * x * nx + b * b * y * ny + c * c * z * nz)
-    qc = a * a * x * x + b * b * y * y + c * c * z * z - r_face * r_face
-    return _pick_root(*_quadratic(qa, qb, qc), eps)
+    qa = fmadd(-(c * c * nz * nz), t2, fmadd(a * a * nx, nx, b * b * ny * ny))
+    qb = 2.0 * fmadd(-(c * c * z * nz), t2, fmadd(a * a * x, nx, b * b * y * ny))
+    qc = fmadd(-(c * c * z * z), t2, fmadd(a * a * x, x, b * b * y * y))
+    return qa, qb, qc
 
 
 def _cone_distance(g: GridGeometry, pos, dirn, tan_t, above, eps):
     """Distance to a theta cone with wrong-nappe rejection, and to the
     z = 0 plane: ``(d_cone, s_plane)``. ``tan_t`` and ``above`` (theta_f <
     pi/2) are the per-photon face properties."""
-    a, b, c = g.ob_ax, g.ob_by, g.ob_cz
-    x, y, z = pos.unbind(-1)
-    nx, ny, nz = dirn.unbind(-1)
-    t2 = tan_t * tan_t
-    qa = a * a * nx * nx + b * b * ny * ny - c * c * nz * nz * t2
-    qb = 2.0 * (a * a * x * nx + b * b * y * ny - c * c * z * nz * t2)
-    qc = a * a * x * x + b * b * y * y - c * c * z * z * t2
-    s1, s2 = _quadratic(qa, qb, qc)
+    z, nz = pos[..., 2], dirn[..., 2]
+    s1, s2 = _quadratic(*cone_quadratic(g, pos, dirn, tan_t * tan_t))
 
     def nappe_ok(s):
-        z_test = z + s * nz
+        z_test = fmadd(s, nz, z)
         # roots on the wrong nappe are rejected (ARTES.f90:3038-3051)
         wrong = ((z_test > 0.0) & ~above) | ((z_test < 0.0) & above)
         return torch.where((s > g.pos_eps) & wrong, 0.0, s)
@@ -168,8 +211,8 @@ def _phi_plane_distance(g: GridGeometry, pos, dirn, sin_p, cos_p, eps):
     a, b = g.ob_ax, g.ob_by
     x, y = pos[..., 0], pos[..., 1]
     nx, ny = dirn[..., 0], dirn[..., 1]
-    denom = b * ny * cos_p - a * nx * sin_p
-    s = (a * x * sin_p - b * y * cos_p) / torch.where(denom == 0.0, 1.0, denom)
+    denom = fmadd(b * ny, cos_p, -(a * nx * sin_p))
+    s = fmadd(a * x, sin_p, -(b * y * cos_p)) / torch.where(denom == 0.0, 1.0, denom)
     valid = (denom.abs() > 0.0) & (s > eps) & (s < BIG)
     return torch.where(valid, s, 0.0)
 
@@ -264,11 +307,8 @@ def cell_face(g: GridGeometry, pos, dirn, cell, cur_face, cell_depth):
     # root although the photon is crossing. Resolved by position: on or
     # over the outer face moving outward is a grid exit, on or under the
     # photon floor moving inward a floor hit.
-    a, b, c = g.ob_ax, g.ob_by, g.ob_cz
-    px, py, pz = pos.unbind(-1)
-    nx_, ny_, nz_ = dirn.unbind(-1)
-    rho2 = a * a * px * px + b * b * py * py + c * c * pz * pz
-    rad_dot = a * a * px * nx_ + b * b * py * ny_ + c * c * pz * nz_
+    rho2 = _form(g, pos, pos)
+    rad_dot = _form(g, pos, dirn)
     tol = g.boundary_tol
     r_outer = g.rfront[g.nr]
     on_outer = no_candidate & (rho2 >= (r_outer * (1.0 - tol)) ** 2) & (rad_dot > 0.0)
@@ -314,7 +354,7 @@ def heal_cell(g: GridGeometry, pos, cell, active):
     x = pos[..., 0] * g.ob_ax
     y = pos[..., 1] * g.ob_by
     z = pos[..., 2] * g.ob_cz
-    rho = torch.sqrt(x * x + y * y + z * z)
+    rho = torch.sqrt(norm2(x, y, z))
     cr = cell[..., 0]
     r_lo = g.rfront[torch.clamp(cr, 0, g.nr - 1)]
     r_hi = g.rfront[torch.clamp(cr + 1, 0, g.nr)]
@@ -339,7 +379,7 @@ def locate_cell(g: GridGeometry, pos, radial_index):
     z = pos[..., 2] * g.ob_cz
     zero = torch.zeros_like(radial_index)
     if g.ntheta > 1:
-        r = torch.sqrt(x * x + y * y + z * z)
+        r = torch.sqrt(norm2(x, y, z))
         theta = torch.arccos(torch.clamp(z / torch.clamp_min(r, 1e-300), -1.0, 1.0))
         cos_t = torch.cos(theta)
         # theta_cos decreases; cell j has cos in (cos[j+1], cos[j])

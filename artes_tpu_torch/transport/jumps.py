@@ -35,6 +35,7 @@ import dataclasses
 import torch
 
 from artes_tpu_torch.transport import radial as RAD
+from artes_tpu_torch.transport.geometry import fmadd
 
 BIG = 1.0e30
 
@@ -102,6 +103,26 @@ def _sel_cone(is_cone, cone_val, plane_val, first):
     return torch.where(is_cone, cone_val, plane)
 
 
+def quad_terms(a2, b2, c2, px, py, pz, dx, dy, dz):
+    """``(A, Bq, Cq)`` of the ray's squared transformed radius ``A s^2 + 2 Bq
+    s + Cq``, each in the chain XLA compiles in float32, ``fma(c2 z w, ..,
+    fma(a2 x u, .., b2 y v))`` (``geometry.fmadd``), as the 3-D kernel's jump
+    walk rounds them; the closed form's ``radial.ray_chords`` rounds op by
+    op."""
+    def form(ux, uy, uz, vx, vy, vz):
+        return fmadd(c2 * uz, vz, fmadd(a2 * ux, vx, b2 * uy * vy))
+
+    return (form(dx, dy, dz, dx, dy, dz), form(px, py, pz, dx, dy, dz),
+            form(px, py, pz, px, py, pz))
+
+
+def chord_disc(A, Bq, Cq, r_face):
+    """``(Cj, disc)`` of a face sphere, ``Cq - r^2`` and ``Bq^2 - A Cj``, as
+    ``fma(-r, r, Cq)`` and ``fma(Bq, Bq, -(A Cj))`` in float32."""
+    Cj = fmadd(-r_face, r_face, Cq)
+    return Cj, fmadd(Bq, Bq, -(A * Cj))
+
+
 def tau_walk_jumps(grid, jt: JumpTables, rf_floor, px, py, pz, dx, dy, dz, cr0, ct0, cp0):
     """Optical depth from (p, d) to the grid boundary or the photon floor.
 
@@ -112,16 +133,15 @@ def tau_walk_jumps(grid, jt: JumpTables, rf_floor, px, py, pz, dx, dy, dz, cr0, 
     nr, NT, NP = grid.nr, grid.ntheta, grid.nphi
     a2, b2, c2 = grid.ob_ax * grid.ob_ax, grid.ob_by * grid.ob_by, grid.ob_cz * grid.ob_cz
 
-    # radial chords and the kbar baseline (the shared closed form)
-    e, h, surface_hit, s_surf = RAD.ray_chords(a2, b2, c2, grid.rfront, rf_floor, grid.pos_eps,
-                                               px, py, pz, dx, dy, dz)
+    # ray quadratic in transformed coordinates: r^2(t) = A t^2 + 2 B t + C
+    A, Bq, Cq = quad_terms(a2, b2, c2, px, py, pz, dx, dy, dz)
+
+    # radial chords and the kbar baseline (the closed form's, in the chains)
+    e, h, surface_hit, s_surf = RAD.chords(A, Bq, Cq, grid.rfront, rf_floor, grid.pos_eps,
+                                           chord_disc)
     tau_bar = RAD.tau_from_chords(e, h, surface_hit, s_surf, jt.kbar)
     s_end = torch.where(surface_hit, s_surf, h[..., nr])
 
-    # ray quadratic in transformed coordinates: r^2(t) = A t^2 + 2 B t + C
-    A = a2 * dx * dx + b2 * dy * dy + c2 * dz * dz
-    Bq = a2 * px * dx + b2 * py * dy + c2 * pz * dz
-    Cq = a2 * px * px + b2 * py * py + c2 * pz * pz
     col = [v.unsqueeze(-1) for v in (px, py, pz, dx, dy, dz, A, Bq, Cq)]
     pxc, pyc, pzc, dxc, dyc, dzc, Ac, Bc, Cc = col
     sq_c = c2 ** 0.5

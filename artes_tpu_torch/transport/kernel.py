@@ -185,10 +185,27 @@ def emit_basis(t: TransportTables, static: KernelStatic):
     return u_hat, e1s, e2s, w_hat
 
 
+def disk_depth2(disk1, disk2):
+    """``1 - disk1^2 - disk2^2``, the squared depth below the beam's disk, as
+    the chain ``fma(-disk2, disk2, fma(-disk1, disk1, 1))`` in float32."""
+    return G.fmadd(-disk2, disk2, G.fmadd(-disk1, disk1, torch.ones_like(disk1)))
+
+
+def disk_position(disk1, disk2, depth, e1s, e2s, w_hat):
+    """The entry point ``disk1 e1s + disk2 e2s - depth w_hat`` on the unit
+    sphere, as the chain ``fma(-depth, w_hat, fma(disk1, e1s, disk2 e2s))``
+    in float32."""
+    return G.fmadd(-depth[:, None], w_hat, G.fmadd(disk1[:, None], e1s, disk2[:, None] * e2s))
+
+
 def _emit(t: TransportTables, static: KernelStatic, k0, k1, dtype):
     """Stellar emission: a uniform parallel beam over the ellipsoid
     silhouette (ARTES.f90:1054-1077, re-derived as in the JAX package), on
-    the crescent ring r > 0.9 when ``static.crescent`` (:1041-1049).
+    the crescent ring r > 0.9 when ``static.crescent`` (:1041-1049). The
+    entry point of a jump or marching walk rounds in the chains XLA
+    compiles, as their kernels do (``disk_depth2``, ``disk_position``;
+    ``pool_geom3d.cuh::emit_stellar_fma``); the closed form's op by op, as
+    its kernel's limits were read (``pool_common.cuh::emit_stellar``).
     Consumes draw sites 0 and 1; returns ``pos, dirn, cell, face`` with
     the entry cell located in the outermost shell and the outer face as the
     current face."""
@@ -201,11 +218,16 @@ def _emit(t: TransportTables, static: KernelStatic, k0, k1, dtype):
     phi_disk = TWO_PI * u2
     disk1 = r_disk * torch.sin(phi_disk)
     disk2 = r_disk * torch.cos(phi_disk)
-    depth = torch.sqrt(torch.clamp_min(1.0 - disk1 * disk1 - disk2 * disk2, 0.0))
     u_hat, e1s, e2s, w_hat = (torch.as_tensor(v, dtype=dtype, device=dev)
                               for v in emit_basis(t, static))
     s_diag = torch.tensor([grid.ob_ax, grid.ob_by, grid.ob_cz], dtype=dtype, device=dev)
-    q = disk1[:, None] * e1s + disk2[:, None] * e2s - depth[:, None] * w_hat
+    if walk_mode(t, static) == "closed":
+        # as the closed-form kernel's limits were read: op by op
+        depth = torch.sqrt(torch.clamp_min(1.0 - disk1 * disk1 - disk2 * disk2, 0.0))
+        q = disk1[:, None] * e1s + disk2[:, None] * e2s - depth[:, None] * w_hat
+    else:
+        depth = torch.sqrt(torch.clamp_min(disk_depth2(disk1, disk2), 0.0))
+        q = disk_position(disk1, disk2, depth, e1s, e2s, w_hat)
     pos = q / s_diag
     dirn = u_hat.expand_as(pos).clone()
     cell = G.locate_cell(grid, pos, torch.full_like(k1, grid.nr - 1))
@@ -341,7 +363,7 @@ def _tau_walk_march(t: TransportTables, static: KernelStatic, pos, dirn, cell, f
         flags["error"][idx] = out["error"]
         still = ~(out["grid_exit"] | out["error"] | hit)
         idx = idx[still]
-        p = (p + out["distance"][:, None] * d)[still]
+        p = G.fmadd(out["distance"][:, None], d, p)[still]
         d, c, f = d[still], out["cell_out"][still], nf[still]
     flags["capped"][idx] = True
     return {"tau": tau, **flags}
@@ -424,10 +446,10 @@ def _march_cells(t: TransportTables, static: KernelStatic, k0, pid, ctr, pos, di
         cf = flat_cell(g, c)
         k = t.opacity[cf]
         tau_cell = dist * k
-        interact = tau_run + tau_cell > tb
+        interact = G.fmadd(dist, k, tau_run) > tb         # fused, as XLA compiles it
         s_int = (tb - tau_run) / torch.where(k == 0.0, 1.0, k)
         step = torch.where(interact, s_int, dist)
-        p = p + step[:, None] * d
+        p = G.fmadd(step[:, None], d, p)
         pos[idx] = p
         crossing = ~interact
         if flow is not None:

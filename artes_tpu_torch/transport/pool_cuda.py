@@ -26,6 +26,10 @@ detector (single pixel, image), and the radial and marching ones per flow
 switch (:data:`VARIANTS` ... :data:`VARIANTS_MARCH`). ``LAUNCHES`` counts
 kernel launches per instantiation, where the kernel is launched and nowhere
 else, so a run can show that it went through the kernel.
+
+A launch's tallies live in two allocations, one float64 and one int64
+(:func:`tallies`): every tally of the result is a view into them, so the mesh
+sums a launch with one ``all_reduce`` of each (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -52,7 +56,6 @@ VARIANTS_MARCH = tuple("march_" + v for v in VARIANTS + VARIANTS_FLOW)
 LAUNCHES = dict.fromkeys(VARIANTS + VARIANTS_FLOW + VARIANTS_3D + VARIANTS_MARCH, 0)
 
 THREADS = 256
-BLOCKS_PER_SM = 8       # pool_march: blocks launched, per SM (2048 threads)
 N_SCAL = 32
 N_OUT_D = 10
 N_OUT_I = 4             # scatter peels, photons capped, emitted, birth (and surface) peels
@@ -124,7 +127,7 @@ _ARGTYPES = ([_vp] * 10 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_
 _ARGTYPES_3D = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 5
                 + [ctypes.c_int, _vp])
 _ARGTYPES_MARCH = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 7
-                   + [ctypes.c_int] * 2 + [_vp])
+                   + [ctypes.c_int, _vp, ctypes.c_int, _vp])
 
 
 def supports(tables: TransportTables, static: KernelStatic) -> bool:
@@ -258,22 +261,22 @@ def _library(name: str, argtypes, layout: tuple, build: str | None = None):
 
 
 def launch_blocks(tables: TransportTables, static: KernelStatic, n: int,
-                  lib: str = "pool_radial") -> int:
+                  lib: str | None = None) -> int:
     """The blocks of ``THREADS`` that :func:`run_stream_cuda` launches for
-    ``n`` photons: the radial kernel's persistent grid (from library ``lib``,
-    built at first use), else the marching kernel's grid (the 3-D kernel
-    sizes its persistent grid itself and takes no flow)."""
-    dev = tables.opacity.device
-    if kernel_of(tables, static)[0] != "pool_radial":
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        return min(-(-n // THREADS), sms * BLOCKS_PER_SM)
-    fn = _build.load(lib).artes_pool_radial_blocks
+    ``n`` photons: the kernel's persistent grid, the blocks the card holds
+    at once (fewer for a small launch), as ``artes_<kernel>_blocks`` of
+    library ``lib`` (the configuration's kernel, or a variant build of it)
+    gives it (``pool_radial`` and ``pool_march``: ``pool_grid3d`` takes no
+    flow buffer); the library is built at first use."""
+    source = kernel_of(tables, static)[0]
+    fn = getattr(_build.load(lib or source), f"artes_{source}_blocks")
     fn.argtypes = [ctypes.c_int, ctypes.c_uint, ctypes.c_int]
     fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
+    with torch.cuda.device(tables.opacity.device):
         blocks = fn(variant_of(static), n, THREADS)
     if blocks < 1:
-        raise RuntimeError(f"{lib}: no resident blocks for variant {variant_of(static)}")
+        raise RuntimeError(f"{lib or source}: no resident blocks for variant "
+                           f"{variant_of(static)}")
     return blocks
 
 
@@ -337,15 +340,15 @@ def _decode_records(rec: torch.Tensor) -> torch.Tensor:
     return out[torch.argsort(out[:, 1], stable=True)].cpu()
 
 
-def _cell_tables(t: TransportTables, static: KernelStatic, scal, consts):
-    """The pointer table, sizes and error-record buffer that ``pool_grid3d``
-    and ``pool_march`` share: ``(tables, sizes, rec, rec_count, keep)``;
-    ``keep`` holds the tensors made here, which must outlive the launch."""
+def _cell_tables(t: TransportTables, static: KernelStatic, scal, consts, rec, rec_count):
+    """The pointer table and sizes that ``pool_grid3d`` and ``pool_march``
+    share, with the error-record buffer ``rec`` and its row count:
+    ``(tables, sizes, keep)``; ``keep`` holds the tensors made here, which
+    must outlive the launch."""
     g, j = t.grid, t.jump
     dev = t.opacity.device
     theta_flags = (g.thetaplane_cone.to(torch.int32) | (g.theta_above.to(torch.int32) << 1)
                    ).contiguous()
-    rec, rec_count = _records(dev)
     phifront = G.phi_fronts(g).contiguous()
     # the jump tables: read by pool_grid3d only
     jump = [None] * 6 if j is None else [j.kbar, j.dk, j.dr, j.dtt, j.dpp, j.rf2]
@@ -357,30 +360,136 @@ def _cell_tables(t: TransportTables, static: KernelStatic, scal, consts):
                                              for x in ptrs])
     sizes = (ctypes.c_int * 8)(g.nr, g.ntheta, g.nphi, int(t.cell_depth),
                                int(static.max_crossings), REC_CAP, static.nx, static.ny)
-    return tables, sizes, rec, rec_count, (theta_flags, phifront)
+    return tables, sizes, (theta_flags, phifront)
 
 
-def _records(dev):
-    """A kernel's error-record buffer and its row count, zeroed."""
-    return (torch.zeros((REC_CAP, ERR_RECORD_W), dtype=torch.float32, device=dev),
-            torch.zeros(1, dtype=torch.int32, device=dev))
+def _record_rows(dev):
+    """A kernel's error-record buffer: the kernel writes its first rows and
+    counts them in the launch's int64 tallies."""
+    return torch.empty((REC_CAP, ERR_RECORD_W), dtype=torch.float32, device=dev)
+
+
+def record_block(rec: torch.Tensor, count: torch.Tensor, k: int = ERR_RECORD_K) -> torch.Tensor:
+    """A launch's records as ``select_error_records`` keeps them, on the
+    device and without waiting for the kernel: a float64 ``(2k + 1,
+    ERR_RECORD_W)`` block whose row 0 holds the number of rows kept and whose
+    next rows hold the first ``k`` and the last ``k`` records in photon-id
+    order (all of them when at most ``2k``), column 1 the photon id; ``rec``
+    is the kernel's buffer and ``count`` its row count, a device scalar."""
+    dev = rec.device
+    n = torch.clamp(count.reshape(()).to(torch.int64), max=REC_CAP)
+    ids = rec[:, 1].contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    slot = torch.arange(REC_CAP, device=dev)
+    order = torch.sort(torch.where(slot < n, ids, 1 << 40), stable=True).indices
+    j = torch.arange(2 * k, device=dev)
+    take = order[torch.where((n > 2 * k) & (j >= k), n - 2 * k + j, j)]
+    rows = rec[take].to(torch.float64)
+    rows[:, 1] = ids[take].to(torch.float64)
+    kept = torch.minimum(n, torch.tensor(2 * k, device=dev))
+    rows = torch.where((j < kept)[:, None], rows, 0.0)
+    head = torch.zeros((1, ERR_RECORD_W), dtype=torch.float64, device=dev)
+    head[0, 0] = kept
+    return torch.cat([head, rows])
+
+
+def _layout(source: str, static: KernelStatic, ncell: int) -> tuple:
+    """``(source, track_flow, rows, ncell, n_out_i)``: what the two tally
+    allocations hold. float64: the kernel's out_d, img_d (rows x 8), and
+    with flow flow_g (ncell x 3) and flow_t (ncell x 4); int64: out_i, img_i
+    (rows x 2) and the error records' row count (a 32-bit counter in the low
+    word of the last element)."""
+    npix = static.nx * static.ny
+    # the radial kernel's flow instantiations count their bookings in a sixth counter
+    n_out_i = {"pool_radial": N_OUT_IR + int(static.track_flow), "pool_grid3d": N_OUT_I3,
+               "pool_march": N_OUT_IM}[source]
+    return source, bool(static.track_flow), npix if npix > 1 else 1, ncell, n_out_i
+
+
+def _alloc(layout, dev):
+    source, flow, rows, ncell, n_out_i = layout
+    flat_f = torch.zeros(N_OUT_D + rows * N_IMG_D + (7 * ncell if flow else 0),
+                         dtype=torch.float64, device=dev)
+    flat_i = torch.zeros(n_out_i + rows * N_IMG_I + 1, dtype=torch.int64, device=dev)
+    return flat_f, flat_i, tally_views(layout, flat_f, flat_i)
+
+
+def tally_views(layout, flat_f: torch.Tensor, flat_i: torch.Tensor) -> dict:
+    """The kernel's tally buffers as views into the two allocations:
+    ``out_d``, ``img_d``, ``flow_g``, ``flow_t`` (None without flow),
+    ``out_i``, ``img_i`` and ``rec_count``."""
+    source, flow, rows, ncell, n_out_i = layout
+    at = N_OUT_D + rows * N_IMG_D
+    return {"out_d": flat_f[:N_OUT_D], "img_d": flat_f[N_OUT_D:at].view(rows, N_IMG_D),
+            "flow_g": flat_f[at:at + 3 * ncell].view(ncell, 3) if flow else None,
+            "flow_t": flat_f[at + 3 * ncell:at + 7 * ncell].view(ncell, 4) if flow else None,
+            "out_i": flat_i[:n_out_i],
+            "img_i": flat_i[n_out_i:n_out_i + rows * N_IMG_I].view(rows, N_IMG_I),
+            "rec_count": flat_i[-1:].view(torch.int32)[:1]}
+
+
+def result_of(layout, flat_f: torch.Tensor, flat_i: torch.Tensor, records,
+              err_k: int = ERR_RECORD_K) -> dict:
+    """The result of :func:`run_stream_cuda` from a launch's two tally
+    allocations (one launch's, or their sums over a mesh) and its error
+    records (float64 rows in photon-id order, of which the first and last
+    ``err_k`` are kept); no value is read on the host. ``packed`` holds the
+    layout and the two allocations."""
+    source, flow, rows, ncell, n_out_i = layout
+    v = tally_views(layout, flat_f, flat_i)
+    out_d, out_i = v["out_d"], v["out_i"]
+    if rows > 1:
+        sums, counts = v["img_d"].reshape(rows, 2, 4).transpose(1, 2), v["img_i"]
+    else:
+        sums = out_d[:8].reshape(1, 2, 4).transpose(1, 2)
+        counts = torch.stack([out_i[0] + out_i[3], out_i[0]]).reshape(1, 2)
+    if source == "pool_radial":
+        # the closed form has no failure modes: only Stokes anomalies abandon
+        n_error = anomalies = out_i[4]
+        codes = torch.zeros(4, dtype=torch.int64, device=flat_i.device)
+    else:
+        peel = out_i[9:10] if source == "pool_march" else torch.zeros_like(out_i[:1])
+        n_error, anomalies = out_i[4], out_i[8]
+        codes = torch.cat([out_i[5:8], peel])
+    return {
+        "detector": detector_from_tallies(sums, counts),
+        "flux_emitted": out_d[8],
+        "flux_exit": out_d[9],
+        "flow_global": v["flow_g"],
+        "flow_theta": v["flow_t"],
+        "n_error": n_error,
+        "error_codes": codes,
+        "n_stokes_anomaly": anomalies,
+        "n_alive_at_cap": out_i[1],
+        "n_emitted": out_i[2],
+        "error_records": select_error_records([records], err_k),
+        "n_error_records": flat_i[-1],
+        "n_cell_face": out_i[10] if source == "pool_march" else None,
+        "n_flow_booked": None if not flow or source == "pool_grid3d"
+        else out_i[11 if source == "pool_march" else N_OUT_IR],
+        "packed": (layout, flat_f, flat_i),
+    }
 
 
 def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: int,
                     seed: int, id_hi: int = 0, id_lo: int = 0, err_k: int = ERR_RECORD_K,
-                    clocks: bool = False):
+                    clocks: bool = False, host_records: bool = True):
     """Transport photons ``id_lo .. id_lo + n_photons - 1`` (high id word
     ``id_hi``) through the CUDA kernel of the configuration
     (:func:`kernel_of`); returns the tallies of
     :func:`~artes_tpu_torch.transport.kernel.run_stream` as device tensors
-    (the error records on the CPU) but ``flow_path``, which the gate takes
-    from the plain version; and two counts of the work done: ``n_cell_face``,
-    the ``cell_face`` passes a marching kernel made, and ``n_flow_booked``,
-    the walked segments (closed form) or passes (marching) that booked flow
+    (the error records on the CPU), views into the launch's two allocations
+    (:func:`result_of`), but ``flow_path``, which the gate takes from the
+    plain version; and two counts of the work done: ``n_cell_face``, the
+    ``cell_face`` passes a marching kernel made, and ``n_flow_booked``, the
+    walked segments (closed form) or passes (marching) that booked flow
     (``None`` where a kernel has no such count). The id range must not cross
-    a 2^32 boundary. ``clocks`` launches the instrumented build of the radial
-    kernel, ``pool_radial_clocks`` (``python -m artes_tpu_torch.measure
-    clocks``), which ``LAUNCHES`` does not count."""
+    a 2^32 boundary. A kernel that can abandon photons (any but the radial
+    kernel without ``--debug-stokes``) is waited for, for its error records;
+    with ``host_records`` False it is not: ``record_block`` then holds the
+    records on the device (:func:`record_block`) and ``error_records`` is
+    empty. ``clocks`` launches the instrumented build of the radial kernel,
+    ``pool_radial_clocks`` (``python -m artes_tpu_torch.measure clocks``),
+    which ``LAUNCHES`` does not count."""
     source, name = kernel_of(tables, static)
     if clocks and source != "pool_radial":
         raise ValueError(f"pool_radial_clocks is a build of pool_radial, not of {source}")
@@ -397,63 +506,51 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     g = t.grid
     dev = t.opacity.device
     variant = variant_of(static)
-    image = npix > 1
     ncell = t.opacity.shape[0]
-    # the radial kernel's flow instantiations count their bookings in a sixth counter
-    n_out_i = {"pool_radial": N_OUT_IR + int(static.track_flow), "pool_grid3d": N_OUT_I3,
-               "pool_march": N_OUT_IM}[source]
-    out_d = torch.zeros(N_OUT_D, dtype=torch.float64, device=dev)
-    out_i = torch.zeros(n_out_i, dtype=torch.int64, device=dev)
-    img_d = torch.zeros((npix if image else 1, N_IMG_D), dtype=torch.float64, device=dev)
-    img_i = torch.zeros((npix if image else 1, N_IMG_I), dtype=torch.int64, device=dev)
-    flow_g = flow_t = None
-    if static.track_flow:
-        flow_g = torch.zeros((ncell, 3), dtype=torch.float64, device=dev)
-        flow_t = torch.zeros((ncell, 4), dtype=torch.float64, device=dev)
+    layout = _layout(source, static, ncell)
+    flat_f, flat_i, v = _alloc(layout, dev)
+    rec = _record_rows(dev)
     records = torch.zeros((0, ERR_RECORD_W), dtype=torch.float64)
-    n_records = 0
     # only the radial kernel without the anomaly check abandons no photon
-    waits = source != "pool_radial" or static.debug_stokes
+    abandons = source != "pool_radial" or static.debug_stokes
     if n > 0:
         scal = _scalars(t, static)
         consts = _constants(dev)
         key_hi = R.key_hi(seed, id_hi)
-        lib = "pool_radial_clocks" if clocks else "pool_radial"
-        blocks = launch_blocks(tables, static, n, lib)
-        # the blocks' copies of the flow sums, zeroed, where they fit
-        n_buf = flow_buf(ncell, blocks) if static.track_flow else 0
-        buf = (torch.zeros(n_buf, dtype=torch.float64, device=dev) if n_buf
-                   else None)
-        flow_ptrs = (None if flow_g is None else flow_g.data_ptr(),
-                     None if flow_t is None else flow_t.data_ptr(),
+        lib = "pool_radial_clocks" if clocks else source
+        # the persistent grid's photon counter (pool_common.cuh::next_photon)
+        next_id = torch.zeros(1, dtype=torch.int64, device=dev)
+        buf = None
+        if static.track_flow:
+            # the blocks' copies of the flow sums, zeroed, where they fit
+            n_buf = flow_buf(ncell, launch_blocks(tables, static, n, lib))
+            buf = torch.zeros(n_buf, dtype=torch.float64, device=dev) if n_buf else None
+        flow_ptrs = (None if v["flow_g"] is None else v["flow_g"].data_ptr(),
+                     None if v["flow_t"] is None else v["flow_t"].data_ptr(),
                      None if buf is None else buf.data_ptr())
+        buf_blocks = buf.numel() // (7 * ncell) if buf is not None else 0
+        outs = (v["img_d"].data_ptr(), v["img_i"].data_ptr(), v["out_d"].data_ptr(),
+                v["out_i"].data_ptr())
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             launch = (n, key_hi, int(id_lo), int(static.max_scatter), variant, flags_of(static))
             if source == "pool_radial":
                 fn = _library("pool_radial", _ARGTYPES,
                               (N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, ERR_RECORD_W), lib)
-                rec, rec_count = _records(dev)
-                # the persistent grid's photon counter (pool_common.cuh::next_photon)
-                next_id = torch.zeros(1, dtype=torch.int64, device=dev)
                 rc = fn(g.rfront.data_ptr(), t.opacity.data_ptr(), t.albedo.data_ptr(),
                         t.scatter_rows.data_ptr(), t.alpha_prefix.data_ptr(),
                         t.p_int.data_ptr(), consts.data_ptr(), scal.data_ptr(),
                         t.emis_cum.data_ptr(), t.cell_weight.data_ptr(), nr, *launch,
-                        static.nx, static.ny, img_d.data_ptr(), img_i.data_ptr(),
-                        out_d.data_ptr(), out_i.data_ptr(), *flow_ptrs, blocks,
-                        rec.data_ptr(), rec_count.data_ptr(), REC_CAP, next_id.data_ptr(),
-                        THREADS, stream)
-                keep = (next_id, buf)
+                        static.nx, static.ny, *outs, *flow_ptrs, buf_blocks,
+                        rec.data_ptr(), v["rec_count"].data_ptr(), REC_CAP,
+                        next_id.data_ptr(), THREADS, stream)
+                keep = ()
             else:
-                ptrs, sizes, rec, rec_count, keep = _cell_tables(t, static, scal, consts)
-                outs = (img_d.data_ptr(), img_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
+                ptrs, sizes, keep = _cell_tables(t, static, scal, consts, rec, v["rec_count"])
                 if source == "pool_grid3d":
                     fn = _library("pool_grid3d", _ARGTYPES_3D,
                                   (N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, ERR_RECORD_W))
                     eps = (ctypes.c_float * 3)(g.same_eps, g.sel2, g.boundary_tol)
-                    next_id = torch.zeros(1, dtype=torch.int64, device=dev)
-                    keep = (*keep, next_id)
                     rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
                             ctypes.addressof(eps), *launch, *outs, next_id.data_ptr(), THREADS,
                             stream)
@@ -463,45 +560,18 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
                     eps = (ctypes.c_float * 4)(g.same_eps, g.sel2, g.boundary_tol,
                                                float(t.surface_albedo))
                     rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
-                            ctypes.addressof(eps), *launch, *outs, *flow_ptrs, blocks, THREADS,
-                            stream)
-                    keep = (*keep, buf)
+                            ctypes.addressof(eps), *launch, *outs, *flow_ptrs, buf_blocks,
+                            next_id.data_ptr(), THREADS, stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         if not clocks:
             LAUNCHES[name] += 1
-        if waits:
-            n_records = int(rec_count)                  # waits for the kernel
-            records = _decode_records(rec[:min(n_records, REC_CAP)])
-        del keep
-    if image:
-        sums, counts = img_d.reshape(npix, 2, 4).transpose(1, 2), img_i
-    else:
-        sums = out_d[:8].reshape(1, 2, 4).transpose(1, 2)
-        counts = torch.stack([out_i[0] + out_i[3], out_i[0]]).reshape(1, 2)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    if source == "pool_radial":
-        # the closed form has no failure modes: only Stokes anomalies abandon
-        n_error = anomalies = out_i[4]
-        codes = torch.zeros(4, dtype=torch.int64, device=dev)
-    else:
-        peel = out_i[9] if source == "pool_march" else zero
-        n_error, anomalies = out_i[4], out_i[8]
-        codes = torch.cat([out_i[5:8], peel.reshape(1)])
-    return {
-        "detector": detector_from_tallies(sums, counts),
-        "flux_emitted": out_d[8],
-        "flux_exit": out_d[9],
-        "flow_global": flow_g,
-        "flow_theta": flow_t,
-        "n_error": n_error,
-        "error_codes": codes,
-        "n_stokes_anomaly": anomalies,
-        "n_alive_at_cap": out_i[1],
-        "n_emitted": out_i[2],
-        "error_records": select_error_records([records], err_k),
-        "n_error_records": n_records,
-        "n_cell_face": out_i[10] if source == "pool_march" else None,
-        "n_flow_booked": None if not static.track_flow or source == "pool_grid3d"
-        else out_i[11 if source == "pool_march" else N_OUT_IR],
-    }
+        if abandons and host_records:
+            n_rec = int(v["rec_count"])                 # waits for the kernel
+            records = _decode_records(rec[:min(n_rec, REC_CAP)])
+        del keep, next_id, buf
+    out = result_of(layout, flat_f, flat_i, records, err_k)
+    if not host_records:
+        out["record_block"] = (record_block(rec, v["rec_count"]) if abandons else torch.zeros(
+            (2 * ERR_RECORD_K + 1, ERR_RECORD_W), dtype=torch.float64, device=dev))
+    return out

@@ -33,19 +33,34 @@ def ray_chords(a2, b2, c2, rf, rf_floor, pos_eps, px, py, pz, dx, dy, dz):
     radius rfront[cell_depth]. Returns ``(e, h, surface_hit, s_surf)``:
     clamped inward/outward crossing parameters with a trailing face
     dimension of nr+1, whether the forward path enters the floor sphere,
-    and where (BIG when it does not).
+    and where (BIG when it does not). The quadratic rounds op by op, as the
+    closed-form kernel's limits were read; the jump walk rounds its own in
+    XLA's chains (``jumps.quad_terms``) and passes it to :func:`chords`.
     """
     A = a2 * dx * dx + b2 * dy * dy + c2 * dz * dz
     Bq = a2 * px * dx + b2 * py * dy + c2 * pz * dz
     Cq = a2 * px * px + b2 * py * py + c2 * pz * pz
+    return chords(A, Bq, Cq, rf, rf_floor, pos_eps, _chord_disc)
+
+
+def _chord_disc(A, Bq, Cq, r_face):
+    """``(Cj, disc)`` of a face sphere, ``Cq - r^2`` and ``Bq^2 - A Cj``."""
+    Cj = Cq - r_face * r_face
+    return Cj, Bq * Bq - A * Cj
+
+
+def chords(A, Bq, Cq, rf, rf_floor, pos_eps, chord_disc):
+    """:func:`ray_chords` of a ray whose squared transformed radius is ``A
+    s^2 + 2 Bq s + Cq``; ``chord_disc(A, Bq, Cq, r_face)`` gives a face
+    sphere's ``(Cq - r^2, Bq^2 - A (Cq - r^2))`` as the caller's walk rounds
+    them."""
     inv_a = 1.0 / A
     mb = -Bq * inv_a                      # perigee parameter
     sgn_b = torch.where(Bq >= 0.0, torch.ones_like(Bq), -1.0)
 
     def roots(r_face, A, Bq, Cq, inv_a, mb, sgn_b):
         # stable q-form roots (radial.py:83-96)
-        Cj = Cq - r_face * r_face
-        disc = Bq * Bq - A * Cj
+        Cj, disc = chord_disc(A, Bq, Cq, r_face)
         ok = disc > 0.0
         q = -(Bq + sgn_b * torch.sqrt(torch.where(ok, disc, 0.0)))
         r1 = q * inv_a

@@ -896,7 +896,8 @@ def _mesh_probe(rank, size, port, path):
     mesh.run_stream_mesh(tables, static, n, seed, 0, 0, m)          # warm-up, build barrier
     ms, got = timed(lambda: mesh.run_stream_mesh(tables, static, n, seed, 0, 0, m), 5)
     count, _, start = (int(x) for x in mesh.split_ids(n, seed, 0, 0, size)[rank])
-    mine = pool_cuda.run_stream_cuda(tables, static, count, seed, 0, start)
+    # a rank's launch as run_stream_mesh makes it: its records left on the card
+    mine = pool_cuda.run_stream_cuda(tables, static, count, seed, 0, start, host_records=False)
     reduce_ms, _ = timed(lambda: mesh.all_reduce_outputs(mine, m), 20)
     flat_f, flat_i = mesh.pack_tallies(mine, m.device)
     payload = torch.zeros(flat_f.numel() + flat_i.numel(), dtype=torch.float64, device=m.device)

@@ -16,17 +16,16 @@ cannot pass empty (about 1.3 failed peels a hundred photons here).
 
 At 2^13 photons about 100 failed peels fall on each side, so 3 sigma is
 about 44 of them: the test holds the rates to within about 40% and cannot see
-a smaller excess. At 2^16 photons, seed 7, the plain version fails 12% more
-peels than JAX on the CPU (1110 against 991; 3 sigma is 137) and 17% more on
-the card (1161; 3 sigma is 139, so outside it), while the CUDA kernel fails
-961: this test cannot detect that excess.
+a smaller excess. At 2^16 photons, seed 7, the plain version failed 12% more
+peels than JAX on the CPU (1110 against 991) while it rounded its float32
+geometry one operation at a time; XLA and nvcc compile that geometry into
+fused multiply-add chains, and the plain version now rounds the same chains
+(``geometry.fmadd``): 939 against 991.
 
-The excess is the rounding of op-by-op float32, not a wrong branch: every
-failed scatter peel of the plain version, walked again from its recorded
-position, cell and face by JAX's own marching peel walk (``_peel_walk``) run
-op by op (``jax.disable_jit``), fails too, while the same walk compiled by
-XLA passes some of them. XLA and nvcc compile the walk's arithmetic, eager
-PyTorch and eager JAX run it one rounded operation at a time.
+Which peels fail is the rounding's, not a branch's: every failed scatter peel
+of the plain version, walked again from its recorded position, cell and face
+by JAX's own marching peel walk (``_peel_walk``) as XLA compiles it, fails
+too; run op by op (``jax.disable_jit``), the same walk passes some of them.
 
 Run as a script, it prints JAX's and the plain version's float32 tallies on
 both uncut surface cells (``hydrostatic39_surface`` and
@@ -52,6 +51,7 @@ from test_torch_pool import setup
 N = 1 << 13
 SEED = 30
 MIN_FAILED_PEELS = 30
+MAX_COMPILED_PASSES = 3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -105,15 +105,19 @@ def test_surface_error_rates_match_jax_f32(runs):
         assert abs(a - b) <= 3.0 * np.sqrt(a + b), (key, ref, got)
 
 
-def test_failed_peels_fail_in_jax_walk_op_by_op(runs):
-    """Every failed scatter peel of the plain version fails again in JAX's
-    walk run op by op: the plain march walk rounds as eager JAX does."""
+def test_failed_peels_fail_in_jax_compiled_walk(runs):
+    """The plain version's failed scatter peels fail again in JAX's walk as
+    XLA compiles it: the plain float32 geometry rounds the fused
+    multiply-add chains XLA compiles (``geometry.fmadd``). At most
+    ``MAX_COMPILED_PASSES`` pass (XLA's float32 square root on the CPU is not
+    the correctly rounded one). While the plain walk rounded op by op, the
+    compiled walk passed 26 of the 74 it recorded."""
     jt, static, _, plain_out = runs
-    passes = jax_walk_passes(jt, static, plain_out, compiled=False)
-    print(f"{len(passes)} failed scatter peels; JAX's walk op by op passes {int(passes.sum())}, "
-          f"compiled {int(jax_walk_passes(jt, static, plain_out, compiled=True).sum())}")
+    passes = jax_walk_passes(jt, static, plain_out, compiled=True)
+    print(f"{len(passes)} failed scatter peels; JAX's compiled walk passes {int(passes.sum())}, "
+          f"op by op {int(jax_walk_passes(jt, static, plain_out, compiled=False).sum())}")
     assert len(passes) >= MIN_FAILED_PEELS
-    assert not passes.any()
+    assert int(passes.sum()) <= MAX_COMPILED_PASSES
 
 
 if __name__ == "__main__":

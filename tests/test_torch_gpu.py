@@ -170,11 +170,11 @@ MUTANTS = {
     # its path's total leaves, or is absorbed at the floor, without marching
     "exit precheck left on": (
         "pool_march.cu",
-        "      const int out = march_cells<IMAGE, FLOW>(",
-        "      const Walk path = tau_walk_march(T, G, S, pos, dir, cell, face, cnt[C_PASSES]);\n"
-        "      const int out = (!path.error && tau >= path.tau)\n"
-        "          ? (path.surface ? M_FLOOR : M_EXIT)\n"
-        "          : march_cells<IMAGE, FLOW>(",
+        "    const int out = march_cells<IMAGE, FLOW>(",
+        "    const Walk path = tau_walk_march(T, G, S, pos, dir, cell, face, cnt[C_PASSES]);\n"
+        "    const int out = (!path.error && tau >= path.tau)\n"
+        "        ? (path.surface ? M_FLOOR : M_EXIT)\n"
+        "        : march_cells<IMAGE, FLOW>(",
         ("lambert_tau05", "grid3d_2496_flow")),
     # the runtime flags of --debug-stokes and photon:scattering=off
     "Stokes-anomaly check dropped, closed form": (
@@ -331,6 +331,48 @@ def test_flow_block_copies_alike_split_and_straight(cuda, name, monkeypatch):
     g = mesh.split_gaps(straight, copies)
     print(f"{name} block copies against straight adds: {g}")
     assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= 1e-12, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["lambert_tau05", "grid3d_2496_flow"])
+def test_pool_march_split_equals_one_launch(cuda, name):
+    """``pool_march``'s persistent grid on a surface cell and a marching flow
+    cell: 2, 3 and 7 sub-ranges launched in turn and merged equal one launch,
+    every count, ``n_cell_face``, ``n_flow_booked`` and error record equal,
+    the sums within ``mesh.SPLIT_RTOL``."""
+    tables, static = KERNEL_CELLS[name](cuda)
+    assert pool_cuda.kernel_of(tables, static)[0] == "pool_march"
+    n = gate_photons(tables, static)
+    one = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    assert int(one["n_cell_face"]) > n
+    for k in (2, 3, 7):
+        g = mesh.split_gaps(mesh.run_split(tables, static, n, SEED, k), one)
+        print(f"{name} split {k}: {g}")
+        assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= mesh.SPLIT_RTOL, g
+
+
+@pytest.mark.gpu
+def test_launch_blocks_is_the_marching_kernels_grid(cuda):
+    """``launch_blocks`` of a marching configuration is the grid
+    ``pool_march`` launches: the blocks the card holds at once, a whole
+    number a streaming multiprocessor, fewer for a small launch; a flow
+    buffer sized for it is taken, one a block short is refused."""
+    tables, static = KERNEL_CELLS["grid3d_2496_flow"](cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    resident = pool_cuda.launch_blocks(tables, static, 1 << 30)
+    assert resident % sms == 0 and 1 <= resident // sms <= 8, (resident, sms)
+    assert pool_cuda.launch_blocks(tables, static, 1000) == 4
+    n = gate_photons(tables, static)
+    assert pool_cuda.launch_blocks(tables, static, n) == min(resident, -(-n // pool_cuda.THREADS))
+    out = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    assert int(out["n_emitted"]) == n
+    fn = pool_cuda.launch_blocks
+    try:
+        pool_cuda.launch_blocks = lambda *a: fn(*a) - 1
+        with pytest.raises(RuntimeError, match="cudaError"):
+            pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    finally:
+        pool_cuda.launch_blocks = fn
 
 
 @pytest.mark.gpu

@@ -15,6 +15,9 @@
   virtual CPU devices at float64: counts bit-equal, moments within rtol
   1e-10 (seed 5, where the two packages agree photon for photon).
 * Three photons over four ranks: the empty sub-ranges add nothing.
+* The reduction is one ``all_reduce`` of the float64 tallies and one of the
+  int64 tallies, and equals ``merge_outputs`` of the two sub-ranges run in
+  one process.
 
 Every worker has a timeout, and so has its process group, so a rank that
 dies cannot hang the suite.
@@ -94,11 +97,20 @@ from artes_tpu_torch.parallel import make_mesh, multihost, run_stream_mesh
 
 assert multihost.initialize("gloo", timeout_s=120)
 mesh = make_mesh("cpu")
+# the all_reduce calls of each run_stream_mesh, by the dtype they sum
+reduces = []
+all_reduce = torch.distributed.all_reduce
+def counted(tensor, *args, **kwargs):
+    reduces.append(str(tensor.dtype))
+    return all_reduce(tensor, *args, **kwargs)
+torch.distributed.all_reduce = counted
 results = {}
 for name in sys.argv[3].split(","):
     tables, static = case_tables(name)
     n = int(sys.argv[4]) if len(sys.argv) > 4 else N_STREAM
-    results[name] = {"stream": run_stream_mesh(tables, static, n, SEED, 0, 0, mesh, 64)}
+    reduces.clear()
+    results[name] = {"stream": run_stream_mesh(tables, static, n, SEED, 0, 0, mesh, 64),
+                     "reduces": sorted(reduces)}
     if len(sys.argv) <= 4:
         results[name]["run"] = case_run(name, mesh=mesh)
 torch.save(results, sys.argv[2] + f".rank{mesh.rank}")
@@ -228,6 +240,21 @@ def test_two_gloo_ranks_equal_one_process(name, two_ranks):
     if name == "grid3d abandons":
         assert int(ref["n_error_records"]) > 2 * TK.ERR_RECORD_K
         assert len(got["error_records"]) == 2 * TK.ERR_RECORD_K
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_packed_reduction_equals_merge_outputs(name, two_ranks):
+    """The mesh's reduction (one float64 and one int64 ``all_reduce`` of the
+    packed tallies, the record blocks gathered) equals ``merge_outputs`` of
+    the same two sub-ranges run here: counts and records bit-equal."""
+    torch.set_num_threads(1)
+    tables, static = case_tables(name)
+    ref = M.run_split(tables, static, N_STREAM, SEED, 2, width=64)
+    got = two_ranks[0][name]["stream"]
+    assert_same_tallies(got, ref, 1e-12)
+    assert torch.equal(got["error_records"], ref["error_records"])
+    assert M.split_gaps(got, ref)["counts"] == 0
+    assert two_ranks[0][name]["reduces"] == ["torch.float64", "torch.int64"]
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
