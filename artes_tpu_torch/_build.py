@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's CUDA sources with nvcc, and its host programs with
+g++, and load the libraries with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on first use into
 ``build/artes_tpu_torch/lib<name>-<hash>.so`` beside the package (the build
@@ -7,12 +8,22 @@ headers it includes and the flags, so an edited kernel or header rebuilds
 and an unchanged one loads from disk. The compiler
 is ``nvcc`` on ``PATH``, else ``$CUDA_HOME/bin/nvcc`` (PyTorch's lookup of
 the toolkit). A missing compiler or a failed build raises with nvcc's
-output: there is no fallback.
+output: there is no fallback. :data:`SOURCE_FLAGS` adds a source's own
+flags.
 
 :data:`VARIANT_BUILDS` names libraries built from a source with extra
 defines: the instrumented build of ``pool_radial.cu`` whose phase clocks
 ``python -m artes_tpu_torch.measure clocks`` reads. The main path never
 loads it.
+
+:data:`HOST_BUILDS` are the host programs under ``native/``, built with
+``g++`` with the flags of the JAX package's Makefiles: the Mie/DHS solver
+``computepart`` (``native/mie/mie.cc``, an executable that
+``opacity.mie`` runs) and the FITS reader ``libartesfits`` (``native/fits/
+fitsread.cc``, a shared library that ``io.fitsio.read_fits_native`` loads).
+They build on first use into the same directory, named by a hash of the
+source and the flags; a missing compiler or a failed build raises with the
+command and g++'s output.
 """
 
 from __future__ import annotations
@@ -29,13 +40,31 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "artes_tpu_torch")
 
 # Hopper only (sm_90a). No --use_fast_math: the f32 guards need IEEE
-# expf/logf/sqrtf and denormals. nvcc's default FMA contraction stays on.
+# expf/logf/sqrtf and denormals. nvcc's default FMA contraction stays on,
+# but in the sources of SOURCE_FLAGS.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# source under csrc/ (without .cu) -> nvcc flags of its own, in every library
+# built from it. pool_grid3d.cu contracts nothing: each float32 expression
+# rounds op by op, as the plain version's do, but the chains it writes with
+# __fmaf_rn, which the plain version writes with geometry.fmadd. Contracted,
+# its Stokes algebra, sampling and jump walks strayed from the plain version's
+# by ulps from a photon's first scattering on, enough to part rare
+# trajectories (PERF.md).
+SOURCE_FLAGS = {"pool_grid3d": ("-fmad=false",)}
 
 # library name -> (source under csrc/ without .cu, extra nvcc flags)
 VARIANT_BUILDS = {
     "pool_radial_clocks": ("pool_radial", ("-DARTES_POOL_CLOCKS",)),
+}
+
+NATIVE_DIR = os.path.join(PACKAGE_DIR, "native")
+GXX_FLAGS = ("-O2", "-std=c++17", "-Wall")
+# host program -> (source under native/, extra g++ flags, output suffix)
+HOST_BUILDS = {
+    "computepart": ("mie/mie.cc", (), ""),
+    "libartesfits": ("fits/fitsread.cc", ("-fPIC", "-shared"), ".so"),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -70,7 +99,7 @@ def _source_bytes(filename: str, seen: set[str]) -> bytes:
 def _spec(name: str) -> tuple[str, tuple[str, ...]]:
     """The source and the nvcc flags of a library name."""
     source, extra = VARIANT_BUILDS.get(name, (name, ()))
-    return source, NVCC_FLAGS + extra
+    return source, NVCC_FLAGS + SOURCE_FLAGS.get(source, ()) + extra
 
 
 def library_path(name: str) -> str:
@@ -83,6 +112,20 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
+def _compile(cmd: list[str], out: str, what: str) -> subprocess.CompletedProcess:
+    """Run compiler command ``cmd``, which writes ``out`` + a temporary
+    suffix, and move its output into place; raises with the compiler's
+    output when it fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed (exit {proc.returncode}) "
+                           f"building {what}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return proc
+
+
 def build(name: str) -> str:
     """Compile library ``name`` unless it is already built; returns the
     library path. nvcc's ``-Xptxas -v`` report (registers, spills) is kept
@@ -90,17 +133,10 @@ def build(name: str) -> str:
     out = library_path(name)
     if os.path.isfile(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
     source, flags = _spec(name)
-    cmd = [find_nvcc(), *flags, "-o", tmp, os.path.join(CSRC_DIR, source + ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}) building {name}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    proc = _compile([find_nvcc(), *flags, os.path.join(CSRC_DIR, source + ".cu")], out, name)
     with open(out + ".log", "w") as fh:
         fh.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
     return out
 
 
@@ -108,4 +144,35 @@ def load(name: str) -> ctypes.CDLL:
     """The built library ``name``, built on first use."""
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(build(name))
+    return _LIBS[name]
+
+
+def host_path(name: str) -> str:
+    """Where host program ``name`` of :data:`HOST_BUILDS` builds to
+    (addressed by the content of its source and the flags)."""
+    source, extra, suffix = HOST_BUILDS[name]
+    with open(os.path.join(NATIVE_DIR, source), "rb") as fh:
+        text = fh.read()
+    digest = hashlib.sha256(text + " ".join(GXX_FLAGS + extra).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}{suffix}")
+
+
+def build_host(name: str) -> str:
+    """Compile host program ``name`` with g++ unless it is already built;
+    returns its path."""
+    out = host_path(name)
+    if os.path.isfile(out):
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH: it builds the host programs under native/")
+    source, extra, _ = HOST_BUILDS[name]
+    _compile([gxx, *GXX_FLAGS, *extra, os.path.join(NATIVE_DIR, source)], out, name)
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host library ``name`` of :data:`HOST_BUILDS`, built on first use."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(build_host(name))
     return _LIBS[name]

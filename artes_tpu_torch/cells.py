@@ -32,7 +32,11 @@ Atmospheres:
   mirrored about it;
   :func:`uniform_3d` the flagship's opacity on a 3-D grid (every cell the
   same), which must give the flagship's spectrum; :func:`blended_5184` a
-  grid of 5,184 cells whose every cell holds its own blend of two species.
+  grid of 5,184 cells whose every cell holds its own blend of two species;
+  :func:`mie_patchy_deck` BASELINE #4's atmosphere itself
+  (tools/baseline4_artifact.py:32-71): the same 39 x 8 x 8 grid over a clear
+  Rayleigh column whose patchy deck carries a Mie cloud table from the
+  native solver, two scattering matrices in all.
 
 Configurations, as ``(TransportTables, KernelStatic)``:
 
@@ -203,6 +207,51 @@ def blended_5184(seed=11):
 _THIN_RFRONT = 1.0e-3 * R_JUP + np.array([0.0, 7.0e7])
 
 
+def write_refractive_index(path):
+    """The forsterite-like visible-band refractive index of
+    tools/baseline4_artifact.py:44-47 (n = 1.65, k = 0.003)."""
+    with open(path, "w") as fh:
+        for w in (0.1, 0.5, 1.0, 10.0):
+            fh.write(f"{w} 1.65 0.003\n")
+
+
+def mie_patchy_deck(nr=39, deck=(20, 28), nzone=8):
+    """BASELINE #4's atmosphere at 0.7 micron (tools/baseline4_artifact.py:32-71)
+    and its cloud's single-scattering albedo: Rayleigh tau = 0.2 over ``nr``
+    shells of 97.5 km on ``nzone`` x ``nzone`` (theta, phi) zones, and in
+    shells ``deck`` a Mie cloud of tau = 3 (power-law sizes a^-3.5 over
+    0.1-5 micron, 30 sizes, 5 hollow fractions) in every zone whose
+    (theta + phi) index is odd. The defaults are the recorded run's."""
+    import tempfile
+
+    from artes_tpu_torch.opacity import mie
+
+    wl = 0.7
+    with tempfile.TemporaryDirectory() as td:
+        ri = os.path.join(td, "cloud.dat")
+        write_refractive_index(ri)
+        mie_tab = mie.generate(ri, [wl], nr=30, nf=5, amin=0.1, amax=5.0, apow=3.5, fmax=0.0)
+    atm = presets.rayleigh_single_layer(
+        tau=0.2, nr=nr, shell_km=97.5, wavelengths=(wl,),
+        theta_deg=tuple(np.linspace(0.0, 180.0, nzone + 1)),
+        phi_deg=tuple(np.linspace(0.0, 360.0, nzone + 1)[:-1]))
+    shell_m = float(atm.rfront[1] - atm.rfront[0])
+    in_deck = np.zeros(nr, bool)
+    in_deck[deck[0]:deck[1]] = True
+    k_cloud = 3.0 / (in_deck.sum() * shell_m)                       # [1/m]
+    mie_sca = np.asarray(mie_tab.scatter).transpose(2, 0, 1)[0]     # (180, 16)
+    albedo = float(mie_tab.scattering[0] / mie_tab.extinction[0])
+    for it in range(atm.ntheta):
+        for ip in range(atm.nphi):
+            if (it + ip) % 2 == 0:
+                continue
+            atm.k_sca[in_deck, it, ip, 0] = k_cloud * albedo
+            atm.k_abs[in_deck, it, ip, 0] = k_cloud * (1.0 - albedo)
+            atm.scatter[in_deck, it, ip, 0] = mie_sca
+    atm.refresh_derived()
+    return atm, albedo
+
+
 def thin_rayleigh_shell():
     """Rayleigh shell of radial tau about 8e-4 (test_transport.py:47-79)."""
     return presets._from_table(rayleigh.generate([0.7]), _THIN_RFRONT, (0.0, 180.0), (),
@@ -326,6 +375,7 @@ KERNEL_CELLS = {
                                                            photon_source="planet"),
     "patchy3d_small": lambda dev: spectrum_tables(patchy3d_small(), dev),
     "blended_5184": lambda dev: spectrum_tables(blended_5184(), dev),
+    "mie_patchy_imaging25": lambda dev: imaging_tables(25, dev, atm=mie_patchy_deck()[0]),
     # Lambert surfaces: marching walks on radial and 3-D grids
     "lambert_tau05": lambda dev: run_tables(lambert_layer(), dev, surface_albedo=1.0),
     "lambert_imaging25": lambda dev: imaging_tables(25, dev, atm=lambert_layer(),

@@ -44,6 +44,18 @@
 // Tables are indexed per cell in global memory: no mixture dedup, no cell
 // cap.
 //
+// Rounding. The file builds with -fmad=false (_build.SOURCE_FLAGS): every
+// float32 expression rounds op by op, as the plain version's PyTorch
+// operations do, but the chains written with __fmaf_rn / __fmul_rn (the
+// walks' geometry in the chains XLA compiles, geometry.fmadd on the plain
+// side). Left to nvcc's contraction, the Stokes rotations, the scattering
+// matrix product, the direction update, the sampling CDFs and the jump sums
+// rounded differently from the plain version from a photon's first
+// scattering on, and rare photons took other paths (on the Mie deck, 18
+// peels against 8); op by op both take the same paths. In the photons
+// traced, what still differs by an ulp is acosf against PyTorch's arccos
+// on the card and the order of PyTorch's cumsum of the jump terms there.
+//
 // Errors. Per-code counts are per-thread counters reduced like the tallies.
 // Each erroring thread also appends one 16-float record (code, photon id as
 // its bit pattern, position, direction, cell, face, Stokes I, scatterings,

@@ -9,11 +9,16 @@ artifacts: image HDUs (primary + IMAGE extensions) of BITPIX 8/16/32/64/-32/-64
 with EXTNAME, written in the same layout astropy produced for the reference
 (first HDU is the primary and carries data).
 
-Copy of ``artes_tpu.io.fitsio`` without its optional native (C++) bulk
-reader: the pure-Python reader and writer are the format authority.
+Copy of ``artes_tpu.io.fitsio``: the pure-Python reader and writer are the
+format authority; :func:`read_fits_native` reads the same files through the
+C++ library ``native/fits/fitsread.cc`` (the cfitsio-equivalent bulk
+reader, built with g++ by ``_build`` at first use), and raises where the
+original returned ``None`` for its caller to fall back.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -191,6 +196,64 @@ def read_fits(path):
         if pos % BLOCK:
             pos += BLOCK - pos % BLOCK
         hdus.append((name, data))
+    return hdus
+
+
+_FITS_ERRORS = {-1: "cannot open the file", -2: "truncated header", -3: "no such HDU",
+                -4: "wrong element count", -5: "truncated data"}
+
+
+def _native_lib():
+    """The native reader's library, built on first use, its functions typed."""
+    import ctypes
+
+    from artes_tpu_torch import _build
+
+    lib = _build.load_host("libartesfits")
+    c_long_p = ctypes.POINTER(ctypes.c_long)
+    lib.artes_fits_scan.argtypes = [ctypes.c_char_p, c_long_p]
+    lib.artes_fits_hdu_info.argtypes = [ctypes.c_char_p, ctypes.c_int, c_long_p, c_long_p,
+                                        ctypes.c_char_p]
+    lib.artes_fits_read.argtypes = [ctypes.c_char_p, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_double), ctypes.c_long]
+    for fn in (lib.artes_fits_scan, lib.artes_fits_hdu_info, lib.artes_fits_read):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(rc: int, path, what: str) -> None:
+    if rc:
+        raise OSError(f"native FITS reader, {what} of {path}: "
+                      f"{_FITS_ERRORS.get(rc, 'error')} ({rc})")
+
+
+def read_fits_native(path):
+    """Read all image HDUs through the native library: a list of
+    ``(extname_or_None, float64 ndarray or None)``. A build or read error
+    raises."""
+    import ctypes
+
+    lib = _native_lib()
+    cpath = os.fspath(path).encode()
+    n = ctypes.c_long(0)
+    _check(lib.artes_fits_scan(cpath, ctypes.byref(n)), path, "scan")
+    hdus = []
+    for i in range(n.value):
+        ndim = ctypes.c_long(0)
+        shape = (ctypes.c_long * 8)()
+        name = ctypes.create_string_buffer(72)
+        _check(lib.artes_fits_hdu_info(cpath, i, ctypes.byref(ndim), shape, name), path,
+               f"header {i}")
+        dims = [shape[k] for k in range(ndim.value)]
+        ext = name.value.decode() or None
+        if ndim.value == 0 or 0 in dims:
+            hdus.append((ext, None))
+            continue
+        out = np.empty(int(np.prod(dims)), np.float64)
+        _check(lib.artes_fits_read(cpath, i, out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                                   out.size), path, f"data {i}")
+        # FITS order: shape[0] = NAXIS1 is the fastest axis, numpy's last
+        hdus.append((ext, out.reshape(tuple(reversed(dims)))))
     return hdus
 
 

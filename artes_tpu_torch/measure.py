@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with a CUDA card::
     python -m artes_tpu_torch.measure rates
     python -m artes_tpu_torch.measure contraction
     python -m artes_tpu_torch.measure clocks [--cells flagship,hydrostatic39] [--photons N]
+    python -m artes_tpu_torch.measure seeds <cell> [--seeds 7,8,9,10]
 
 ``compare`` times the kernels of another checkout of this repository (an
 earlier commit, unpacked beside this one) and of this one on the same card,
@@ -60,6 +61,11 @@ peel walk and the march. For each phase it prints its share of the warps'
 cycles, its cycles an entry and its SIMT efficiency, the mean share of a
 warp's 32 lanes active at entry (``popc(__activemask())``), and the build's
 ``ptxas -v`` registers and spills.
+
+``seeds`` holds a gate cell of ``cells.KERNEL_CELLS`` against its plain
+version at its gate photons at each seed, and prints every gap of
+``pool_cuda.gaps`` beside the limit that holds the cell: the readings a
+limit is set from.
 
 Every line names the card (``nvidia-smi`` name and power limit).
 """
@@ -453,6 +459,25 @@ def clocks(names: list[str], n: int) -> int:
     return 0
 
 
+def seeds(name: str, seed_list: list[int]) -> int:
+    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+    from artes_tpu_torch.transport import kernel, pool_cuda
+    card = card_line()
+    tables, static = KERNEL_CELLS[name]("cuda")
+    n, limits = gate_photons(tables, static), pool_cuda.limits_of(tables, static)
+    ok = True
+    for seed in seed_list:
+        g = pool_cuda.gaps(pool_cuda.run_stream_cuda(tables, static, n, seed),
+                           kernel.run_stream(tables, static, n, seed, n))
+        over = [key for key in limits if not pool_cuda.agrees({key: g[key]}, {key: limits[key]})]
+        ok = ok and not over
+        print(f"[seeds] {name}, {n} photons, seed {seed}: " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}=" + ",".join(f"{x:.4g}" for x in v)
+            for k, v in g.items()) + f"; over their limits: {over or 'none'} ({card})",
+            flush=True)
+    return 0 if ok else 1
+
+
 def main(argv=None) -> int:
     import torch
     p = argparse.ArgumentParser(prog="python -m artes_tpu_torch.measure")
@@ -463,6 +488,9 @@ def main(argv=None) -> int:
     c = sub.add_parser("clocks")
     c.add_argument("--cells", default="flagship,hydrostatic39")
     c.add_argument("--photons", type=int, default=PHOTONS)
+    d = sub.add_parser("seeds")
+    d.add_argument("cell")
+    d.add_argument("--seeds", default="7,8,9,10")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure runs on a CUDA device; none found")
@@ -473,6 +501,8 @@ def main(argv=None) -> int:
         return rates()
     if args.what == "contraction":
         return contraction()
+    if args.what == "seeds":
+        return seeds(args.cell, [int(x) for x in args.seeds.split(",")])
     return clocks(args.cells.split(","), args.photons)
 
 

@@ -94,26 +94,37 @@ REC_CAP = 1 << 16
 # holds the closed-form walks of radial grids, set from readings at 2^20
 # photons, seed 7; AGREE_3D
 # the jump walks of 3-D grids, whose cone and half-plane roots flip more
-# trajectories, set from readings at 2^18 photons, seed 7; AGREE_MARCH the
+# trajectories, set from readings at 2^18 photons, seed 7 (when
+# pool_grid3d.cu still contracted its float32 expressions: it no longer
+# does, and its gaps read far inside them, PERF.md); AGREE_MARCH the
 # marching walks (Lambert surfaces on any grid, flow on 3-D grids), set from
 # readings at the photon counts chip_smoke.py gives those cells; there a
 # photon whose float32 geometry fails in one version only can book a chord
 # through the planet into one cell, so "flow_global" reads far above
 # "flow_theta". "stokes_anomaly" read 0 on all five --debug-stokes and
 # scattering-off cells at their gate photons, so each of its limits is 0.
+# "pixel_V" is sum_p |dV_p| / sum_p |V_p| over the pixels' Stokes V, scaled
+# by V itself: "stokes" scales V's gap by I, and "squares" cannot see V's
+# sign. Stokes V is zero on every cell but the Mie cloud deck (its F34 makes
+# circular polarization), so AGREE and AGREE_MARCH hold it at 0; on the deck
+# it read 9.3e-7, 8.1e-7, 4.4e-7 and 7.4e-7 at seeds 7-10 (2^18 photons),
+# and 2.0 with F34's sign turned in the kernel.
 # All on the chip_smoke.py cells (NVIDIA H100 80GB HBM3, 700 W); PERF.md
 # section 2 has the readings.
 AGREE = {"count": 1.2e-4, "count_quv": 1.2e-4, "pixel_I": 8e-4, "pixel_N": 4.2e-4,
+         "pixel_V": 0.0,
          "capped": 3e-6, "n_error": 0.0, "error_codes": 0.0,
          "stokes": (3e-4, 5e-6, 1e-4, 1e-4),
          "squares": (4.2e-4, 3.2e-4, 7e-4, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 6e-6,
          "flow_global": 1.7e-4, "flow_theta": 4e-4, "stokes_anomaly": 0.0}
 AGREE_3D = {"count": 1.6e-3, "count_quv": 1.6e-3, "pixel_I": 1e-2, "pixel_N": 6.5e-3,
+            "pixel_V": 2e-6,
             "capped": 1.2e-5, "n_error": 2.3e-5, "error_codes": 2.3e-5,
             "stokes": (9e-4, 9.5e-4, 6.5e-4, 1e-4),
             "squares": (2.1e-3, 2.3e-3, 5.5e-3, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 7e-5,
             "flow_global": 0.0, "flow_theta": 0.0, "stokes_anomaly": 0.0}
 AGREE_MARCH = {"count": 1.1e-2, "count_quv": 1.2e-2, "pixel_I": 3e-3, "pixel_N": 1.1e-2,
+               "pixel_V": 0.0,
                "capped": 1.6e-3, "n_error": 9.2e-4, "error_codes": 1.7e-3,
                "stokes": (2.8e-3, 3.2e-3, 2.2e-3, 1e-4),
                "squares": (3.7e-3, 8.1e-3, 8.9e-3, 7e-4), "flux_emitted": 6.5e-8,
@@ -195,6 +206,7 @@ def gaps(kernel_out: dict, plain_out: dict) -> dict:
             "count_quv": max(_rel(tot_d[c, 2], tot_p[c, 2]) for c in (1, 2, 3)),
             "pixel_I": _rel(diff[:, 0, 0].abs().sum(), p[:, 0, 0].abs().sum()),
             "pixel_N": _rel(diff[:, 0, 2].abs().sum(), p[:, 0, 2].sum()),
+            "pixel_V": _rel(diff[:, 3, 0].abs().sum(), p[:, 3, 0].abs().sum()),
             "capped": capped / n,
             "n_error": abs(_geometry_errors(kernel_out) - _geometry_errors(plain_out)) / n,
             "error_codes": int(codes) / n,

@@ -8,9 +8,10 @@ Phases, one line each; any failure exits non-zero before the result lines:
 
 1. env: torch, CUDA, nvcc, the card's name and power limit;
 2. build: compiles ``artes_tpu_torch/csrc/pool_radial.cu``,
-   ``pool_grid3d.cu``, ``pool_march.cu`` and ``probe_splat.cu`` with nvcc,
-   all at once, and prints the ptxas registers and spills of every kernel
-   instantiation;
+   ``pool_grid3d.cu``, ``pool_march.cu`` and ``probe_splat.cu`` with nvcc
+   and the host programs ``native/mie/mie.cc`` (the Mie solver) and
+   ``native/fits/fitsread.cc`` (the FITS reader) with g++, all at once, and
+   prints the ptxas registers and spills of every kernel instantiation;
 3. kernel vs plain: every instantiation of the three pool kernels (stellar,
    thermal, image, thermal image; radial, 3-D and marching; with and without
    flow) against its plain PyTorch version on the card, seed 7, float32, on
@@ -22,7 +23,8 @@ Phases, one line each; any failure exits non-zero before the result lines:
    cell-by-cell march affords (the bench's 39 x 8 x 8 patchy deck as
    spectrum and 25x25 image, a self-luminous patchy 3-D grid as spectrum and
    25x25 image, the 2 x 3 x 4 patchy grid, a grid of 5,184 cells each with
-   its own blend of two species) within ``pool_cuda.AGREE_3D``:
+   its own blend of two species, BASELINE #4's Mie cloud deck as a 25x25
+   image) within ``pool_cuda.AGREE_3D``:
    counts per count column, per-pixel I and counts, the Stokes sums and
    squares, the capped photons, both fluxes, the abandoned photons and the
    per-code error counts. Lambert surfaces and flow diagnostics: the thin
@@ -67,7 +69,17 @@ Phases, one line each; any failure exits non-zero before the result lines:
    flow over a surface, the energy crossing the top shell's outer face
    (``flow_theta[nr-1, :, :, 0]``) is ``flux_exit`` within 2e-5 (in float32 a
    photon within rounding of the outer face leaves without a step to book);
-6. mesh: (a) the flagship, the 39 x 8 x 8 deck, the nr=39 grid with flow,
+6. opacity chains: both FITS readers (``io.fitsio.read_fits`` and the
+   native ``read_fits_native``) timed on the 119.6 MB ``atmosphere.fits`` of
+   the 5,184-cell grid, same arrays; then ``python -m
+   artes_tpu_torch.baselines 4`` and ``3``, one process each: BASELINE #4's
+   Mie cloud image at 2^24 photons within ``baselines.LIMITS_4`` of
+   BASELINE4.json (its abandoned photons reported by code beside the
+   record's) and its kernel against its plain version at 2^16 photons, and
+   BASELINE #3's molecular thermal spectrum, 45 wavelengths of 2e7 photons,
+   each within the conservation rule of ``baselines.unscattered_oracle_flux``
+   and none abandoned;
+7. mesh: (a) the flagship, the 39 x 8 x 8 deck, the nr=39 grid with flow,
    the 25x25 image and the self-luminous 3-D grid imaged over a surface with
    flow, each at its gate photons as one launch and as 2, 3 and 7 sub-ranges
    of ``mesh.split_ids`` launched in turn on the card and merged
@@ -77,7 +89,7 @@ Phases, one line each; any failure exits non-zero before the result lines:
    ``run_stream_mesh`` against one launch on one card (counts and records
    equal), the reduction alone, one NCCL ``all_reduce`` of its payload, and
    the plain version of the same split;
-7. main path: ``python -m artes_tpu_torch.cli`` as a user runs it, one
+8. main path: ``python -m artes_tpu_torch.cli`` as a user runs it, one
    process each, 2^24 photons: spectrum on the README quick-start input
    and on the nr=39 grid, a 25x25 image of the quick-start input, its
    73-angle phase curve, a thermal spectrum of the bench's thermal shell
@@ -104,7 +116,8 @@ Phases, one line each; any failure exits non-zero before the result lines:
    ``python -m artes_tpu_torch.probe_splat``,
    the splat micro-benchmark's own entry point. Each process starts with
    its launch counts at 0 and prints them at its end; every kernel must
-   have been launched.
+   have been launched. The kernels line adds the chains' launches (phase 6)
+   to the rows of ``thermal`` and ``grid3d_image``.
 
 Each kernel's bound is the larger of its bytes (every table read once, every
 tally written once) over 3.35 TB/s and a lower count of its float32
@@ -116,7 +129,7 @@ the reduction's payload over NVLink (450 GB/s each way) where there is more
 than one card; its library call is one NCCL ``all_reduce`` of that payload.
 It then prints the card line, a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``. Nothing runs without a CUDA device.
-``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 6 and the ``--mesh``
+``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 7 and the ``--mesh``
 CLI runs alone, over every visible card, and prints the mesh's row.
 """
 
@@ -220,11 +233,18 @@ def phase_env():
 def phase_build():
     from artes_tpu_torch import _build
     names = ("pool_radial", "pool_grid3d", "pool_march", "probe_splat")
+    hosts = tuple(_build.HOST_BUILDS)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as ex:          # one nvcc a source, all at once
-        paths = dict(zip(names, ex.map(_build.build, names)))
-    say("build", f"{', '.join(n + '.cu' for n in names)} built in "
+    with ThreadPoolExecutor(len(names) + len(hosts)) as ex:   # one compiler a source, all at once
+        built = [ex.submit(_build.build, n) for n in names] \
+            + [ex.submit(_build.build_host, n) for n in hosts]
+        paths = dict(zip(names, (f.result() for f in built)))
+        host_paths = dict(zip(hosts, (f.result() for f in built[len(names):])))
+    say("build", f"{', '.join(n + '.cu' for n in names)} (nvcc) and "
+                 f"{', '.join(_build.HOST_BUILDS[n][0] for n in hosts)} (g++) built in "
                  f"{time.perf_counter() - t0:.1f} s")
+    for name, path in host_paths.items():
+        say("build", f"{name} -> {os.path.relpath(path, HERE)}")
     for name, path in paths.items():
         say("build", f"{name} -> {os.path.relpath(path, HERE)}")
         with open(path + ".log") as fh:
@@ -555,6 +575,90 @@ def phase_anchors():
                       f"(rel {abs(top / res.flux_exit - 1.0):.3e})")
         if not abs(top / res.flux_exit - 1.0) <= 2e-5:
             fail("the energy crossing the outer face is not flux_exit")
+
+
+def _time_readers(path, turns=5):
+    """Each FITS reader's median and least wall time [s] on ``path``,
+    ``turns`` reads each in alternation, after one read of each; fails
+    unless both read the same arrays."""
+    import numpy as np
+    from artes_tpu_torch.io.fitsio import read_fits, read_fits_native
+    readers = {"read_fits": read_fits, "read_fits_native": read_fits_native}
+    first = {name: read(path) for name, read in readers.items()}
+    for (n_a, a), (n_b, b) in zip(*first.values()):
+        if n_a != n_b or (a is None) != (b is None) or \
+                (a is not None and not np.array_equal(a, b)):
+            fail(f"the FITS readers disagree on {path}, HDU {n_a}")
+    times = {name: [] for name in readers}
+    for _ in range(turns):
+        for name, read in readers.items():
+            t0 = time.perf_counter()
+            read(path)
+            times[name].append(time.perf_counter() - t0)
+    return {name: (sorted(t)[len(t) // 2], min(t)) for name, t in times.items()}
+
+
+def _chain(number):
+    """``python -m artes_tpu_torch.baselines <number>`` in a process of its
+    own: its result line, its wall time."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "artes_tpu_torch.baselines", str(number)],
+                          cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"baselines {number} exited {proc.returncode} without a result:\n"
+             f"{proc.stdout}\n{proc.stderr}")
+    for line in lines[:-1]:
+        say("chains", line)
+    if proc.returncode != 0 or not result["ok"]:
+        fail(f"baselines {number} exited {proc.returncode}, ok {result['ok']}: "
+             f"{json.dumps({k: v for k, v in result.items() if k != 'rows'})}\n{proc.stderr}")
+    return result, wall
+
+
+def phase_chains():
+    """The opacity chains: both FITS readers timed on blended_5184's
+    artifact, then BASELINE #4 and #3 through ``artes_tpu_torch.baselines``
+    (its own process each: the launches it counts are its own) against the
+    records' limits. Returns the chains' launches per instantiation."""
+    from artes_tpu_torch import cells
+    from artes_tpu_torch.atmosphere import write_artifact
+    with tempfile.TemporaryDirectory(prefix="artes_fits_") as tmp:
+        path = os.path.join(tmp, "atmosphere.fits")
+        write_artifact(path, cells.blended_5184())
+        size = os.path.getsize(path)
+        times = _time_readers(path)
+    say("chains", f"blended_5184's atmosphere.fits ({size} bytes) read on the card's host: "
+                  + "; ".join(f"{name} median {med:.4f} s, least {low:.4f} s"
+                              for name, (med, low) in times.items())
+                  + "; the same arrays")
+    launches = {}
+    four, wall4 = _chain(4)
+    checks = four["checks"]
+    say("chains", f"#4 ({wall4:.1f} s wall): " + "; ".join(
+        f"{k} {c['value']!r} against {c['record']!r} (gap {c['gap']:.4g}, limit {c['limit']:.4g}"
+        + (", reported only)" if not c.get("held", True) else ")") for k, c in checks.items())
+        + f"; abandoned by code {four['error_codes']}; {four['throughput_photons_per_s']:.6g} "
+        f"photons/s; kernel vs plain {four['cross_kernel']}; launches {four['launches']}")
+    three, wall3 = _chain(3)
+    rates = three["throughput_photons_per_s"]
+    say("chains", f"#3 ({wall3:.1f} s wall): {three['conservation']['wavelengths_within_rule']} "
+                  f"of {three['n_wavelength']} wavelengths within the conservation rule (tol "
+                  f"{three['conservation']['tolerance']}, worst excess beyond the albedo allowance "
+                  f"{three['conservation']['worst_excess_beyond_albedo_allowance']:.4e}, worst "
+                  f"deficit {three['conservation']['worst_deficit']:.4e}); n_error "
+                  f"{three['n_error_total']}; photons/s median {rates['median']:.6g} min "
+                  f"{rates['min']:.6g} max {rates['max']:.6g}; launches {three['launches']}")
+    for result in (four, three):
+        for k, v in result["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if launches.get("grid3d_image", 0) <= 0 or launches.get("thermal", 0) <= 0:
+        fail(f"the chains did not launch grid3d_image and thermal: {launches}")
+    return launches
 
 
 LAUNCH_LINE = re.compile(r"CUDA kernel launches: pool=(\d+) \((.*)\)")
@@ -1069,6 +1173,7 @@ def main():
     rows = phase_kernel_vs_plain()
     probe_rows, base_row = phase_probe()
     phase_anchors()
+    chain_launches = phase_chains()
     split_err = phase_mesh_split()
     mesh_row = phase_mesh_probe()
     launches = phase_main_path()
@@ -1084,7 +1189,8 @@ def main():
         short = variant.split("_", 1)[1] if source != "pool_radial" else variant
         kernels.append({"name": f"{source}.{short}", "route": "cuda",
                         "source": KERNEL_SOURCE[source],
-                        "replaces": POOL_REPLACES, "launches": launches[variant],
+                        "replaces": POOL_REPLACES,
+                        "launches": launches[variant] + chain_launches.get(variant, 0),
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": rows[cell]["ms"], "plain_ms": rows[cell]["plain_ms"],
                         "bound_ms": rows[cell]["bound_ms"], "bound_by": rows[cell]["bound_by"],

@@ -181,6 +181,11 @@ MUTANTS = {
         "pool_radial.cu", "const bool anomalous = debug_stokes && stokes_anomaly(st);",
         "const bool anomalous = false;",
         ("anomaly_radial",)),
+    # Stokes V: only the Mie deck's matrices carry F34 (elements 11 and 14)
+    "F34 with its sign turned": (
+        "pool_common.cuh", "    m[e] = a + (b - a) * frac;\n",
+        "    m[e] = (e == 11 || e == 14 ? -1.0f : 1.0f) * (a + (b - a) * frac);\n",
+        ("mie_patchy_imaging25",)),
     "scattering-off flag ignored, jump walks": (
         "pool_grid3d.cu", "const bool no_scatter = (flags & F_NO_SCATTER) != 0;",
         "const bool no_scatter = false;",

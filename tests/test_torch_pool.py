@@ -249,6 +249,33 @@ def test_agreement_check_sees_pixels_and_columns():
     assert g["count_quv"] == float("inf") and not pool_cuda.agrees(g)
 
 
+def test_agreement_check_sees_circular_polarization():
+    """Stokes V, which only a scattering matrix with F34 makes (the Mie
+    deck): a V with its sign turned in every pixel keeps the sums of
+    squares, and moves the V total by a share of Stokes I that "stokes" may
+    not see where V nearly cancels over the image; "pixel_V", scaled by V
+    itself, reads 2. V where the plain version has none is an infinite
+    gap."""
+    tables, static = cells.KERNEL_CELLS["mie_patchy_imaging25"]("cpu")
+    out = TK.run_stream(tables, static, 2048, SEED, 2048)
+    det = out["detector"]
+    assert float(det[:, 3, 0].abs().sum()) > 0.0 and float(det[:, 3, 1].sum()) > 0.0
+    turned = det.clone()
+    turned[:, 3, 0] *= -1.0
+    g = pool_cuda.gaps(dict(out, detector=turned), out)
+    assert g["pixel_V"] == pytest.approx(2.0) and g["squares"][3] == 0.0
+    assert not pool_cuda.agrees(g, pool_cuda.AGREE_3D)
+    assert pool_cuda.agrees(pool_cuda.gaps(out, out), pool_cuda.AGREE_3D)
+
+    tables, static = spectrum_tables(CONFIGS["flagship"](), "cpu")
+    flat = TK.run_stream(tables, static, 1024, SEED, 1024)
+    assert float(flat["detector"][:, 3, :2].abs().sum()) == 0.0      # no F34, no V
+    some_v = flat["detector"].clone()
+    some_v[:, 3, 0] = 1e-9
+    g = pool_cuda.gaps(dict(flat, detector=some_v), flat)
+    assert g["pixel_V"] == float("inf") and not pool_cuda.agrees(g)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     _, _, tt, st = setup("flagship", "float32")
     before = dict(pool_cuda.LAUNCHES)
