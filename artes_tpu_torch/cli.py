@@ -13,7 +13,10 @@ writes ``output/<run>/{input,output,plot}`` with a snapshot of the inputs.
 ``--device cuda`` (the default) runs the CUDA kernel of the configuration
 (radial, 3-D or marching), ``--debug-stokes`` and ``photon:scattering=off``
 included, and fails when there is no card; ``--device cpu`` runs the plain
-PyTorch version, the only one that runs ``--f64``. ``output:flow_global`` and
+PyTorch version. ``--f64`` runs the plain version in float64 on the device
+asked for, the card by default (the kernels are float32 only, as the JAX
+package's Pallas kernel is; its float64 runs take the XLA pool on its
+device); nothing falls back to the CPU. ``output:flow_global`` and
 ``output:flow_latitudinal`` leave ``flow_global.fits`` and
 ``flow_latitudinal.fits`` in every mode but ``imaging_broad`` (the last
 wavelength's or phase angle's). Abandoned photons and failed peel walks
@@ -69,7 +72,8 @@ def run_main(argv=None):
     p.add_argument("--batch-size", type=int, default=1 << 17,
                    help="photons the plain version emits together (CPU)")
     p.add_argument("--f64", action="store_true",
-                   help="run transport in float64 (plain version only: --device cpu)")
+                   help="run transport in float64: the plain version on --device (the card by "
+                        "default; the CUDA kernels are float32 only)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--mesh", action="store_true",
                    help="split the photons of every run over the processes of a launcher "

@@ -22,8 +22,10 @@ one-rank NCCL group as ``run_stream_mesh`` sums it. It prints each time
 (median of 5 after a warm launch, CUDA events), whether every count (the
 detector's, the photons emitted, capped and abandoned, the error codes, the
 ``cell_face`` passes and the flow bookings) is equal and every sum within
-1e-12 relative between the two checkouts, and the probe splat's library
-yardsticks (``probe_splat.library_yardsticks``).
+1e-12 relative between the two checkouts, the probe splat's library
+yardsticks (``probe_splat.library_yardsticks``) and each checkout's own
+yardstick of the splat, ``probe_splat.us_per_round`` (the loop a round and
+the splat net of it, as that checkout times them).
 
 ``rates`` holds the float32 error tallies of the marching kernel against its
 plain version where ``cells.SURFACE_MAX_SCATTER`` cuts the gate's orders:
@@ -137,6 +139,9 @@ for name, n in cells:
 for npix in sizes:
     ms, (vals, counts) = timed(lambda: P.splat(npix, device=dev))
     res["probe"][str(npix)] = dict(ms=ms, vals=float(vals.sum()), counts=int(counts.sum()))
+# the checkout's own yardstick: the loop's and the splat's cost a round
+base_us, net_us = P.us_per_round(sizes)
+res["rounds"] = dict(base=base_us, net={str(k): v for k, v in net_us.items()})
 # the mesh reduction alone: a flagship launch of 2^20 photons summed over a
 # one-rank NCCL group, as run_stream_mesh launches it
 import inspect, os, socket
@@ -228,6 +233,12 @@ def compare(other: str) -> int:
               f"{t[0]:.3f} / {t[1]:.3f} ms ({min(o) / min(t):.3f}x); totals "
               f"{'equal' if same else 'DIFFERENT'}; index_add_ values {lib_v:.3f} ms, values "
               f"and counts {lib_vc:.3f} ms; {card}")
+    for label in ("other", "this"):
+        rounds = [r["rounds"] for r in got[label]]
+        print(f"[compare] probe yardstick, {label}: baseline loop "
+              + " / ".join(f"{r['base']:.5f}" for r in rounds) + " us/round; splat net of it "
+              + "; ".join(f"{npix} px " + " / ".join(f"{r['net'][npix]:.4f}" for r in rounds)
+                          for npix in rounds[0]["net"]) + f" us/round; {card}")
     t = [r["mesh"]["ms"] for r in got["this"]]
     o = [r["mesh"]["ms"] for r in got["other"]]
     mine = got["this"][0]["mesh"]

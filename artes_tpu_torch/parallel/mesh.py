@@ -35,8 +35,8 @@ import torch.distributed as dist
 from artes_tpu_torch import _build
 from artes_tpu_torch.transport import pool_cuda
 from artes_tpu_torch.transport import rng as R
-from artes_tpu_torch.transport.kernel import (ERR_RECORD_K, ERR_RECORD_W, run_stream,
-                                              select_error_records)
+from artes_tpu_torch.transport.kernel import (ERR_RECORD_K, ERR_RECORD_W, run_batch,
+                                              run_stream, select_error_records)
 
 # the tallies of a run_stream result that add over photons, by type; each is
 # summed where a result has it and it is not None
@@ -134,7 +134,7 @@ def run_stream_mesh(tables, static, n_photons: int, seed: int, id_hi: int, id_lo
         raise ValueError(f"tables on {tables.opacity.device}, mesh rank on {mesh.device}")
     count, _, start = (int(x) for x in
                        split_ids(n_photons, seed, id_hi, id_lo, mesh.size)[mesh.rank])
-    if mesh.device.type == "cuda":
+    if mesh.device.type == "cuda" and pool_cuda.supports(tables, static):
         _ensure_built(mesh, pool_cuda.kernel_of(tables, static)[0])
     out = _launch(tables, static, count, seed, id_hi, start, width, host_records=False)
     LAUNCHES["mesh"] += 1
@@ -143,13 +143,37 @@ def run_stream_mesh(tables, static, n_photons: int, seed: int, id_hi: int, id_lo
 
 def _launch(tables, static, n, seed, id_hi, id_lo, width=None, plain=False,
             host_records=True):
-    """One sub-range through the CUDA kernel (CUDA tables; its error records
-    left on the card without ``host_records``) or the plain version (CPU
-    tables, or ``plain``)."""
+    """One sub-range through the CUDA kernel (float32 CUDA tables; its error
+    records left on the card without ``host_records``) or the plain version
+    on the tables' device (CPU or float64 tables, or ``plain``)."""
+    plain = plain or not pool_cuda.supports(tables, static)
     if tables.opacity.device.type == "cuda" and not plain:
         return pool_cuda.run_stream_cuda(tables, static, n, seed, id_hi, id_lo,
                                          host_records=host_records)
     return run_stream(tables, static, n, seed, width or max(1, min(n, 1 << 17)), id_hi, id_lo)
+
+
+def sharded_dispatch(mesh: Mesh):
+    """A drop-in for ``kernel.run_batch`` over the ranks of ``mesh``
+    (``artes_tpu.parallel.mesh.sharded_dispatch``): each rank runs
+    ``run_batch`` on its contiguous ``n / size`` slice of the ``(n,)``
+    photon ids on its own device, and every output is summed over the mesh
+    (:func:`all_reduce_outputs`: NCCL on cards, gloo on the CPU); every rank
+    returns the sums. A batch that the world size does not divide raises
+    ``ValueError``, as in JAX (:func:`round_up_batch` sizes one that it
+    does). ``n_alive_at_cap`` is summed, as the JAX ``psum`` sums it."""
+
+    def dispatch(tables, static, photon_ids, seed):
+        if tables.opacity.device != mesh.device:
+            raise ValueError(f"tables on {tables.opacity.device}, mesh rank on {mesh.device}")
+        n = len(photon_ids)
+        if n % mesh.size:
+            raise ValueError(f"batch of {n} photons not divisible by {mesh.size} devices")
+        share = n // mesh.size
+        ids = photon_ids[mesh.rank * share:(mesh.rank + 1) * share]
+        return all_reduce_outputs(run_batch(tables, static, ids, seed), mesh)
+
+    return dispatch
 
 
 def run_split(tables, static, n_photons: int, seed: int, n_dev: int, id_hi: int = 0,

@@ -7,13 +7,19 @@ single run, and phase mode sweeps 73 detector azimuths. Each run transports its
 photons in chunks of at most 2^30 with continuous 64-bit photon ids, so the
 (seed, id) -> photon stream mapping does not depend on the chunking.
 
-Dispatch follows the tables' device and nothing else: CUDA tables run the
-hand-written kernel of their configuration (``pool_cuda.run_stream_cuda``:
-radial, 3-D or marching), CPU tables the plain PyTorch version
-(``kernel.run_stream``). Nothing falls back. With a ``parallel.mesh.Mesh``
-the tables are built on the mesh rank's device and every chunk is split over
-the ranks by photon id and summed over them (``parallel.mesh.run_stream_mesh``);
-every rank gets the whole result.
+Dispatch follows the tables' device and type and nothing else: float32
+CUDA tables run the hand-written kernel of their configuration
+(``pool_cuda.run_stream_cuda``: radial, 3-D or marching); float64 tables
+(``--f64``) and CPU tables run the plain PyTorch version
+(``kernel.run_stream``) on their device, the card or the CPU, as the JAX
+package runs its XLA pool at float64 on its device (the kernels, like the
+Pallas kernel, are float32 only). Nothing falls back. With a
+``parallel.mesh.Mesh`` the tables are built on the mesh rank's device and
+every chunk is split over the ranks by photon id and summed over them
+(``parallel.mesh.run_stream_mesh``); every rank gets the whole result. An
+explicit ``dispatch`` (``kernel.run_batch``, ``parallel.mesh.sharded_dispatch``
+or any function of ``(tables, static, photon_ids, seed)``) takes precedence
+over both, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,11 +34,16 @@ from artes_tpu_torch.config import ArtesConfig, DetectorSetup, detector_setup
 from artes_tpu_torch.constants import PI, planck_lambda
 from artes_tpu_torch.parallel.mesh import run_stream_mesh
 from artes_tpu_torch.transport import pool_cuda
+from artes_tpu_torch.transport import rng as R
 from artes_tpu_torch.transport.kernel import (ERR_RECORD_K, ERR_RECORD_W, KernelStatic,
                                               run_stream, select_error_records)
 from artes_tpu_torch.transport.tables import PreparedWavelength, build_tables
 
 CHUNK = 1 << 30
+# float64 on the card against float64 on the CPU, the same photons: every
+# count equal and every sum within this of its tally's largest (CUDA's and
+# glibc's exp, log, acos and sincos may differ by an ulp)
+F64_DEVICE_RTOL = 1e-9
 
 PHASE_ANGLES_DEG = [1.0e-5] + [2.5 * i for i in range(1, 72)] + [180.0 - 1.0e-5]  # (:215-229)
 
@@ -107,33 +118,53 @@ def _kernel_static(cfg: ArtesConfig, det: DetectorSetup, atm, crescent: bool) ->
     )
 
 
+def chunk_ids(lo: int, n: int, device) -> torch.Tensor:
+    """The photon ids ``lo .. lo + n - 1`` (low id words, int64 on
+    ``device``) that :func:`run_wavelength` hands a ``dispatch``."""
+    return torch.arange(lo, lo + n, dtype=torch.int64, device=device)
+
+
 def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
                    packages: int, seed: int = 0, batch_size: int = 1 << 17,
                    dtype=torch.float32, device="cuda", crescent: bool = False,
-                   progress: bool = False, mesh=None) -> WavelengthResult:
+                   progress: bool = False, mesh=None, dispatch=None) -> WavelengthResult:
     """Transport ``packages`` photons at one wavelength on ``device``, or
     over the ranks of ``mesh`` (a ``parallel.mesh.Mesh``; its rank's device
     takes the place of ``device``).
 
     ``batch_size`` bounds the number of photons the plain version emits
-    together on the CPU. float64 runs only the plain version, on the CPU.
+    together. float32 on a card runs the kernels; float64 runs the plain
+    version on the device it is given, the card included.
+
+    ``dispatch``, a function ``(tables, static, photon_ids, seed) -> dict``
+    with ``kernel.run_batch``'s keys, takes precedence over ``mesh`` and the
+    device's own path (the JAX package's explicit dispatch,
+    ``artes_tpu/runner.py:229-251``): it gets chunks of at most
+    ``batch_size`` photon ids (the low id word, int64 on the tables'
+    device) that never cross a 2^32 boundary, with the high id word folded
+    into the seed as ``(seed + (start >> 32) * 0x9E3779B9) & 0xFFFFFFFF``.
+    Nothing reaches it unless a caller passes it.
     """
     device = torch.device(device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")
-    if device.type == "cuda" and dtype != torch.float32:
-        raise NotImplementedError("float64 runs the plain version on the CPU only "
-                                  "(use --device cpu)")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     prep = build_tables(atm, cfg, det, wl_index, dtype=dtype, device=device)
     static = _kernel_static(cfg, det, atm, crescent)
 
     width = max(1024, min(1 << int(np.ceil(np.log2(max(packages, 2)))), batch_size))
-    if mesh is not None:
+    chunk = CHUNK
+    if dispatch is not None:
+        chunk = batch_size
+
+        def kern(n, id_hi, id_lo):
+            return dispatch(prep.tables, static, chunk_ids(id_lo, n, device),
+                            R.key_hi(seed, id_hi))
+    elif mesh is not None:
         def kern(n, id_hi, id_lo):
             return run_stream_mesh(prep.tables, static, n, seed, id_hi, id_lo, mesh, width)
-    elif device.type == "cuda":
+    elif device.type == "cuda" and pool_cuda.supports(prep.tables, static):
         def kern(n, id_hi, id_lo):
             return pool_cuda.run_stream_cuda(prep.tables, static, n, seed, id_hi, id_lo)
     else:
@@ -148,7 +179,6 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
     n_alive = n_error = n_anom = 0
     error_codes = np.zeros(4, np.int64)
     records = []
-    chunk = CHUNK
     if progress:
         chunk = min(chunk, max(1 << 20, -(-packages // 5)))
     start = 0
@@ -165,9 +195,10 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
         flux_exit += float(out["flux_exit"])
         n_alive += int(out["n_alive_at_cap"])
         n_error += int(out["n_error"])
-        n_anom += int(out["n_stokes_anomaly"])
-        error_codes += out["error_codes"].cpu().numpy()
-        records.append(out["error_records"])
+        n_anom += int(out.get("n_stokes_anomaly", 0))
+        error_codes += torch.as_tensor(out["error_codes"]).cpu().numpy()
+        if "error_records" in out:
+            records.append(torch.as_tensor(out["error_records"], dtype=torch.float64).cpu())
         start += n
         if progress:
             print(f"  [{100 * start // packages:3d}%] {start:,} / {packages:,} photons",

@@ -51,6 +51,13 @@ are returned, a rule that does not depend on how photons are scheduled.
 Covers radial and 3-D grids, stellar (any beam direction, crescent sampling)
 or thermal (isotropic or Gordon-biased) sources, any detector size, Lambert
 surfaces and the flow diagnostics ``flow_global`` and ``flow_theta``.
+
+The batch transport of the JAX package (``start_batch``, ``run_batch``, its
+XLA path over an explicit photon-id array) is :func:`start_batch`,
+:func:`scatter_rounds` and :func:`run_batch`: the same emission phase
+(:func:`_start`) and LIVE round (:func:`_live_round`) as :func:`run_stream`,
+on the ids given, with a resumable per-photon state and a round cap for the
+whole batch. The tallies of both sum in float64 (:class:`_Tally`).
 """
 
 from __future__ import annotations
@@ -581,6 +588,252 @@ def select_error_records(rows, k: int = ERR_RECORD_K):
     return rec if rec.shape[0] <= 2 * k else torch.cat([rec[:k], rec[-k:]])
 
 
+STATE_KEYS = ("pid", "ctr", "pos", "dirn", "cell", "face", "stokes", "n_scat", "row")
+
+
+def _take(s: dict, mask) -> dict:
+    """The photons ``mask`` of a live set: a dict of per-photon tensors
+    (:data:`STATE_KEYS`: low id word, draw-site counter, position,
+    direction, cell, face, Stokes vector, scatterings so far, row in the
+    batch)."""
+    return {k: v[mask] for k, v in s.items()}
+
+
+class _Tally:
+    """The tallies of a run on the tables' device, all of them summed in
+    float64 or int64 whatever the transport's dtype: detector moments
+    ``(npix, 4, 2)`` and counts ``(npix, 2)`` (:func:`_book`), the fluxes,
+    the flow sums, the error tallies, and the error records (float64 rows
+    on the CPU, in the order they were made). ``out``, a result of
+    :func:`start_batch` or :func:`scatter_rounds`, is the tallies to go on
+    from."""
+
+    def __init__(self, t: TransportTables, static: KernelStatic, out: dict | None = None):
+        dev = t.opacity.device
+        npix = static.nx * static.ny
+        ncell = t.opacity.shape[0]
+        self.t, self.static = t, static
+        self.thermal = static.photon_source == 2
+        i64 = dict(dtype=torch.int64, device=dev)
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.flow = None
+        if out is None:
+            self.det_sum = torch.zeros((npix, 4, 2), **f64)
+            self.det_cnt = torch.zeros((npix, 2), **i64)
+            self.n_cap, self.n_anom, self.n_error = (torch.zeros((), **i64) for _ in range(3))
+            self.error_codes = torch.zeros(4, **i64)
+            self.flux_emitted, self.flux_exit = (torch.zeros((), **f64) for _ in range(2))
+            if static.track_flow:
+                self.flow = tuple(torch.zeros(shape, **f64)
+                                  for shape in ((ncell, 3), (ncell, 4), (ncell,)))
+            self.records, self.n_unkept = [], 0
+            return
+        det = out["detector"]
+        self.det_sum = det[..., :2].clone()
+        self.det_cnt = det[:, :2, 2].to(torch.int64)
+        self.n_cap = torch.zeros((), **i64)
+        self.n_anom, self.n_error, self.error_codes, self.flux_emitted, self.flux_exit = (
+            out[k].clone() for k in ("n_stokes_anomaly", "n_error", "error_codes",
+                                     "flux_emitted", "flux_exit"))
+        if static.track_flow:
+            self.flow = tuple(out[k].clone() for k in ("flow_global", "flow_theta", "flow_path"))
+        self.records = [out["error_records"]]
+        self.n_unkept = int(out["n_error_records"]) - out["error_records"].shape[0]
+
+    def book_first(self, pos, value, ok):
+        """A first-only peel (thermal birth, surface) of Stokes I ``value``."""
+        _book(self.det_sum, self.det_cnt, _pixel_index(self.t, self.static, pos),
+              value[:, None], ok, first_only=True)
+
+    def march(self, mo, pid, n_scat, site):
+        """Error tallies, error records and the exit flux of one march;
+        returns which photons interacted without error."""
+        err = mo["error"]
+        if bool(err.any()):
+            self.n_error += err.sum()
+            self.error_codes[:3] += torch.stack([mo["e031"].sum(), mo["e032"].sum(),
+                                                 mo["e034"].sum()])
+            code = torch.where(mo["e031"], 31, torch.where(mo["e034"], 34, 32))[err]
+            self.records.append(_error_rows(code, pid[err], mo["pos"][err], mo["dirn"][err],
+                                            mo["cell"][err], mo["face"][err],
+                                            mo["stokes"][err, 0], n_scat[err], site))
+        if self.thermal:
+            self.flux_exit += mo["stokes"][mo["exited"], 0].to(torch.float64).sum()
+        return mo["inter"] & ~err
+
+    def result(self, err_k: int = ERR_RECORD_K) -> dict:
+        """The tallies as a ``run_stream`` result (without ``n_emitted``)."""
+        rec = select_error_records(self.records, 1 << 62)
+        rec = rec[torch.argsort(rec[:, 1], stable=True)]
+        flow = self.flow
+        return {
+            "detector": detector_from_tallies(self.det_sum, self.det_cnt),
+            "flux_emitted": self.flux_emitted,
+            "flux_exit": self.flux_exit,
+            "flow_global": flow[0] if flow else None,
+            "flow_theta": flow[1] if flow else None,
+            "flow_path": flow[2] if flow else None,
+            "n_error": self.n_error,
+            "error_codes": self.error_codes,
+            "n_stokes_anomaly": self.n_anom,
+            "n_alive_at_cap": self.n_cap,
+            "error_records": select_error_records([rec], err_k),
+            "n_error_records": self.n_unkept + rec.shape[0],
+        }
+
+
+def _edge_walk(t: TransportTables, static: KernelStatic, pos, dirn, cell, face):
+    """``(tau, surface, exited, error, walk)`` of the configuration's walk
+    from ``pos`` along ``dirn`` to the grid's edge; a marching walk still
+    going at the cap has erred."""
+    if walk_mode(t, static) == "march":
+        w = _tau_walk_march(t, static, pos, dirn, cell, face,
+                            torch.ones_like(cell[:, 0], dtype=torch.bool))
+        return w["tau"], w["surface"], w["exited"], w["error"] | w["capped"], None
+    tau, surface, walk = _tau_walk(t, pos, dirn.expand_as(pos), cell)
+    return tau, surface, ~surface, torch.zeros_like(surface), walk
+
+
+def _peel_weight(t: TransportTables, static: KernelStatic, pos, cell, face):
+    """e^-tau toward the observer, whether the peel is booked, and whether
+    its walk failed."""
+    tau, _, exited, err, _ = _edge_walk(t, static, pos, t.det_dir, cell, face)
+    return torch.exp(-torch.clamp_max(tau, 500.0)), exited & ~err & (tau < 50.0), err
+
+
+def _start(t: TransportTables, static: KernelStatic, k0: int, pid, acc: _Tally):
+    """Emission, the thermal birth peel, the prewalk along the photon's own
+    direction and the forced first interaction with its march
+    (ARTES.f90:596-778) of the photons whose low id words are ``pid``, into
+    ``acc``. A failed birth peel or prewalk (tallied under 031) abandons the
+    photon. Returns ``(s, keep)``: the live set of the photons that reached
+    their first march and which of them interacted without error."""
+    dt = t.opacity.dtype
+    dev = t.opacity.device
+    n = pid.shape[0]
+    row = torch.arange(n, dtype=torch.int64, device=dev)
+    stokes = torch.zeros((n, 4), dtype=dt, device=dev)
+    if acc.thermal:
+        pos, dirn, cell, w0 = _emit_thermal(t, static, k0, pid, dt)
+        face = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+        ctr = torch.full_like(pid, 6)
+        acc.flux_emitted += w0.to(torch.float64).sum()
+        stokes[:, 0] = w0
+        # birth peel e^-tau/(4 pi) on Stokes I (ARTES.f90:4519-4598); a
+        # failed walk abandons the photon
+        w_b, ok_b, err_b = _peel_weight(t, static, pos, cell, face)
+        acc.book_first(pos, w_b / (4.0 * math.pi) * stokes[:, 0], ok_b)
+        if bool(err_b.any()):
+            acc.n_error += err_b.sum()
+            acc.error_codes[3] += err_b.sum()
+            pid, ctr, pos, dirn, cell, face, stokes, row = (
+                v[~err_b] for v in (pid, ctr, pos, dirn, cell, face, stokes, row))
+    else:
+        pos, dirn, cell, face = _emit(t, static, k0, pid, dt)
+        ctr = torch.full_like(pid, 2)
+        stokes[:, 0] = 1.0
+
+    # the prewalk along the photon's own direction, then the forced first
+    # interaction (ARTES.f90:623-684) and its march; a failed prewalk
+    # abandons the photon under code 031
+    marching = walk_mode(t, static) == "march"
+    n_scat = torch.zeros_like(pid)
+    tau_first, pre_surface, _, pre_err, walk = _edge_walk(t, static, pos, dirn, cell, face)
+    if bool(pre_err.any()):
+        acc.n_error += pre_err.sum()
+        acc.error_codes[0] += pre_err.sum()
+        acc.records.append(_error_rows(torch.full_like(pid[pre_err], 31), pid[pre_err],
+                                       pos[pre_err], dirn[pre_err], cell[pre_err],
+                                       face[pre_err], stokes[pre_err, 0], n_scat[pre_err], 2))
+        ok = ~pre_err
+        pid, ctr, pos, dirn, cell, face, stokes, n_scat, row, tau_first, pre_surface = (
+            v[ok] for v in (pid, ctr, pos, dirn, cell, face, stokes, n_scat, row, tau_first,
+                            pre_surface))
+    (u_tau,) = R.uniform_n_kk(k0, pid, ctr, 1, dt)
+    ctr = ctr + 1
+    thin = tau_first < 1.0e-6
+    go = ~(thin & ~pre_surface)         # vacuum, no surface: dropped
+    forced = go & ~thin & (tau_first < 50.0)
+    one_m_exp = 1.0 - torch.exp(-tau_first)
+    tau = torch.where(forced, -torch.log(1.0 - u_tau * one_m_exp),
+                      -torch.log(1.0 - u_tau))
+    stokes = torch.where(forced[:, None], stokes * one_m_exp[:, None], stokes)
+    mo = _march(t, static, k0, pid, ctr, pos, dirn, cell, face, stokes, tau, go, walk,
+                acc.book_first, acc.flow)
+    keep = acc.march(mo, pid, n_scat, 1 if marching else 0)
+    s = dict(pid=pid, ctr=ctr + mo["sites"], n_scat=n_scat, row=row,
+             **{k: mo[k] for k in ("pos", "dirn", "cell", "face", "stokes")})
+    return s, keep
+
+
+def _live_round(t: TransportTables, static: KernelStatic, k0: int, s: dict, acc: _Tally):
+    """One LIVE round (ARTES.f90:786-951) of the live set ``s`` into
+    ``acc``: roulette, the peel, the scattering and the march to the next
+    interaction. Returns ``(s, keep)``: the photons that survived the
+    roulette (and, with ``static.debug_stokes``, the Stokes check) after
+    their march, and which of them interacted without error."""
+    dt = t.opacity.dtype
+    pid, ctr, pos, dirn, cell, face, stokes, n_scat, row = (s[k] for k in STATE_KEYS)
+    cell = G.heal_cell(t.grid, pos, cell, torch.ones_like(pid, dtype=torch.bool))
+    cf = flat_cell(t.grid, cell)
+    d0, d1, d2, d3, d4 = R.uniform_n_kk(k0, pid, ctr, 5, dt)
+    killed = d0 < t.fstop
+    alb = t.albedo[cf]
+    gamma = torch.where((alb < 1.0) & (alb > 0.0), alb / (1.0 - t.fstop),
+                        torch.ones_like(alb))
+    stokes = stokes * gamma[:, None]
+    surv = ~killed & ~(stokes[:, 0] <= t.photon_minimum)
+    pid, ctr, pos, dirn, cell, face, cf, stokes, n_scat, row, d1, d2, d3, d4 = (
+        v[surv] for v in (pid, ctr, pos, dirn, cell, face, cf, stokes, n_scat, row,
+                          d1, d2, d3, d4))
+
+    peel_contrib, peel_pix = _peel_photon_prep(t, static, pos, dirn, cf, stokes)
+    beta, c2b, s2b = S.sample_beta(t.p_int[cf], stokes, d1, d2)
+    alpha, alpha_deg = S.sample_alpha_fused(t.alpha_prefix, cf, stokes, (c2b, s2b), d3)
+    dir_new = M.direction_cosine(alpha, beta, dirn)
+    scat_m = S.matrix_at_angle_deg(t.scatter_rows, cf, alpha_deg)
+    stokes = M.polarization_rotation(alpha, beta, stokes, scat_m, dirn, dir_new,
+                                     peeling=False, beta_trig=(c2b, s2b))
+    dirn = dir_new
+    if static.debug_stokes:
+        # error 050 (ARTES.f90:830-835): I^2 < Q^2 + U^2 + V^2 after the
+        # Mueller update; the photon is abandoned before its peel and
+        # march, and recorded with the round's input state
+        anom = stokes[:, 0] ** 2 * (1.0 + 1.0e-6) < (stokes[:, 1:] ** 2).sum(dim=-1)
+        if bool(anom.any()):
+            acc.n_anom += anom.sum()
+            acc.n_error += anom.sum()
+            acc.records.append(_error_rows(
+                torch.full_like(pid[anom], 50), pid[anom], pos[anom], dirn[anom],
+                cell[anom], face[anom], stokes[anom, 0], n_scat[anom], 4))
+            ok = ~anom
+            pid, ctr, pos, dirn, cell, face, stokes, n_scat, row, d4, peel_contrib, peel_pix = (
+                v[ok] for v in (pid, ctr, pos, dirn, cell, face, stokes, n_scat, row, d4,
+                                peel_contrib, peel_pix))
+    n_scat = n_scat + 1
+
+    w_peel, ok_peel, err_peel = _peel_weight(t, static, pos, cell, face)
+    _book(acc.det_sum, acc.det_cnt, peel_pix, peel_contrib * w_peel[:, None], ok_peel)
+
+    tau = -torch.log(1.0 - d4)
+    ctr = ctr + 5
+    mo = _march(t, static, k0, pid, ctr, pos, dirn, cell, face, stokes, tau,
+                torch.ones_like(pid, dtype=torch.bool), None, acc.book_first, acc.flow)
+    keep = acc.march(mo, pid, n_scat, 0)
+    # a failed scatter peel loses its flux only; it is recorded with the
+    # walk's input position, cell and face (code 50, site 3) unless the
+    # round's march failed too
+    if bool(err_peel.any()):
+        lost = err_peel & ~mo["error"]
+        acc.error_codes[3] += err_peel.sum()
+        acc.records.append(_error_rows(
+            torch.full_like(pid[lost], 50), pid[lost], pos[lost], mo["dirn"][lost],
+            cell[lost], face[lost], mo["stokes"][lost, 0], n_scat[lost], 3))
+    s = dict(pid=pid, ctr=ctr + mo["sites"], n_scat=n_scat, row=row,
+             **{k: mo[k] for k in ("pos", "dirn", "cell", "face", "stokes")})
+    return s, keep
+
+
 def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, seed: int,
                width: int, id_hi: int = 0, id_lo: int = 0, err_k: int = ERR_RECORD_K):
     """Transport photons ``id_lo .. id_lo + n_photons - 1`` (high id word
@@ -604,205 +857,124 @@ def run_stream(tables: TransportTables, static: KernelStatic, n_photons: int, se
     emitted together.
     """
     t = tables
-    dt = t.opacity.dtype
     dev = t.opacity.device
-    thermal = static.photon_source == 2
-    marching = walk_mode(t, static) == "march"
     k0 = R.key_hi(seed, id_hi)
-    npix = static.nx * static.ny
-    ncell = t.opacity.shape[0]
-    det_sum = torch.zeros((npix, 4, 2), dtype=torch.float64, device=dev)
-    det_cnt = torch.zeros((npix, 2), dtype=torch.int64, device=dev)
-    n_cap = torch.zeros((), dtype=torch.int64, device=dev)
-    n_anom = torch.zeros((), dtype=torch.int64, device=dev)
-    n_error = torch.zeros((), dtype=torch.int64, device=dev)
-    error_codes = torch.zeros(4, dtype=torch.int64, device=dev)
-    flux_emitted = torch.zeros((), dtype=torch.float64, device=dev)
-    flux_exit = torch.zeros((), dtype=torch.float64, device=dev)
-    flow = None
-    if static.track_flow:
-        flow = tuple(torch.zeros(shape, dtype=torch.float64, device=dev)
-                     for shape in ((ncell, 3), (ncell, 4), (ncell,)))
-    records = []
-
-    def book_first(pos, value, ok):
-        _book(det_sum, det_cnt, _pixel_index(t, static, pos), value[:, None], ok,
-              first_only=True)
-
-    def tau_walk(pos, dirn, cell, face):
-        """``(tau, surface, exited, error, walk)`` of the configuration's
-        walk to the grid's edge; a marching walk still going at the cap has
-        erred."""
-        if marching:
-            w = _tau_walk_march(t, static, pos, dirn, cell, face,
-                                torch.ones_like(cell[:, 0], dtype=torch.bool))
-            return w["tau"], w["surface"], w["exited"], w["error"] | w["capped"], None
-        tau, surface, walk = _tau_walk(t, pos, dirn.expand_as(pos), cell)
-        return tau, surface, ~surface, torch.zeros_like(surface), walk
-
-    def peel_weight(pos, cell, face):
-        """e^-tau toward the observer, whether the peel is booked, and
-        whether its walk failed."""
-        tau, _, exited, err, _ = tau_walk(pos, t.det_dir, cell, face)
-        return torch.exp(-torch.clamp_max(tau, 500.0)), exited & ~err & (tau < 50.0), err
-
-    def tally_march(mo, pid, n_scat, site):
-        """Error tallies, error records and the exit flux of one march."""
-        nonlocal flux_exit, n_error
-        err = mo["error"]
-        if bool(err.any()):
-            n_error += err.sum()
-            error_codes[:3] += torch.stack([mo["e031"].sum(), mo["e032"].sum(),
-                                            mo["e034"].sum()])
-            code = torch.where(mo["e031"], 31, torch.where(mo["e034"], 34, 32))[err]
-            records.append(_error_rows(code, pid[err], mo["pos"][err], mo["dirn"][err],
-                                       mo["cell"][err], mo["face"][err], mo["stokes"][err, 0],
-                                       n_scat[err], site))
-        if thermal:
-            flux_exit += mo["stokes"][mo["exited"], 0].to(torch.float64).sum()
-        return mo["inter"] & ~err
-
+    acc = _Tally(t, static)
     for start in range(0, int(n_photons), width):
         n = min(width, int(n_photons) - start)
         pid = id_lo + start + torch.arange(n, dtype=torch.int64, device=dev)
-        stokes = torch.zeros((n, 4), dtype=dt, device=dev)
-        if thermal:
-            pos, dirn, cell, w0 = _emit_thermal(t, static, k0, pid, dt)
-            face = torch.zeros((n, 2), dtype=torch.int64, device=dev)
-            ctr = torch.full_like(pid, 6)
-            flux_emitted += w0.to(torch.float64).sum()
-            stokes[:, 0] = w0
-            # birth peel e^-tau/(4 pi) on Stokes I (ARTES.f90:4519-4598); a
-            # failed walk abandons the photon
-            w_b, ok_b, err_b = peel_weight(pos, cell, face)
-            book_first(pos, w_b / (4.0 * math.pi) * stokes[:, 0], ok_b)
-            if bool(err_b.any()):
-                n_error += err_b.sum()
-                error_codes[3] += err_b.sum()
-                pid, ctr, pos, dirn, cell, face, stokes = (
-                    v[~err_b] for v in (pid, ctr, pos, dirn, cell, face, stokes))
-        else:
-            pos, dirn, cell, face = _emit(t, static, k0, pid, dt)
-            ctr = torch.full_like(pid, 2)
-            stokes[:, 0] = 1.0
-
-        # the prewalk along the photon's own direction, then the forced
-        # first interaction (ARTES.f90:623-684) and its march; a failed
-        # prewalk abandons the photon under code 031
-        n_scat = torch.zeros_like(pid)
-        tau_first, pre_surface, _, pre_err, walk = tau_walk(pos, dirn, cell, face)
-        if bool(pre_err.any()):
-            n_error += pre_err.sum()
-            error_codes[0] += pre_err.sum()
-            records.append(_error_rows(torch.full_like(pid[pre_err], 31), pid[pre_err],
-                                       pos[pre_err], dirn[pre_err], cell[pre_err],
-                                       face[pre_err], stokes[pre_err, 0], n_scat[pre_err], 2))
-            ok = ~pre_err
-            pid, ctr, pos, dirn, cell, face, stokes, n_scat, tau_first, pre_surface = (
-                v[ok] for v in (pid, ctr, pos, dirn, cell, face, stokes, n_scat, tau_first,
-                                pre_surface))
-        (u_tau,) = R.uniform_n_kk(k0, pid, ctr, 1, dt)
-        ctr = ctr + 1
-        thin = tau_first < 1.0e-6
-        go = ~(thin & ~pre_surface)         # vacuum, no surface: dropped
-        forced = go & ~thin & (tau_first < 50.0)
-        one_m_exp = 1.0 - torch.exp(-tau_first)
-        tau = torch.where(forced, -torch.log(1.0 - u_tau * one_m_exp),
-                          -torch.log(1.0 - u_tau))
-        stokes = torch.where(forced[:, None], stokes * one_m_exp[:, None], stokes)
-        mo = _march(t, static, k0, pid, ctr, pos, dirn, cell, face, stokes, tau, go, walk,
-                    book_first, flow)
-        ctr = ctr + mo["sites"]
-        keep = tally_march(mo, pid, n_scat, 1 if marching else 0)
-        pos, dirn, cell, face, stokes = (mo[k] for k in ("pos", "dirn", "cell", "face",
-                                                         "stokes"))
+        s, keep = _start(t, static, k0, pid, acc)
         if not static.photon_scattering:
             keep = torch.zeros_like(keep)
-
         while True:
-            pid, ctr, pos, dirn, cell, face, stokes, n_scat = (
-                v[keep] for v in (pid, ctr, pos, dirn, cell, face, stokes, n_scat))
-            if pid.numel() == 0:
+            s = _take(s, keep)
+            if s["pid"].numel() == 0:
                 break
-            # LIVE round (ARTES.f90:786-951)
-            cell = G.heal_cell(t.grid, pos, cell, torch.ones_like(pid, dtype=torch.bool))
-            cf = flat_cell(t.grid, cell)
-            d0, d1, d2, d3, d4 = R.uniform_n_kk(k0, pid, ctr, 5, dt)
-            killed = d0 < t.fstop
-            alb = t.albedo[cf]
-            gamma = torch.where((alb < 1.0) & (alb > 0.0), alb / (1.0 - t.fstop),
-                                torch.ones_like(alb))
-            stokes = stokes * gamma[:, None]
-            surv = ~killed & ~(stokes[:, 0] <= t.photon_minimum)
-            pid, ctr, pos, dirn, cell, face, cf, stokes, n_scat, d1, d2, d3, d4 = (
-                v[surv] for v in (pid, ctr, pos, dirn, cell, face, cf, stokes, n_scat,
-                                  d1, d2, d3, d4))
-
-            peel_contrib, peel_pix = _peel_photon_prep(t, static, pos, dirn, cf, stokes)
-            beta, c2b, s2b = S.sample_beta(t.p_int[cf], stokes, d1, d2)
-            alpha, alpha_deg = S.sample_alpha_fused(t.alpha_prefix, cf, stokes,
-                                                    (c2b, s2b), d3)
-            dir_new = M.direction_cosine(alpha, beta, dirn)
-            scat_m = S.matrix_at_angle_deg(t.scatter_rows, cf, alpha_deg)
-            stokes = M.polarization_rotation(alpha, beta, stokes, scat_m, dirn, dir_new,
-                                             peeling=False, beta_trig=(c2b, s2b))
-            dirn = dir_new
-            if static.debug_stokes:
-                # error 050 (ARTES.f90:830-835): I^2 < Q^2 + U^2 + V^2 after
-                # the Mueller update; the photon is abandoned before its
-                # peel and march, and recorded with the round's input state
-                anom = (stokes[:, 0] ** 2 * (1.0 + 1.0e-6)
-                        < (stokes[:, 1:] ** 2).sum(dim=-1))
-                if bool(anom.any()):
-                    n_anom += anom.sum()
-                    n_error += anom.sum()
-                    records.append(_error_rows(
-                        torch.full_like(pid[anom], 50), pid[anom], pos[anom], dirn[anom],
-                        cell[anom], face[anom], stokes[anom, 0], n_scat[anom], 4))
-                    ok = ~anom
-                    (pid, ctr, pos, dirn, cell, face, stokes, n_scat, d4, peel_contrib,
-                     peel_pix) = (v[ok] for v in (pid, ctr, pos, dirn, cell, face, stokes,
-                                                  n_scat, d4, peel_contrib, peel_pix))
-            n_scat = n_scat + 1
-
-            w_peel, ok_peel, err_peel = peel_weight(pos, cell, face)
-            _book(det_sum, det_cnt, peel_pix, peel_contrib * w_peel[:, None], ok_peel)
-
-            tau = -torch.log(1.0 - d4)
-            ctr = ctr + 5
-            mo = _march(t, static, k0, pid, ctr, pos, dirn, cell, face, stokes, tau,
-                        torch.ones_like(pid, dtype=torch.bool), None, book_first, flow)
-            ctr = ctr + mo["sites"]
-            keep = tally_march(mo, pid, n_scat, 0)
-            # a failed scatter peel loses its flux only; it is recorded with
-            # the walk's input position, cell and face (code 50, site 3)
-            # unless the round's march failed too
-            lost = err_peel & ~mo["error"]
-            if bool(err_peel.any()):
-                error_codes[3] += err_peel.sum()
-                records.append(_error_rows(
-                    torch.full_like(pid[lost], 50), pid[lost], pos[lost], mo["dirn"][lost],
-                    cell[lost], face[lost], mo["stokes"][lost, 0], n_scat[lost], 3))
-            pos, dirn, cell, face, stokes = (mo[k] for k in ("pos", "dirn", "cell", "face",
-                                                             "stokes"))
-            capped = keep & (n_scat >= static.max_scatter)
-            n_cap += capped.sum()
+            s, keep = _live_round(t, static, k0, s, acc)
+            capped = keep & (s["n_scat"] >= static.max_scatter)
+            acc.n_cap += capped.sum()
             keep = keep & ~capped
+    return {**acc.result(err_k), "n_emitted": int(n_photons)}
 
-    rec = select_error_records(records, 1 << 62)
-    rec = rec[torch.argsort(rec[:, 1], stable=True)]
-    return {
-        "detector": detector_from_tallies(det_sum, det_cnt),
-        "flux_emitted": flux_emitted,
-        "flux_exit": flux_exit,
-        "flow_global": flow[0] if flow else None,
-        "flow_theta": flow[1] if flow else None,
-        "flow_path": flow[2] if flow else None,
-        "n_error": n_error,
-        "error_codes": error_codes,
-        "n_stokes_anomaly": n_anom,
-        "n_alive_at_cap": n_cap,
-        "n_emitted": int(n_photons),
-        "error_records": select_error_records([rec], err_k),
-        "n_error_records": rec.shape[0],
-    }
+
+# ---------------------------------------------------------------------------
+# The batch transport: an explicit photon-id array and a resumable state
+# ---------------------------------------------------------------------------
+
+# the per-photon state of the batch transport (``state`` of start_batch),
+# keyed as the JAX package's, and the live-set keys they come from
+BATCH_STATE = {"pos": "pos", "dirn": "dirn", "cell": "cell", "face": "face",
+               "stokes": "stokes", "counter": "ctr", "n_scat": "n_scat"}
+
+
+def _batch_ids(photon_ids, device) -> torch.Tensor:
+    """The low id words of ``photon_ids`` (any integer type: int64, int32,
+    uint32; a tensor or an array) as int64 on ``device``."""
+    ids = torch.as_tensor(photon_ids)
+    if ids.dtype.is_floating_point or ids.dtype == torch.bool:
+        raise TypeError(f"photon ids are integers, not {ids.dtype}")
+    return ids.to(device=device, dtype=torch.int64) & R.MASK32
+
+
+def start_batch(tables: TransportTables, static: KernelStatic, photon_ids, seed: int):
+    """Emission, birth peel, prewalk, forced first interaction and first
+    march of the photons ``photon_ids`` (``artes_tpu.transport.kernel.
+    start_batch``), in plain PyTorch on the tables' device.
+
+    Each photon is keyed by ``(seed, id & 0xFFFFFFFF)``, as the JAX
+    package's ``rng.photon_keys(seed, ids)``, so its history is the one it
+    gets in :func:`run_stream` with the same seed and low id word. Returns
+    ``(state, out)``: ``state`` the resumable per-photon state, a dict of
+    ``pos``, ``dirn``, ``cell``, ``face``, ``stokes``, ``alive`` (interacted
+    without error), ``counter`` (the next draw site), ``photon_ids`` (the
+    low id words, int64) and ``n_scat`` (scatterings so far, which error
+    records carry), one row a photon in the order of ``photon_ids``; a
+    photon abandoned before its first march keeps zeros. ``out`` the
+    tallies so far, keyed as :func:`run_batch`'s. The detector, fluxes and
+    flow are summed in float64 whatever the tables' dtype (JAX sums in the
+    transport dtype unless ``det_f64``: the two agree at float64)."""
+    t = tables
+    dev = t.opacity.device
+    pid = _batch_ids(photon_ids, dev)
+    n = pid.shape[0]
+    acc = _Tally(t, static)
+    s, keep = _start(t, static, R.key_hi(seed), pid, acc)
+    state = {"photon_ids": pid, "alive": torch.zeros(n, dtype=torch.bool, device=dev)}
+    for key, k in BATCH_STATE.items():
+        state[key] = torch.zeros((n, *s[k].shape[1:]), dtype=s[k].dtype, device=dev)
+        state[key][s["row"]] = s[k]
+    state["alive"][s["row"]] = keep
+    out = acc.result()
+    out["n_alive_at_cap"] = state["alive"].sum()
+    return state, out
+
+
+def scatter_rounds(tables: TransportTables, static: KernelStatic, state: dict, seed: int,
+                   rounds: int, out: dict):
+    """Up to ``rounds`` LIVE rounds of the photons alive in ``state``, the
+    tallies going on from ``out`` (``artes_tpu.transport.kernel.
+    _scatter_rounds_impl``; resumable: two calls of k and m rounds equal one
+    of k + m, bit for bit on the CPU). Without ``static.photon_scattering``
+    no round runs. Returns ``(state, out)``: the new state, and the tallies
+    summed from ``out`` on, ``n_alive_at_cap`` the photons still alive."""
+    t = tables
+    state = {k: v.clone() for k, v in state.items()}
+    acc = _Tally(t, static, out)
+    alive = state["alive"]
+    rows = alive.nonzero()[:, 0]
+    s = {k: state[key][rows] for key, k in BATCH_STATE.items()}
+    s.update(pid=state["photon_ids"][rows], row=rows)
+    k0 = R.key_hi(seed)
+    for _ in range(rounds if static.photon_scattering else 0):
+        if s["pid"].numel() == 0:
+            break
+        alive[s["row"]] = False
+        s, keep = _live_round(t, static, k0, s, acc)
+        for key, k in BATCH_STATE.items():
+            state[key][s["row"]] = s[k]
+        alive[s["row"]] = keep
+        s = _take(s, keep)
+    res = acc.result()
+    res["n_alive_at_cap"] = alive.sum()
+    return state, res
+
+
+def run_batch(tables: TransportTables, static: KernelStatic, photon_ids, seed: int) -> dict:
+    """Transport the photons ``photon_ids`` (``artes_tpu.transport.kernel.
+    run_batch``): :func:`start_batch`, then :func:`scatter_rounds` for
+    ``static.max_scatter`` rounds over the whole batch, in plain PyTorch on
+    the tables' device (a CUDA device or the CPU; float32 or float64).
+
+    Returns the JAX keys, ``detector`` (nx*ny, 4, 3) float64 [sum, sum of
+    squares, count], ``flow_global``, ``flow_theta`` (``None`` without
+    ``static.track_flow``), ``flux_emitted``, ``flux_exit``, ``n_error``,
+    ``error_codes`` and ``n_alive_at_cap`` (the photons still alive after
+    the last round; without scattering, the photons whose first march
+    interacted, as in JAX), and those of :func:`run_stream`:
+    ``n_stokes_anomaly``, ``error_records``, ``n_error_records``,
+    ``flow_path`` and ``n_emitted``. Every photon has the history it has
+    in :func:`run_stream`: the same photons give the same tallies."""
+    state, out = start_batch(tables, static, photon_ids, seed)
+    _, out = scatter_rounds(tables, static, state, seed, static.max_scatter, out)
+    out["n_emitted"] = int(state["photon_ids"].shape[0])
+    return out

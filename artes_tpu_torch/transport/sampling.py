@@ -189,3 +189,18 @@ def matrix_at_angle_deg(scatter_rows, cell_flat, angle_deg):
 def matrix_at_angle(scatter_rows, cell_flat, acos_alpha):
     """:func:`matrix_at_angle_deg` for an angle in radians."""
     return matrix_at_angle_deg(scatter_rows, cell_flat, acos_alpha / DEG)
+
+
+def alpha_tables(alpha_prefix_all):
+    """Hierarchical views of the ``(ncell, 4, 181)`` zenith prefix table
+    (``artes_tpu.transport.sampling.alpha_tables``): ``(coarse, fine)``,
+    coarse ``(ncell, 4, 16)`` the prefix at every ``N_FINE``-th edge, fine
+    ``(ncell, 15, 4, 13)`` the ``N_FINE + 1`` edges of each of the
+    ``N_COARSE`` blocks (a block's last edge is the next one's first).
+    :func:`sample_alpha_fused` reads the same edges from the rows
+    directly."""
+    nc = alpha_prefix_all.shape[0]
+    coarse = alpha_prefix_all[:, :, ::N_FINE]
+    body = alpha_prefix_all[:, :, :N_ANGLE].reshape(nc, 4, N_COARSE, N_FINE)
+    last = alpha_prefix_all[:, :, N_FINE::N_FINE].reshape(nc, 4, N_COARSE, 1)
+    return coarse, torch.cat([body, last], dim=-1).transpose(1, 2)

@@ -48,9 +48,19 @@ Phases, one line each; any failure exits non-zero before the result lines:
 4. probe splat: the splat micro-benchmark kernel at 625, 2025 and 10201
    pixels and its loop-only baseline against their plain versions
    (counts equal, values within ``probe_splat.VALUE_RTOL``), the splat's
-   cost a round net of the loop, and the library's calls for the same sums:
-   one ``index_add_`` of the materialised peels' values, and with a second
-   ``index_add_`` of their counts;
+   cost a round net of the loop (both on the same grid, each a slope over
+   its rounds), the latency of the loop's step and the chain's bound, and
+   the library's calls for the same sums: one ``index_add_`` of the
+   materialised peels' values, and with a second ``index_add_`` of their
+   counts;
+   xla paths (:func:`phase_xla_paths`): ``kernel.run_batch`` at 2^16
+   photons on the flagship, the 39 x 8 x 8 deck, the Lambert layer and the
+   nr=39 grid with flow against the plain pool on the same photons (counts
+   equal, sums within ``BATCH_RTOL``), and at each cell's gate photons
+   against the kernel within its gate; the CLI's ``demo`` with ``--f64`` on the card and on the CPU at
+   2^14 photons (wall times; counts equal, sums within
+   ``runner.F64_DEVICE_RTOL``, a photon that parts named by id); the phase
+   prints its duration;
 5. anchors, through the kernels: (a) the flagship at 2^27 photons with the
    ids and seed of the recorded TPU run (BENCH_r05.json ``detector_I_raw``
    = 6354867.5): I within 2e-3, no photon at the scattering cap; (b) the
@@ -87,8 +97,10 @@ Phases, one line each; any failure exits non-zero before the result lines:
    ``mesh.SPLIT_RTOL``; (b) the mesh launch measured over every visible card
    (one spawned process a card, NCCL): the flagship at 2^20 photons through
    ``run_stream_mesh`` against one launch on one card (counts and records
-   equal), the reduction alone, one NCCL ``all_reduce`` of its payload, and
-   the plain version of the same split;
+   equal), the reduction alone, one NCCL ``all_reduce`` of its payload, the
+   plain version of the same split, and ``sharded_dispatch`` of 2^14
+   photons against one ``run_batch`` on one card (counts and records equal,
+   sums within ``mesh.SPLIT_RTOL``);
 8. main path: ``python -m artes_tpu_torch.cli`` as a user runs it, one
    process each, 2^24 photons: spectrum on the README quick-start input
    and on the nr=39 grid, a 25x25 image of the quick-start input, its
@@ -186,6 +198,15 @@ MESH_CELLS = ("flagship", "grid3d_2496", "hydrostatic39_flow", "imaging25",
 MESH_SPLITS = (2, 3, 7)
 MESH_PROBE_PHOTONS = 1 << 20
 MESH_CLI_RTOL = 1e-9
+# the XLA paths: the batch transport's cells and photons, how far its sums
+# may stray from the plain pool's on the same photons (the order of the
+# card's atomic adds only), the photons of the sharded dispatch and of the
+# float64 CLI run, and how far float64 on the card may stray from the CPU
+XLA_CELLS = ("flagship", "grid3d_2496", "lambert_tau05", "hydrostatic39_flow")
+XLA_PHOTONS = 1 << 16
+BATCH_RTOL = 1e-6
+SHARDED_PHOTONS = 1 << 14
+F64_PHOTONS = 1 << 14
 
 
 def fail(msg):
@@ -197,12 +218,18 @@ def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def card_line():
-    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True)
+def _smi(query, nounits=False):
+    """The first card's ``nvidia-smi --query-gpu=<query>`` line."""
+    proc = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader" + (",nounits" if nounits else "")],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         fail(f"nvidia-smi: {proc.stderr.strip()}")
     return proc.stdout.strip().splitlines()[0]
+
+
+def card_line():
+    return _smi("name,power.limit")
 
 
 def timed(fn, reps):
@@ -422,6 +449,12 @@ def phase_probe():
     base_err = float((sink - ref_sink).abs().max())
     base_us, net_us = P.us_per_round(PROBE_SIZES)
     base_ms = base_us * P.N_ROUNDS * 1e-3
+    # the loop is a chain of dependent steps in each lane: its least time is
+    # the chain's length times one step's latency, measured by clock64, at
+    # the card's highest SM clock
+    step_cycles = P.chain_cycles()
+    sm_mhz = float(_smi("clocks.max.sm", nounits=True))
+    chain_ms = P.N_ROUNDS * step_cycles / sm_mhz * 1e-3
     base_plain_ms, _ = timed(lambda: P.baseline_plain(device=dev), 1)
     peels = P.N_ROUNDS * P.LANES
     for npix in PROBE_SIZES:
@@ -431,7 +464,7 @@ def phase_probe():
         bound_ms, bound_by = bound(npix * 8 * (P.NVALS + P.NCNT), peels * (P.NVALS + P.NCNT))
         rows[npix].update(ms=(net_us[npix] + base_us) * P.N_ROUNDS * 1e-3, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
-        say("probe", f"npix {npix}: splat {net_us[npix]:.3f} us/round net of the loop "
+        say("probe", f"npix {npix}: splat {net_us[npix]:.4f} us/round net of the loop "
                      f"({P.LANES} peels a round, {P.NVALS} value + {P.NCNT} count atomics "
                      f"each); kernel {rows[npix]['ms']:.3f} ms, plain {plain_ms:.1f} ms for "
                      f"{P.N_ROUNDS} rounds; counts equal, max|dvalue| "
@@ -448,12 +481,181 @@ def phase_probe():
                      f"counts {counts_ms:.3f} ms")
     say("probe", "launches in this phase: "
                  + " ".join(f"{k}={v}" for k, v in P.LAUNCHES.items()))
-    say("probe", f"baseline loop {base_us:.4f} us/round; kernel {base_ms:.3f} ms, plain "
-                 f"{base_plain_ms:.1f} ms; sinks equal")
     # the loop alone: one multiply-add a lane a round, 8 bytes a lane out
     bound_ms, bound_by = bound(8 * P.LANES, 2 * peels)
+    base_n = P.N_ROUNDS * P.BASE_SPAN
+    say("probe", f"baseline loop {base_us:.6f} us/round (slope between {base_n} and "
+                 f"{2 * base_n} rounds, {P.LANES // 64} blocks of 64 as the splat), "
+                 f"{base_ms:.5f} ms for {P.N_ROUNDS} rounds, plain {base_plain_ms:.1f} ms; sinks "
+                 f"equal; a step of the chain {step_cycles:.3f} cycles (clock64), so "
+                 f"{P.N_ROUNDS} steps take at least {chain_ms:.5f} ms at {sm_mhz:.0f} MHz; "
+                 f"operations bound {bound_ms:.5f} ms")
     return rows, dict(ms=base_ms, plain_ms=base_plain_ms, max_abs_err=base_err,
-                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                      bound_ms=bound_ms, bound_by=bound_by, chain_bound_ms=chain_ms,
+                      step_cycles=step_cycles, library_ms=None)
+
+
+def _gap_text(g):
+    """The gaps of ``pool_cuda.gaps`` on one line."""
+    return " ".join(f"{key}={v:.3e}" if isinstance(v, float) else
+                    f"{key}=" + ",".join(f"{x:.3e}" for x in v) for key, v in g.items())
+
+
+def _same_counts(a, b):
+    """Whether two results of the plain transport have every count equal."""
+    import torch
+    keys = ("n_error", "n_alive_at_cap", "n_stokes_anomaly", "n_error_records")
+    return (torch.equal(a["detector"][..., 2].cpu(), b["detector"][..., 2].cpu())
+            and torch.equal(a["error_codes"].cpu(), b["error_codes"].cpu())
+            and all(int(a[k]) == int(b[k]) for k in keys))
+
+
+def _sums_rel(a, b):
+    """The largest difference of a float tally of ``a`` from ``b``'s (the
+    detector's sums and squares, the fluxes, the flow), over that tally's
+    largest magnitude."""
+    import torch
+    worst = 0.0
+    for k in ("detector", "flux_emitted", "flux_exit", "flow_global", "flow_theta"):
+        if b.get(k) is None:
+            continue
+        x, y = (torch.as_tensor(o[k]).double().cpu() for o in (a, b))
+        if k == "detector":
+            x, y = x[..., :2], y[..., :2]
+        scale = float(y.abs().max())
+        d = float((x - y).abs().max())
+        worst = max(worst, d / scale if scale else (0.0 if d == 0 else float("inf")))
+    return worst
+
+
+def _f64_tables(root, device):
+    """The float64 tables and static config of the CLI's ``demo`` input."""
+    import torch
+    from artes_tpu_torch import runner
+    from artes_tpu_torch.atmosphere import load_artifact
+    from artes_tpu_torch.config import detector_setup, load_config
+    from artes_tpu_torch.transport.tables import build_tables
+    atm_dir = os.path.join(root, "input", "demo")
+    cfg = load_config(os.path.join(atm_dir, "artes.in"))
+    atm = load_artifact(os.path.join(atm_dir, "atmosphere.fits"))
+    det = detector_setup(cfg, float(atm.rfront[-1]))
+    return (build_tables(atm, cfg, det, 0, dtype=torch.float64, device=device).tables,
+            runner._kernel_static(cfg, det, atm, False))
+
+
+def _parting(run, lo, n, rtol):
+    """The photon ids in ``lo .. lo + n - 1`` whose card and CPU results
+    differ, by bisection; ``run(lo, n)`` gives both."""
+    card, cpu = run(lo, n)
+    if _same_counts(card, cpu) and _sums_rel(card, cpu) <= rtol:
+        return []
+    if n == 1:
+        return [lo]
+    return _parting(run, lo, n // 2, rtol) + _parting(run, lo + n // 2, n - n // 2, rtol)
+
+
+def phase_xla_paths():
+    """The paths of the JAX package that are XLA there and plain PyTorch
+    here, on the card. (a) ``kernel.run_batch`` at ``XLA_PHOTONS``, seed 7,
+    ids 0 .. n-1 on ``XLA_CELLS``, against the plain pool ``run_stream`` on
+    the same photons (every count equal, sums within ``BATCH_RTOL``), the
+    kernel timed on them too; then at the cell's gate photons
+    (``cells.gate_photons``, where its limits were read) against the
+    kernel within its gate (``pool_cuda.gaps``, ``limits_of``); no kernel
+    may launch on the plain paths. (b)
+    ``--f64``: the CLI's ``demo`` at ``F64_PHOTONS`` on the card and with
+    ``--device cpu``, one process each (wall times, ``spectrum.dat`` within
+    ``runner.F64_DEVICE_RTOL``), and the same run's transport in this
+    process on both devices: every count equal, sums within
+    ``F64_DEVICE_RTOL``, a photon that parts reported by id. The sharded
+    dispatch runs in the mesh phase's ranks (:func:`_mesh_probe`)."""
+    import numpy as np
+    import torch
+    from artes_tpu_torch import cells
+    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+    from artes_tpu_torch.runner import F64_DEVICE_RTOL
+    from artes_tpu_torch.transport import kernel, pool_cuda
+    t0 = time.perf_counter()
+    seed, n = 7, XLA_PHOTONS
+    rows = {}
+    for name in XLA_CELLS:
+        tables, static = KERNEL_CELLS[name]("cuda")
+        ids = torch.arange(n, dtype=torch.int64, device="cuda")
+        before = dict(pool_cuda.LAUNCHES)
+        batch_ms, batch = timed(lambda: kernel.run_batch(tables, static, ids, seed), 1)
+        pool_ms, pool = timed(lambda: kernel.run_stream(tables, static, n, seed, n), 1)
+        if pool_cuda.LAUNCHES != before:
+            fail(f"the plain paths launched a kernel on {name}")
+        pool_cuda.run_stream_cuda(tables, static, n, seed)                  # warm-up
+        kernel_ms, k = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
+        rel = _sums_rel(batch, pool)
+        same = _same_counts(batch, pool)
+        # the gate's limits hold at the photons they were read at
+        # (cells.gate_photons); at fewer, fewer photons' ulps cancel
+        n_gate = gate_photons(tables, static)
+        if n_gate != n:
+            batch_g = kernel.run_batch(tables, static,
+                                       torch.arange(n_gate, dtype=torch.int64, device="cuda"),
+                                       seed)
+            k = pool_cuda.run_stream_cuda(tables, static, n_gate, seed)
+            batch = batch_g
+        g = pool_cuda.gaps(k, batch)
+        limits = pool_cuda.limits_of(tables, static)
+        say("xla-paths", f"{name}: run_batch {batch_ms:.1f} ms, plain pool run_stream "
+                         f"{pool_ms:.1f} ms, kernel {kernel_ms:.3f} ms ({n} photons, seed 7); "
+                         f"batch against pool: counts {'equal' if same else 'DIFFERENT'}, sums "
+                         f"within {rel:.3e}; batch against kernel at the gate's {n_gate} "
+                         f"photons: gaps " + _gap_text(g))
+        if not (same and rel <= BATCH_RTOL):
+            fail(f"run_batch is not the plain pool on {name}")
+        if not pool_cuda.agrees(g, limits):
+            fail(f"run_batch disagrees with the kernel on {name} (limits {limits})")
+        rows[name] = dict(batch_ms=batch_ms, pool_ms=pool_ms, kernel_ms=kernel_ms)
+
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory(prefix="artes_f64_") as root:
+        cells.write_input(root, "demo")
+        walls, spectra = {}, {}
+        for label, dev in (("card", "cuda"), ("cpu", "cpu")):
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "artes_tpu_torch.cli", "demo", str(F64_PHOTONS), "-o",
+                 f"f64_{label}", "--root", root, "--f64", "--device", dev],
+                cwd=root, env=env, capture_output=True, text=True, timeout=600)
+            walls[label] = time.perf_counter() - t1
+            if proc.returncode != 0:
+                fail(f"CLI --f64 --device {dev} exited {proc.returncode}:\n{proc.stdout}\n"
+                     f"{proc.stderr}")
+            found = LAUNCH_LINE.search(proc.stdout)
+            if (label == "card") != bool(found) or (found and int(found.group(1)) != 0):
+                fail(f"CLI --f64 --device {dev}: a float64 run launches no kernel:\n"
+                     f"{proc.stdout}")
+            spectra[label] = np.loadtxt(os.path.join(root, "output", f"f64_{label}", "output",
+                                                     "spectrum.dat"), ndmin=2)
+        scale = float(np.abs(spectra["cpu"][:, 1:]).max())
+        spec_rel = float(np.abs(spectra["card"] - spectra["cpu"]).max()) / scale
+        # the CLI's transport again, in this process on both devices (seed 0
+        # at the first wavelength, one chunk of F64_PHOTONS)
+        tabs = [_f64_tables(root, dev) for dev in ("cuda", "cpu")]
+
+        def run(lo, count):
+            return tuple(kernel.run_stream(*tab, count, 0, max(count, 1), 0, lo) for tab in tabs)
+
+        card, cpu = run(0, F64_PHOTONS)
+        rel = _sums_rel(card, cpu)
+        same = _same_counts(card, cpu)
+        parting = [] if same and rel <= F64_DEVICE_RTOL else \
+            _parting(run, 0, F64_PHOTONS, F64_DEVICE_RTOL)
+        say("xla-paths", f"--f64 demo, {F64_PHOTONS} photons: the card {walls['card']:.1f} s, "
+                         f"--device cpu {walls['cpu']:.1f} s of wall time (process start "
+                         f"included); spectrum.dat within {spec_rel:.3e}; transport card against "
+                         f"CPU: counts {'equal' if same else 'DIFFERENT'}, sums within {rel:.3e}"
+                         f" (limit {F64_DEVICE_RTOL:g}); photons that part: {parting or 'none'}")
+        if not same or rel > F64_DEVICE_RTOL or spec_rel > F64_DEVICE_RTOL:
+            fail(f"float64 on the card is not float64 on the CPU: photons {parting}")
+    rows["f64"] = dict(card_s=walls["card"], cpu_s=walls["cpu"], rel=rel)
+    say("xla-paths", f"phase took {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def phase_anchors():
@@ -1006,8 +1208,14 @@ def _mesh_probe(rank, size, port, path):
     flat_f, flat_i = mesh.pack_tallies(mine, m.device)
     payload = torch.zeros(flat_f.numel() + flat_i.numel(), dtype=torch.float64, device=m.device)
     library_ms, _ = timed(lambda: dist.all_reduce(payload), 20)
+    # the sharded dispatch: run_batch on a rank's slice of the ids, summed
+    ids = torch.arange(SHARDED_PHOTONS, dtype=torch.int64, device=m.device)
+    dispatch = mesh.sharded_dispatch(m)
+    sharded_ms, sharded = timed(lambda: dispatch(tables, static, ids, seed), 1)
     result = None
     if rank == 0:
+        from artes_tpu_torch.transport import kernel
+        one_batch_ms, one_batch = timed(lambda: kernel.run_batch(tables, static, ids, seed), 1)
         one_ms, one = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
         n_bytes, n_ops = pool_work(tables, static, one)
         link_bytes = 8 * payload.numel() + 8 * (2 * mesh.ERR_RECORD_K + 1) * mesh.ERR_RECORD_W
@@ -1019,7 +1227,8 @@ def _mesh_probe(rank, size, port, path):
                       gaps=mesh.split_gaps(got, one),
                       max_abs_err=float((got["detector"][..., :2]
                                          - one["detector"][..., :2]).abs().max()),
-                      card=torch.cuda.get_device_name(m.device))
+                      card=torch.cuda.get_device_name(m.device), sharded_ms=sharded_ms,
+                      one_batch_ms=one_batch_ms, sharded_gaps=mesh.split_gaps(sharded, one_batch))
     dist.barrier(device_ids=[m.device.index])
     if rank == 0:
         with open(path, "w") as fh:
@@ -1048,6 +1257,14 @@ def phase_mesh_probe():
     g = row.pop("gaps")
     if not (g["counts"] == 0 and g["records"] == 0 and g["values"] <= 1e-12):
         fail(f"the mesh over {size} cards is not one launch on one card: {g}")
+    gs = row.pop("sharded_gaps")
+    say("mesh", f"sharded_dispatch over {size} ranks: flagship run_batch of {SHARDED_PHOTONS} "
+                f"photons {row['sharded_ms']:.1f} ms against {row['one_batch_ms']:.1f} ms for one "
+                f"run_batch on one card; largest count difference {gs['counts']:.0f}, records "
+                f"{'identical' if gs['records'] == 0 else 'DIFFERENT'}, sums within "
+                f"{gs['values']:.3e}")
+    if not (gs["counts"] == 0 and gs["records"] == 0 and gs["values"] <= mesh.SPLIT_RTOL):
+        fail(f"sharded_dispatch over {size} cards is not one run_batch: {gs}")
     tables, static = KERNEL_CELLS["flagship"]("cuda")
     n = row["photons"]
     row["plain_ms"], _ = timed(lambda: mesh.run_split(tables, static, n, 7, size, plain=True,
@@ -1172,6 +1389,7 @@ def main():
         return
     rows = phase_kernel_vs_plain()
     probe_rows, base_row = phase_probe()
+    phase_xla_paths()
     phase_anchors()
     chain_launches = phase_chains()
     split_err = phase_mesh_split()

@@ -111,8 +111,9 @@ def test_device_cuda_without_card_raises(quickstart, monkeypatch):
 
 def test_unported_modes_raise(quickstart):
     """A Lambert surface and flow diagnostics run through the CLI on radial
-    and 3-D grids alike, and the flow outputs leave their files; what still
-    raises is float64 on the card."""
+    and 3-D grids alike, and the flow outputs leave their files; ``--f64``
+    runs on the card, and without one it raises instead of running on the
+    CPU."""
     from artes_tpu import presets
     from artes_tpu_torch.io.fitsio import read_fits
     cells.write_artifact_input(quickstart, "patchy", presets.patchy_3d())
@@ -133,8 +134,11 @@ def test_unported_modes_raise(quickstart):
         for name in files:
             plane = read_fits(out / name)[0][1]
             assert np.isfinite(plane).all() and np.abs(plane).max() > 0.0, (what, name)
-    with pytest.raises((NotImplementedError, RuntimeError)):
-        cli.main(["demo", "1024", "-o", "m", "--f64", "--root", str(quickstart)])
+    if not torch.cuda.is_available():
+        # --f64 runs on the card by default; with no card it raises rather
+        # than fall back to the CPU (where a card is present it runs there)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["demo", "1024", "-o", "m", "--f64", "--root", str(quickstart)])
 
 
 def test_error_log_matches_jax(tmp_path):

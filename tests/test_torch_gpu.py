@@ -255,7 +255,8 @@ def test_cuda_runs_debug_stokes_and_scattering_off(cuda, name):
     """The Stokes-anomaly check and scattering off run in the kernels: each
     cell through its kernel within its limits (``stokes_anomaly`` among the
     gaps), anomalies recorded as code 50 at site 4, no peel without
-    scattering; float64 still refuses the card."""
+    scattering; float64 runs the plain version on the card, launches no
+    kernel and equals float64 on the CPU (``runner.F64_DEVICE_RTOL``)."""
     tables, static = KERNEL_CELLS[name](cuda)
     assert pool_cuda.kernel_of(tables, static)[0] == FLAG_CELLS[name]
     k, p = held_against_plain(tables, static, gate_photons(tables, static))
@@ -268,9 +269,18 @@ def test_cuda_runs_debug_stokes_and_scattering_off(cuda, name):
         assert float(k["detector"][:, 1:, 2].sum()) == 0.0 == float(p["detector"][:, 1:, 2].sum())
         assert int(k["n_alive_at_cap"]) == 0
     from artes_tpu_torch import runner
-    with pytest.raises(NotImplementedError, match="--device cpu"):
-        runner.run_wavelength(cells.flagship(), config.ArtesConfig(), config.detector_setup(
-            config.ArtesConfig(), 1.0), 0, 16, dtype=torch.float64, device=cuda)
+    cfg, atm = config.ArtesConfig(), cells.flagship()
+    det = config.detector_setup(cfg, float(atm.rfront[-1]))
+    before = dict(pool_cuda.LAUNCHES)
+    on_card, on_cpu = (runner.run_wavelength(atm, cfg, det, 0, 4096, seed=SEED,
+                                             dtype=torch.float64, device=dev)
+                       for dev in (cuda, "cpu"))
+    assert pool_cuda.LAUNCHES == before
+    assert on_card.prep.tables.opacity.device.type == "cuda"
+    np.testing.assert_array_equal(on_card.detector[..., 2], on_cpu.detector[..., 2])
+    assert on_card.detector[..., 0, 2].sum() > 0
+    np.testing.assert_allclose(on_card.detector[..., :2], on_cpu.detector[..., :2],
+                               rtol=runner.F64_DEVICE_RTOL, atol=0.0)
 
 
 @pytest.mark.gpu

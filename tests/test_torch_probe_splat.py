@@ -65,3 +65,11 @@ def test_splat_on_cpu_tensors_launches_nothing():
     vals, counts = P.splat(625, 2, device=torch.device("cpu"))
     assert vals.device.type == counts.device.type == "cpu"
     assert P.LAUNCHES == before
+
+
+def test_chain_cycles_reads_the_card_only():
+    """The latency of the loop's step is read from the card's cycle counter:
+    on the CPU there is nothing to read, and nothing runs."""
+    with pytest.raises(ValueError, match="cycle counter"):
+        P.chain_cycles(device="cpu")
+    assert P.LAUNCHES == {"probe_splat": 0, "probe_splat_baseline": 0}
