@@ -13,8 +13,9 @@ flags.
 
 :data:`VARIANT_BUILDS` names libraries built from a source with extra
 defines: the instrumented build of ``pool_radial.cu`` whose phase clocks
-``python -m artes_tpu_torch.measure clocks`` reads. The main path never
-loads it.
+``python -m artes_tpu_torch.measure clocks`` reads, and the one that also
+sums the scatter peels in float32 over :data:`TPU_LANES` lanes, as the TPU
+kernel does, for ``baselines.record_sums``. The main path never loads them.
 
 :data:`HOST_BUILDS` are the host programs under ``native/``, built with
 ``g++`` with the flags of the JAX package's Makefiles: the Mie/DHS solver
@@ -41,22 +42,31 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "artes_tpu_torch
 
 # Hopper only (sm_90a). No --use_fast_math: the f32 guards need IEEE
 # expf/logf/sqrtf and denormals. nvcc's default FMA contraction stays on,
-# but in the sources of SOURCE_FLAGS.
+# but in the sources of SOURCE_FLAGS (every pool kernel).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # source under csrc/ (without .cu) -> nvcc flags of its own, in every library
-# built from it. pool_grid3d.cu contracts nothing: each float32 expression
-# rounds op by op, as the plain version's do, but the chains it writes with
+# built from it. The pool kernels contract nothing: each float32 expression
+# rounds op by op, as the plain version's do, but the chains they write with
 # __fmaf_rn, which the plain version writes with geometry.fmadd. Contracted,
-# its Stokes algebra, sampling and jump walks strayed from the plain version's
+# their Stokes algebra, sampling and walks strayed from the plain version's
 # by ulps from a photon's first scattering on, enough to part rare
-# trajectories (PERF.md).
-SOURCE_FLAGS = {"pool_grid3d": ("-fmad=false",)}
+# trajectories: on BASELINE #2's cloud deck seen at 177.5 deg (the crescent's
+# grazing entries, cells.KERNEL_CELLS "hg_crescent") pool_radial's counts
+# parted by 8.8e-4, past pool_cuda.AGREE. Without contraction every gate
+# cell's gaps fell, at 8-17% of pool_radial's time on the flagship and at most
+# 7% of pool_march's on lambert_tau05, by the reading (PERF.md, python -m
+# artes_tpu_torch.measure contraction).
+SOURCE_FLAGS = {"pool_radial": ("-fmad=false",), "pool_grid3d": ("-fmad=false",),
+                "pool_march": ("-fmad=false",)}
 
 # library name -> (source under csrc/ without .cu, extra nvcc flags)
+# the TPU kernel's pool width on radial grids (artes_tpu/runner.py PALLAS_WIDTH)
+TPU_LANES = 8192
 VARIANT_BUILDS = {
     "pool_radial_clocks": ("pool_radial", ("-DARTES_POOL_CLOCKS",)),
+    "pool_radial_lanes": ("pool_radial", (f"-DARTES_F32_LANES={TPU_LANES}",)),
 }
 
 NATIVE_DIR = os.path.join(PACKAGE_DIR, "native")

@@ -330,6 +330,27 @@ def imaging_tables(npix, device, dtype=torch.float32, atm=None, **keys):
                       mode="imaging_mono", npix=npix, **keys)
 
 
+def phase_tables(atm, phase_deg, device, dtype=torch.float32):
+    """``(TransportTables, KernelStatic)`` of ``atm`` seen at one angle of the
+    phase curve, as ``runner.run_phase_curve`` sets it up (the crescent from
+    170 deg)."""
+    from artes_tpu_torch.config import ArtesConfig, detector_setup
+    from artes_tpu_torch.constants import PI
+    from artes_tpu_torch.runner import _kernel_static
+    from artes_tpu_torch.transport.tables import build_tables
+
+    cfg = ArtesConfig()
+    cfg.mode = "phase"
+    det = detector_setup(cfg, float(atm.rfront[-1]), det_phi=phase_deg * PI / 180.0)
+    return (build_tables(atm, cfg, det, 0, dtype=dtype, device=device).tables,
+            _kernel_static(cfg, det, atm, phase_deg >= 170.0))
+
+
+def hg_cloud_deck():
+    """BASELINE #2's triple-HG cloud deck (tools/baseline_scale_artifacts.py:37)."""
+    return presets.hg_cloud_deck(tau=6.0, g=0.6, p_linear=0.4)
+
+
 def crescent_offaxis(device, dtype=torch.float32):
     """Crescent sampling with the star at theta* = 1.2, phi* = 0.4 on a
     Rayleigh tau=1 two-shell grid (tests/test_pallas_stream.py:433-446)."""
@@ -344,6 +365,10 @@ SURFACE_MAX_SCATTER = 8
 # grids of at most MARCH_SMALL_CELLS cells run the closed-form count.
 GATE_PHOTONS = {"closed": 1 << 20, "jumps": 1 << 18, "march": 1 << 16}
 MARCH_SMALL_CELLS = 4
+# the gate's plain versions run this many worker processes at a time on one
+# card (chip_smoke.py phase 3, measure.py contraction): each is bound by its
+# launches on the host
+PLAIN_TOGETHER = 4
 
 
 def gate_photons(tables, static) -> int:
@@ -368,6 +393,8 @@ KERNEL_CELLS = {
     "thermal_imaging25": lambda dev: imaging_tables(25, dev, atm=thermal_scattering_shell(),
                                                     photon_source="planet"),
     "crescent_offaxis": crescent_offaxis,
+    # BASELINE #2's cloud deck at 177.5 deg: the crescent's grazing entries
+    "hg_crescent": lambda dev: phase_tables(hg_cloud_deck(), 177.5, dev),
     "grid3d_2496": lambda dev: spectrum_tables(grid3d_2496(), dev),
     "grid3d_imaging25": lambda dev: imaging_tables(25, dev, atm=grid3d_2496()),
     "grid3d_thermal": lambda dev: run_tables(grid3d_thermal_atm(), dev, photon_source="planet"),

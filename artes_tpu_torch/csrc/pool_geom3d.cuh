@@ -40,8 +40,8 @@ struct Grid3 {
 // chains, as the plain version does (geometry.fmadd): how nvcc would
 // contract the same expressions depends on the code around them, and the
 // chains decide which walks graze a face. The closed-form radial kernel
-// keeps nvcc's contraction (pool_common.cuh::make_ray, emit_stellar), with
-// which its limits were read.
+// rounds its geometry op by op (pool_common.cuh::make_ray, emit_stellar), as
+// the plain version's radial.ray_chords does.
 __device__ __forceinline__ float form(const Scal& S, const float* u, const float* v) {
   const float a2 = S.ob[0] * S.ob[0], b2 = S.ob[1] * S.ob[1], c2 = S.ob[2] * S.ob[2];
   return __fmaf_rn(__fmul_rn(c2, u[2]), v[2],

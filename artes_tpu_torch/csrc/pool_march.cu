@@ -65,6 +65,11 @@
 // and, with FLOW, four to five double reductions a pass. A lane still waits
 // for the longest march of its warp within one loop iteration (a march made
 // resumable, one pass an iteration, lost on the surface cells: PERF.md).
+//
+// Rounding. The file builds with -fmad=false (_build.SOURCE_FLAGS), as
+// pool_grid3d.cu does: every float32 expression rounds op by op, as the
+// plain version's do, but the chains written with __fmaf_rn (the walks'
+// geometry in the chains XLA compiles, geometry.fmadd on the plain side).
 
 #include "pool_geom3d.cuh"
 

@@ -58,6 +58,12 @@
 // The device code it shares with pool_grid3d.cu (draws, chords, Stokes
 // algebra, samplers, peel, booking, reduction) is in pool_common.cuh.
 //
+// Rounding. The file builds with -fmad=false (_build.SOURCE_FLAGS): every
+// float32 expression rounds op by op, as the plain version's PyTorch
+// operations do, but norm2's __fmaf_rn chain. Contracted, the grazing
+// entries of the crescent parted trajectories past pool_cuda.AGREE on
+// BASELINE #2's cloud deck at 177.5 deg (PERF.md).
+//
 // What bounds it on an H100: arithmetic and latency, not memory: a long
 // dependent chain (threefry, the two walks, the azimuth Newton, the 15 x 12
 // zenith search, the matrix) at 64 registers a thread for the stellar
@@ -66,7 +72,10 @@
 // contend on the lit pixels. A compile-time define ARTES_POOL_CLOCKS builds
 // the instrumented library pool_radial_clocks (python -m
 // artes_tpu_torch.measure clocks), which times each phase of the loop per
-// warp with clock64.
+// warp with clock64. ARTES_F32_LANES=<lanes> builds pool_radial_lanes, which
+// also sums the scatter peels as the TPU kernel sums a single pixel: in
+// float32, per lane, over a whole launch (artes_tpu_torch.baselines
+// .record_sums reads it).
 
 #include "pool_common.cuh"
 
@@ -241,6 +250,19 @@ __device__ __forceinline__ void clock_add(unsigned long long* sh, int k, long lo
 #define CLOCK_END(k) ((void)0)
 #endif
 
+#ifdef ARTES_F32_LANES
+// Build pool_radial_lanes (never the main path): the launch holds exactly
+// ARTES_F32_LANES threads, the TPU kernel's pool width, in blocks of
+// LANE_THREADS, and each thread adds its scatter peels' Stokes values into
+// four float32 sums besides the double ones, as a lane of the TPU kernel adds
+// them into its (RR, C) tiles over a launch (pallas_stream.py:1781-1784). At
+// its end each thread adds its float sums into g_lane_sums in double (the TPU
+// kernel sums its lanes' tiles once, in float32: an error of a few float32
+// ulps of the total).
+constexpr int LANE_THREADS = 64;
+__device__ double g_lane_sums[4];
+#endif
+
 // blocks of 256 an SM must hold at once, which bounds the registers ptxas may
 // give a thread: for the stellar spectrum 4 (64 registers; of 2, 3 and 4
 // blocks, the fastest at 2^20 and 2^24 photons together on an H100), for the
@@ -283,6 +305,9 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
   double acc[N_OUT_D] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   constexpr int NI = N_OUT_IR + (FLOW ? 1 : 0);
   unsigned long long cnt[NI] = {0ull, 0ull, 0ull, 0ull, 0ull};
+#ifdef ARTES_F32_LANES
+  float lane[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#endif
 
   // the lane's photon: alive between its first interaction and its death
   bool alive = false;
@@ -404,6 +429,9 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
       float v[4];
       for (int k = 0; k < 4; ++k) v[k] = contrib[k] * w;
       book<IMAGE, 4>(img, pix, v, acc);
+#ifdef ARTES_F32_LANES
+      for (int k = 0; k < 4; ++k) lane[k] += v[k];
+#endif
       cnt[0] += 1;
     }
     CLOCK_END(P_PEEL);
@@ -428,6 +456,9 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
 
   if constexpr (FLOW) flow_end(flow_g, flow_t, fl, T.nr);
   reduce_block<N_OUT_D, NI>(acc, cnt, out_d, out_i);
+#ifdef ARTES_F32_LANES
+  for (int k = 0; k < 4; ++k) atomicAdd(g_lane_sums + k, (double)lane[k]);
+#endif
 #ifdef ARTES_POOL_CLOCKS
   if ((threadIdx.x & 31) == 0) {
     atomicAdd(clk_sh + 3 * N_PHASE, (unsigned long long)(clock64() - clk_start));
@@ -494,9 +525,16 @@ extern "C" int artes_pool_radial_launch(
   const KernelFn fn = variant_fn(variant);
   if (fn == nullptr || threads > 256 || threads % 32 != 0 || threads < 32 || rec_cap < 0)
     return (int)cudaErrorInvalidValue;
+#ifdef ARTES_F32_LANES
+  threads = LANE_THREADS;
+#endif
   const int resident = resident_blocks(variant, fn, threads);
   if (resident < 1) return (int)cudaErrorInvalidConfiguration;
+#ifdef ARTES_F32_LANES
+  const int blocks = ARTES_F32_LANES / LANE_THREADS;
+#else
   const int blocks = persistent_blocks(resident, n_photons, threads);
+#endif
   if (flow_buf != nullptr && blocks > flow_buf_blocks) return (int)cudaErrorInvalidValue;
   fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       T, scal, img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, flow_g, flow_t,
@@ -534,5 +572,19 @@ extern "C" int artes_pool_radial_clocks(unsigned long long* host, int reset) {
     if (cudaMemcpyToSymbol(g_clocks, zero, sizeof(g_clocks)) != cudaSuccess) return -1;
   }
   return N_PHASE + 1;
+}
+#endif
+
+#ifdef ARTES_F32_LANES
+// The lanes' float32 sums of the scatter peels' I, Q, U, V since the last
+// reset (after the card finishes its work); returns 4.
+extern "C" int artes_pool_radial_lane_sums(double* host, int reset) {
+  cudaDeviceSynchronize();
+  if (cudaMemcpyFromSymbol(host, g_lane_sums, sizeof(g_lane_sums)) != cudaSuccess) return -1;
+  if (reset) {
+    static const double zero[4] = {0.0, 0.0, 0.0, 0.0};
+    if (cudaMemcpyToSymbol(g_lane_sums, zero, sizeof(g_lane_sums)) != cudaSuccess) return -1;
+  }
+  return 4;
 }
 #endif

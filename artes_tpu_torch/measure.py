@@ -39,19 +39,31 @@ peel again from its recorded position, cell and face with the plain
 version's marching walk in float32 and in float64 (``kernel._tau_walk_march``):
 the share of them that fails again says whether a lone failure is the
 recorded state's float32 rounding or the version's own. Last, the 3-D
-kernel's abandoned photons on grid3d_2496 at 2^24 photons, seed 30 (the
-seed of the TPU's 774 of 2^25).
+kernel's abandoned photons on grid3d_2496 on the TPU's own photons: 2^25 at
+seed 30 after a warm launch at seed 29, as bench.py times it (BENCH_r05:
+774), held within 3 sqrt(a + b) of the record.
 
-``contraction`` builds variants of ``csrc/pool_march.cu`` under ``build/``
-(never loaded by the main path): the default (the walks' geometry in
-explicit chains of fused multiply-adds, the rest as nvcc contracts it), the
-rest with ``-fmad=false``, that with the chains rounded op by op too, and
-the default with one chain at a time rounded op by op (``__fmul_rn``,
-``__fadd_rn``): the sphere quadratic's constant term ``qc``, its ``qa``,
-``qb`` and ``Cq``, the discriminant, the phi half-plane and the position
-updates. Each runs the uncut surface cells of ``rates`` at 2^16 and 2^20
-photons, seed 7, and prints its error tallies: the failed peels say which
-chain decides them.
+``contraction`` builds ``csrc/pool_radial.cu`` and ``csrc/pool_march.cu``
+under ``build/contraction/`` (never loaded by the main path) with nvcc's
+contraction of multiply-adds on ("contracted") and off ("-fmad=false"),
+whatever ``_build.SOURCE_FLAGS`` holds. For each kernel it reads every
+gate cell of ``cells.KERNEL_CELLS`` the kernel serves, once with each build:
+the gaps of ``pool_cuda.gaps`` to the plain version at
+``cells.gate_photons``, seed 7 (the plain versions ``cells.PLAIN_TOGETHER``
+processes at a time), each cell's worst gap over its limit, and its kernel
+time (median of 5 after a warm launch, CUDA events) with the builds in
+turns (in order, then back). It prints the rule's verdict on -fmad=false
+against the contracted build: it is adopted only if no cell's worst gap
+over its limit rises, the kernel's worst falls, and its time on the
+flagship (``pool_radial``) or lambert_tau05 (``pool_march``) grows by at
+most :data:`CONTRACTION_MAX_COST`. Then, as PR 8 read them, more variants of
+``pool_march.cu``: the walks' chains rounded op by op with
+``-fmad=false``, and the contracted build with one chain at a time rounded
+op by op (``__fmul_rn``, ``__fadd_rn``): the sphere quadratic's constant term
+``qc``, its ``qa``, ``qb`` and ``Cq``, the discriminant, the phi half-plane and
+the position updates. Each ``pool_march`` build runs the uncut surface cells
+of ``rates`` at 2^16 and 2^20 photons, seed 7, and prints its error tallies:
+the failed peels say which chain decides them.
 
 ``clocks`` runs the instrumented build of the radial kernel,
 ``pool_radial_clocks`` (``csrc/pool_radial.cu`` with ``ARTES_POOL_CLOCKS``,
@@ -101,6 +113,12 @@ PROBE_SIZES = (625, 2025, 10201)
 REPS = 5
 SUM_RTOL = 1e-12
 SEED = 7
+TPU_GRID3D_N_ERROR = 774               # BENCH_r05.json, TPU v5e, 2^25 photons, seed 30
+CONTRACTION_KERNELS = ("pool_radial", "pool_march")
+# the cell whose kernel time decides each kernel's flag, and the most the
+# flag may cost there
+CONTRACTION_TIME_CELL = {"pool_radial": "flagship", "pool_march": "lambert_tau05"}
+CONTRACTION_MAX_COST = 1.12
 PHASES = ("emission", "prewalk + first march", "roulette + peel_prep", "sample_beta",
           "sample_alpha", "rotation", "peel walk", "march")
 
@@ -311,11 +329,17 @@ def rates() -> int:
               f"lone events {_walk_fails(tables, static, only_k):.3f} and "
               f"{_walk_fails(t64, s64, only_k):.3f}", flush=True)
     tables, static = cells.spectrum_tables(cells.grid3d_2496(), "cuda")
-    n = 1 << 24
+    n = 1 << 25
+    pool_cuda.run_stream_cuda(tables, static, n, 29)                  # bench.py's warm launch
     out = pool_cuda.run_stream_cuda(tables, static, n, 30)
     torch.cuda.synchronize()
-    print(f"[rates] grid3d_2496, {n} photons, seed 30: kernel abandoned {int(out['n_error'])} "
-          f"{out['error_codes'].tolist()} ({int(out['n_error']) / n:.3e} of the photons); {card}")
+    a, b = int(out["n_error"]), TPU_GRID3D_N_ERROR
+    within = abs(a - b) <= 3.0 * math.sqrt(a + b)
+    ok = ok and within
+    print(f"[rates] grid3d_2496, {n} photons, seed 30: kernel abandoned {a} "
+          f"{out['error_codes'].tolist()} ({a / n:.3e} of the photons) against the TPU's {b} "
+          f"(BENCH_r05): |a - b| {abs(a - b)}, 3 sqrt(a + b) {3.0 * math.sqrt(a + b):.1f}, "
+          f"{'within' if within else 'OUTSIDE'}; {card}")
     return 0 if ok else 1
 
 
@@ -348,19 +372,26 @@ _SITES = (
      "pos[i] = __fadd_rn(pos[i], __fmul_rn(step, dir[i]));"),
 )
 _CHAIN_SITES = ("qc", "qa, qb, Cq", "disc", "phi", "pos")
-# variant -> (sites rounded op by op, extra nvcc flags)
-_CONTRACTION = {"default": ((), ()), "-fmad=false": ((), ("-fmad=false",)),
-                "-fmad=false, chains op by op": (_CHAIN_SITES, ("-fmad=false",)),
-                **{f"{site} op by op": ((site,), ()) for site in _CHAIN_SITES}}
+# each kernel's builds: label -> (sites of _SITES rounded op by op, extra
+# nvcc flags); the first two are the ones the adoption rule of -fmad=false
+# compares, pool_march's others PR 8's chain variants
+_GATE_BUILDS = {"contracted": ((), ()), "-fmad=false": ((), ("-fmad=false",))}
+_CONTRACTION = {
+    "pool_radial": _GATE_BUILDS,
+    "pool_march": {**_GATE_BUILDS,
+                   "-fmad=false, chains op by op": (_CHAIN_SITES, ("-fmad=false",)),
+                   **{f"{site} op by op": ((site,), ()) for site in _CHAIN_SITES}},
+}
 
 
-def _contraction_build(label: str) -> str:
-    """Build pool_march.cu's variant ``label`` under build/; its path."""
+def _contraction_build(source: str, label: str) -> str:
+    """Build ``csrc/<source>.cu``'s variant ``label`` of :data:`_CONTRACTION`
+    under build/contraction/; its path."""
     import shutil
     from artes_tpu_torch import _build
-    sites, extra = _CONTRACTION[label]
+    sites, extra = _CONTRACTION[source][label]
     root = os.path.join(os.path.dirname(_build.BUILD_DIR), "contraction",
-                        re.sub(r"\W+", "_", label))
+                        source + "_" + re.sub(r"\W+", "_", label))
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, root)
     for site, name, old, new in _SITES:
@@ -372,12 +403,109 @@ def _contraction_build(label: str) -> str:
                 raise RuntimeError(f"{label}: {name} holds {text.count(old)} of {old!r}")
             with open(path, "w") as fh:
                 fh.write(text.replace(old, new))
-    lib = os.path.join(root, "libpool_march.so")
+    lib = os.path.join(root, f"lib{source}.so")
     proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, *extra, "-o", lib,
-                           os.path.join(root, "pool_march.cu")], capture_output=True, text=True)
+                           os.path.join(root, source + ".cu")], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"{label}: nvcc failed\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{source} {label}: nvcc failed\n{proc.stdout}{proc.stderr}")
     return lib
+
+
+def _plain_gate(name: str) -> dict:
+    """A gate cell's plain version at its gate photons, seed 7, on the card
+    (in a worker process), on the host."""
+    import torch
+    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+    from artes_tpu_torch.transport import kernel
+    tables, static = KERNEL_CELLS[name]("cuda")
+    n = gate_photons(tables, static)
+    out = kernel.run_stream(tables, static, n, SEED, n)
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+
+
+def worst_ratio(g: dict, limits: dict) -> float:
+    """The largest gap of ``pool_cuda.gaps`` over its limit (a gap over a
+    limit of 0 is infinite, none is 0)."""
+    worst = 0.0
+    for key, limit in limits.items():
+        pairs = zip(g[key], limit) if isinstance(limit, tuple) else [(g[key], limit)]
+        for gap, lim in pairs:
+            worst = max(worst, gap / lim if lim > 0 else (math.inf if gap > 0 else 0.0))
+    return worst
+
+
+def contraction_verdict(ratios: dict, times: dict) -> tuple[bool, str]:
+    """Whether -fmad=false is adopted for a kernel in place of contraction,
+    and why: ``ratios`` maps each build to ``{cell: worst gap over limit}``,
+    ``times`` each build to the deciding cell's kernel time."""
+    label = "-fmad=false"
+    off, on = ratios[label], ratios["contracted"]
+    risen = [c for c in on if off[c] > on[c]]
+    worst_on, worst_off = max(on.values()), max(off.values())
+    cost = times[label] / times["contracted"]
+    adopt = not risen and worst_off < worst_on and cost <= CONTRACTION_MAX_COST
+    return adopt, (f"cells whose ratio rises {risen or 'none'}; worst ratio {worst_on:.4g} -> "
+                   f"{worst_off:.4g}; time {cost:.4f}x (at most {CONTRACTION_MAX_COST})")
+
+
+def _gate_reading(source: str, libs: dict, card: str) -> None:
+    """Each gate cell of ``source``'s kernel with both builds of ``libs``:
+    gaps to the plain version, kernel times in turns, and the verdict on
+    -fmad=false against the contracted build."""
+    import torch
+    from concurrent.futures import ProcessPoolExecutor
+    from artes_tpu_torch import _build, cells
+    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+    from artes_tpu_torch.transport import pool_cuda
+    setups = {}
+    for name, make in KERNEL_CELLS.items():
+        tables, static = make("cuda")
+        if pool_cuda.kernel_of(tables, static)[0] == source:
+            setups[name] = (tables, static, gate_photons(tables, static))
+    ex = ProcessPoolExecutor(cells.PLAIN_TOGETHER,
+                             mp_context=torch.multiprocessing.get_context("spawn"))
+    try:
+        labels = tuple(libs)
+        times = {label: {name: [] for name in setups} for label in labels}
+        outs = {}
+        for label in labels + labels[::-1]:                       # in turns
+            _build._LIBS[source] = ctypes.CDLL(libs[label])
+            for name, (tables, static, n) in setups.items():
+                pool_cuda.run_stream_cuda(tables, static, n, SEED)               # warm-up
+                ms = []
+                for _ in range(REPS):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    out = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+                    b.record()
+                    torch.cuda.synchronize()
+                    ms.append(a.elapsed_time(b))
+                times[label][name].append(sorted(ms)[len(ms) // 2])
+                outs.setdefault((label, name), out)
+        plain = {name: ex.submit(_plain_gate, name) for name in setups}
+        ratios = {label: {} for label in labels}
+        for name, (tables, static, n) in setups.items():
+            ref = plain[name].result()
+            limits = pool_cuda.limits_of(tables, static)
+            for label in labels:
+                g = pool_cuda.gaps(outs[label, name], ref)
+                ratios[label][name] = worst_ratio(g, limits)
+                print(f"[contraction] {source} {label}: {name}, {n} photons, seed {SEED}: "
+                      + " ".join(f"{k}={v:.4g}" if isinstance(v, float) else
+                                 f"{k}=" + ",".join(f"{x:.4g}" for x in v) for k, v in g.items())
+                      + f"; worst gap / limit {ratios[label][name]:.4g}; kernel "
+                      + " / ".join(f"{t:.3f}" for t in times[label][name]) + f" ms; {card}",
+                      flush=True)
+    finally:
+        ex.shutdown(cancel_futures=True)
+        _build._LIBS.pop(source, None)
+    cell = CONTRACTION_TIME_CELL[source]
+    best = {label: min(times[label][cell]) for label in labels}
+    adopt, why = contraction_verdict(ratios, best)
+    print(f"[contraction] {source} verdict on -fmad=false: "
+          f"{'adopt' if adopt else 'keep contraction'}: {why}; time cell {cell}; {card}",
+          flush=True)
 
 
 def contraction() -> int:
@@ -386,14 +514,19 @@ def contraction() -> int:
     from artes_tpu_torch import _build, cells
     from artes_tpu_torch.transport import pool_cuda
     card = card_line()
-    with ThreadPoolExecutor(len(_CONTRACTION)) as pool:
-        libs = dict(zip(_CONTRACTION, pool.map(_contraction_build, _CONTRACTION)))
+    builds = [(source, label) for source in CONTRACTION_KERNELS for label in _CONTRACTION[source]]
+    with ThreadPoolExecutor(len(builds)) as pool:       # one nvcc a build, all at once
+        paths = dict(zip(builds, pool.map(lambda b: _contraction_build(*b), builds)))
+    # the gate reading of the two builds the rule compares; pool_march's
+    # chain variants are read on the uncut surface cells below
+    for source in CONTRACTION_KERNELS:
+        _gate_reading(source, {label: paths[source, label] for label in _GATE_BUILDS}, card)
     setups = [(name, *cells.run_tables(atm, "cuda", surface_albedo=0.5)) for name, atm in
               (("hydrostatic39_surface", cells.hydrostatic39()),
                ("grid3d_2496_surface", cells.grid3d_2496()))]
     try:
-        for label, lib in libs.items():
-            _build._LIBS["pool_march"] = ctypes.CDLL(lib)
+        for label in _CONTRACTION["pool_march"]:
+            _build._LIBS["pool_march"] = ctypes.CDLL(paths["pool_march", label])
             for name, tables, static in setups:
                 for n in (1 << 16, 1 << 20):
                     out = pool_cuda.run_stream_cuda(tables, static, n, SEED)
@@ -449,10 +582,10 @@ def clocks(names: list[str], n: int) -> int:
     card = card_line()
     for name in names:
         tables, static = KERNEL_CELLS[name]("cuda")
-        pool_cuda.run_stream_cuda(tables, static, n, SEED, clocks=True)     # warm-up
+        pool_cuda.run_stream_cuda(tables, static, n, SEED, build="pool_radial_clocks")     # warm-up
         torch.cuda.synchronize()
         _read_clocks()
-        out = pool_cuda.run_stream_cuda(tables, static, n, SEED, clocks=True)
+        out = pool_cuda.run_stream_cuda(tables, static, n, SEED, build="pool_radial_clocks")
         torch.cuda.synchronize()
         rows = _read_clocks()
         total = rows[-1, 0]

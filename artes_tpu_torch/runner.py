@@ -127,7 +127,8 @@ def chunk_ids(lo: int, n: int, device) -> torch.Tensor:
 def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
                    packages: int, seed: int = 0, batch_size: int = 1 << 17,
                    dtype=torch.float32, device="cuda", crescent: bool = False,
-                   progress: bool = False, mesh=None, dispatch=None) -> WavelengthResult:
+                   progress: bool = False, mesh=None, dispatch=None,
+                   on_chunk=None) -> WavelengthResult:
     """Transport ``packages`` photons at one wavelength on ``device``, or
     over the ranks of ``mesh`` (a ``parallel.mesh.Mesh``; its rank's device
     takes the place of ``device``).
@@ -144,6 +145,10 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
     device) that never cross a 2^32 boundary, with the high id word folded
     into the seed as ``(seed + (start >> 32) * 0x9E3779B9) & 0xFFFFFFFF``.
     Nothing reaches it unless a caller passes it.
+
+    ``on_chunk``, if given, is called as ``on_chunk(n, id_hi, id_lo)`` after
+    each chunk's launch returns: it reports the chunk schedule and changes
+    nothing launched.
     """
     device = torch.device(device) if mesh is None else mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -187,6 +192,8 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
         # photon by (seed + id_hi * GOLDEN, low id word)
         n = min(chunk, packages - start, (1 << 32) - (start & 0xFFFFFFFF))
         out = kern(n, start >> 32, start & 0xFFFFFFFF)
+        if on_chunk is not None:
+            on_chunk(n, start >> 32, start & 0xFFFFFFFF)
         detector += out["detector"].cpu().numpy().astype(np.float64)
         if static.track_flow:
             flow_g += out["flow_global"].cpu().numpy().reshape(flow_g.shape)

@@ -72,8 +72,9 @@ F_CRESCENT, F_BIASED, F_DEBUG_STOKES, F_NO_SCATTER = 1, 2, 4, 8
 REC_CAP = 1 << 16
 
 # How far the kernel may stray from its plain version on the same photon
-# streams in float32 (the two compilers contract FMAs differently, so rare
-# trajectories flip). "count" is the Stokes-I row's count (scatter plus
+# streams in float32 (read when the kernels let nvcc contract FMAs and the
+# plain version rounded op by op, so rare trajectories flipped; the kernels
+# now build with -fmad=false, _build.SOURCE_FLAGS, and read far inside them). "count" is the Stokes-I row's count (scatter plus
 # birth peels) and "count_quv" the Q, U, V rows' count (scatter peels), each
 # summed over the pixels and relative to the plain sum; "pixel_I" and
 # "pixel_N" are sum_p |dI_p| / sum_p I_p and sum_p |dN_p| / sum_p N_p over
@@ -484,7 +485,7 @@ def result_of(layout, flat_f: torch.Tensor, flat_i: torch.Tensor, records,
 
 def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: int,
                     seed: int, id_hi: int = 0, id_lo: int = 0, err_k: int = ERR_RECORD_K,
-                    clocks: bool = False, host_records: bool = True):
+                    build: str | None = None, host_records: bool = True):
     """Transport photons ``id_lo .. id_lo + n_photons - 1`` (high id word
     ``id_hi``) through the CUDA kernel of the configuration
     (:func:`kernel_of`); returns the tallies of
@@ -499,12 +500,13 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     kernel without ``--debug-stokes``) is waited for, for its error records;
     with ``host_records`` False it is not: ``record_block`` then holds the
     records on the device (:func:`record_block`) and ``error_records`` is
-    empty. ``clocks`` launches the instrumented build of the radial kernel,
-    ``pool_radial_clocks`` (``python -m artes_tpu_torch.measure clocks``),
-    which ``LAUNCHES`` does not count."""
+    empty. ``build`` launches a variant build of the radial kernel
+    (``_build.VARIANT_BUILDS``: ``pool_radial_clocks``, ``pool_radial_lanes``)
+    in its place, which ``LAUNCHES`` does not count."""
     source, name = kernel_of(tables, static)
-    if clocks and source != "pool_radial":
-        raise ValueError(f"pool_radial_clocks is a build of pool_radial, not of {source}")
+    if build is not None and _build.VARIANT_BUILDS[build][0] != source:
+        raise ValueError(f"{build} is a build of {_build.VARIANT_BUILDS[build][0]}, not of "
+                         f"{source}")
     nr = _check_inputs(tables)
     if source == "pool_grid3d" and tables.jump is None:
         raise ValueError("jump walks need the jump tables (tables.build_tables makes them)")
@@ -529,7 +531,7 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
         scal = _scalars(t, static)
         consts = _constants(dev)
         key_hi = R.key_hi(seed, id_hi)
-        lib = "pool_radial_clocks" if clocks else source
+        lib = build or source
         # the persistent grid's photon counter (pool_common.cuh::next_photon)
         next_id = torch.zeros(1, dtype=torch.int64, device=dev)
         buf = None
@@ -576,7 +578,7 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
                             next_id.data_ptr(), THREADS, stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-        if not clocks:
+        if build is None:
             LAUNCHES[name] += 1
         if abandons and host_records:
             n_rec = int(v["rec_count"])                 # waits for the kernel

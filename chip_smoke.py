@@ -8,19 +8,22 @@ Phases, one line each; any failure exits non-zero before the result lines:
 
 1. env: torch, CUDA, nvcc, the card's name and power limit;
 2. build: compiles ``artes_tpu_torch/csrc/pool_radial.cu``,
-   ``pool_grid3d.cu``, ``pool_march.cu`` and ``probe_splat.cu`` with nvcc
-   and the host programs ``native/mie/mie.cc`` (the Mie solver) and
-   ``native/fits/fitsread.cc`` (the FITS reader) with g++, all at once, and
-   prints the ptxas registers and spills of every kernel instantiation;
+   ``pool_grid3d.cu``, ``pool_march.cu`` and ``probe_splat.cu`` with nvcc,
+   ``pool_radial.cu`` also as ``pool_radial_lanes`` (BASELINE #5's float32
+   lanes, phase 6), and the host programs ``native/mie/mie.cc`` (the Mie
+   solver) and ``native/fits/fitsread.cc`` (the FITS reader) with g++, all at
+   once, and prints the ptxas registers and spills of every kernel
+   instantiation;
 3. kernel vs plain: every instantiation of the three pool kernels (stellar,
    thermal, image, thermal image; radial, 3-D and marching; with and without
    flow) against its plain PyTorch version on the card, seed 7, float32, on
    the cells of ``cells.KERNEL_CELLS``. Radial cells at 2^20 photons (flagship, nr=39
    graded grid, 25x25 and 101x101 images, the bench's thermal shell with
    isotropic and biased emission, the scattering thermal shell as spectrum
-   and 25x25 image, crescent with an off-axis star) within
-   ``pool_cuda.AGREE``; 3-D cells at 2^18 photons, which the plain version's
-   cell-by-cell march affords (the bench's 39 x 8 x 8 patchy deck as
+   and 25x25 image, crescent with an off-axis star, BASELINE #2's cloud deck
+   seen at 177.5 deg through the crescent) within ``pool_cuda.AGREE``; 3-D
+   cells at 2^18 photons, which the plain version's cell-by-cell march
+   affords (the bench's 39 x 8 x 8 patchy deck as
    spectrum and 25x25 image, a self-luminous patchy 3-D grid as spectrum and
    25x25 image, the 2 x 3 x 4 patchy grid, a grid of 5,184 cells each with
    its own blend of two species, BASELINE #4's Mie cloud deck as a 25x25
@@ -53,14 +56,17 @@ Phases, one line each; any failure exits non-zero before the result lines:
    the library's calls for the same sums: one ``index_add_`` of the
    materialised peels' values, and with a second ``index_add_`` of their
    counts;
-   xla paths (:func:`phase_xla_paths`): ``kernel.run_batch`` at 2^16
-   photons on the flagship, the 39 x 8 x 8 deck, the Lambert layer and the
-   nr=39 grid with flow against the plain pool on the same photons (counts
-   equal, sums within ``BATCH_RTOL``), and at each cell's gate photons
-   against the kernel within its gate; the CLI's ``demo`` with ``--f64`` on the card and on the CPU at
-   2^14 photons (wall times; counts equal, sums within
-   ``runner.F64_DEVICE_RTOL``, a photon that parts named by id); the phase
-   prints its duration;
+   the kernels are timed alone first, then the xla paths
+   (:func:`phase_xla_times`): ``kernel.run_batch`` at 2^16 photons on the
+   flagship, the 39 x 8 x 8 deck, the Lambert layer and the nr=39 grid with
+   flow against the plain pool on the same photons (counts equal, sums
+   within ``BATCH_RTOL``), each timed alone beside the kernel's time; then
+   the plain versions run in worker processes while this one runs the xla
+   paths' untimed checks (:func:`phase_xla_checks`): ``run_batch`` at each
+   cell's gate photons against the kernel within its gate, and the CLI's
+   ``demo`` with ``--f64`` on the card and on the CPU at 2^14 photons
+   (counts equal, sums within ``runner.F64_DEVICE_RTOL``, a photon that
+   parts named by id);
 5. anchors, through the kernels: (a) the flagship at 2^27 photons with the
    ids and seed of the recorded TPU run (BENCH_r05.json ``detector_I_raw``
    = 6354867.5): I within 2e-3, no photon at the scattering cap; (b) the
@@ -79,16 +85,23 @@ Phases, one line each; any failure exits non-zero before the result lines:
    flow over a surface, the energy crossing the top shell's outer face
    (``flow_theta[nr-1, :, :, 0]``) is ``flux_exit`` within 2e-5 (in float32 a
    photon within rounding of the outer face leaves without a step to book);
-6. opacity chains: both FITS readers (``io.fitsio.read_fits`` and the
-   native ``read_fits_native``) timed on the 119.6 MB ``atmosphere.fits`` of
-   the 5,184-cell grid, same arrays; then ``python -m
-   artes_tpu_torch.baselines 4`` and ``3``, one process each: BASELINE #4's
-   Mie cloud image at 2^24 photons within ``baselines.LIMITS_4`` of
-   BASELINE4.json (its abandoned photons reported by code beside the
-   record's) and its kernel against its plain version at 2^16 photons, and
-   BASELINE #3's molecular thermal spectrum, 45 wavelengths of 2e7 photons,
-   each within the conservation rule of ``baselines.unscattered_oracle_flux``
-   and none abandoned;
+6. BASELINE chains: ``python -m artes_tpu_torch.baselines 4``, ``3``, ``1``,
+   ``2`` and ``5``, one process each: BASELINE #4's Mie cloud image at 2^24
+   photons within ``baselines.LIMITS_4`` of BASELINE4.json (its abandoned
+   photons reported by code beside the record's) and its kernel against its
+   plain version at 2^16 photons; BASELINE #3's molecular thermal spectrum,
+   45 wavelengths of 2e7 photons, each within the conservation rule of
+   ``baselines.unscattered_oracle_flux`` and none abandoned; BASELINE #1's
+   six-wavelength Rayleigh spectrum at 1e6 photons a wavelength, its 0.50
+   micron row against #5's record; BASELINE #2's 73-angle phase curve of the
+   HG cloud deck at 1e7 photons an angle against BASELINE_RUNS.json; BASELINE
+   #5's 1e10-photon flagship (ten chunks, photon ids past 2^32 and 2^33)
+   against BASELINE_RUNS.json, its pol_frac and a second Stokes I as the
+   record's 8192 float32 lanes sum the run (``baselines.record_sums``), and
+   its reflected + thermal layer at 2^24 photons a source; each chain's
+   kernels against their plain versions at
+   the gate's photons (``baselines.check_1``, ``check_2``, ``check_5`` and
+   ``kernel_vs_plain``);
 7. mesh: (a) the flagship, the 39 x 8 x 8 deck, the nr=39 grid with flow,
    the 25x25 image and the self-luminous 3-D grid imaged over a surface with
    flow, each at its gate photons as one launch and as 2, 3 and 7 sub-ranges
@@ -114,7 +127,7 @@ Phases, one line each; any failure exits non-zero before the result lines:
    both flow outputs, and at 2^22 photons one run for each other surface
    or flow instantiation, one with ``--debug-stokes`` on the layer that
    drives Q above I and one with ``photon:scattering=off`` on the
-   self-luminous 3-D grid (its birth peels alone reach the detector; three
+   self-luminous 3-D grid (its birth peels alone reach the detector; four
    processes at a time), each checked for its
    launch, its ``spectrum.dat``
    or ``stokes.fits``, its ``flow_global.fits`` (unit vectors where not
@@ -129,7 +142,7 @@ Phases, one line each; any failure exits non-zero before the result lines:
    the splat micro-benchmark's own entry point. Each process starts with
    its launch counts at 0 and prints them at its end; every kernel must
    have been launched. The kernels line adds the chains' launches (phase 6)
-   to the rows of ``thermal`` and ``grid3d_image``.
+   to the rows of ``stellar``, ``thermal`` and ``grid3d_image``.
 
 Each kernel's bound is the larger of its bytes (every table read once, every
 tally written once) over 3.35 TB/s and a lower count of its float32
@@ -143,11 +156,19 @@ It then prints the card line, a JSON line of the kernels and, last,
 ``{"ok": true, "device": {...}}``. Nothing runs without a CUDA device.
 ``python3 chip_smoke.py --mesh`` runs phases 1, 2 and 7 and the ``--mesh``
 CLI runs alone, over every visible card, and prints the mesh's row.
+
+The script makes itself the reaper of every process it starts (Linux's
+``PR_SET_CHILD_SUBREAPER``), so a grandchild whose parent ended comes back
+to it. Before it exits, on success and on failure alike, it stops every
+process below it that is still running (each named on standard error), and
+then the multiprocessing resource tracker, which ignores SIGTERM and would
+otherwise outlive it.
 """
 
 import json
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
@@ -178,8 +199,9 @@ KERNEL_SOURCE = {"pool_radial": "artes_tpu_torch/csrc/pool_radial.cu",
                  "pool_march": "artes_tpu_torch/csrc/pool_march.cu"}
 PROBE_SIZES = (625, 2025, 10201)
 MAIN_PATH_PHOTONS_SMALL = 1 << 22
-MAIN_PATH_TOGETHER = 3          # CLI processes of the main path's runs at a time
-PLAIN_TOGETHER = 3              # plain versions at a time in phase 3 (each bound by its launches)
+MAIN_PATH_TOGETHER = 4          # CLI processes of the main path's runs at a time
+# phase 3 starts the plain versions of the walks that take longest first
+PLAIN_FIRST = ("march", "jumps", "closed")
 # anchor (e): |I_3D / I_flagship - 1| per photon and the abandoned share, at
 # 2^24 photons (NVIDIA H100 80GB HBM3, 700 W; readings in PERF.md section 6)
 UNIFORM_3D_REL = 1.0e-3
@@ -260,14 +282,17 @@ def phase_env():
 def phase_build():
     from artes_tpu_torch import _build
     names = ("pool_radial", "pool_grid3d", "pool_march", "probe_splat")
+    # BASELINE #5's float32 lanes (baselines.record_sums), a build of pool_radial.cu
+    extra = ("pool_radial_lanes",)
     hosts = tuple(_build.HOST_BUILDS)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names) + len(hosts)) as ex:   # one compiler a source, all at once
-        built = [ex.submit(_build.build, n) for n in names] \
+    with ThreadPoolExecutor(len(names) + len(extra) + len(hosts)) as ex:   # all at once
+        built = [ex.submit(_build.build, n) for n in names + extra] \
             + [ex.submit(_build.build_host, n) for n in hosts]
-        paths = dict(zip(names, (f.result() for f in built)))
-        host_paths = dict(zip(hosts, (f.result() for f in built[len(names):])))
-    say("build", f"{', '.join(n + '.cu' for n in names)} (nvcc) and "
+        results = [f.result() for f in built]
+    paths = dict(zip(names, results))
+    host_paths = dict(zip(hosts, results[len(names) + len(extra):]))
+    say("build", f"{', '.join(n + '.cu' for n in names)} and {', '.join(extra)} (nvcc) and "
                  f"{', '.join(_build.HOST_BUILDS[n][0] for n in hosts)} (g++) built in "
                  f"{time.perf_counter() - t0:.1f} s")
     for name, path in host_paths.items():
@@ -362,15 +387,11 @@ def _plain_run(name, seed):
     return ms, {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
 
 
-def phase_kernel_vs_plain():
-    """Each cell's kernel against its plain version; fails at the first cell
-    that disagrees, else returns per-cell rows. The kernels are timed first,
-    alone on the card; then the plain versions, which are bound by their
-    launches on the host, run ``PLAIN_TOGETHER`` processes at a time."""
-    import torch
+def phase_kernel_times(seed=7):
+    """Each cell's kernel, timed alone on the card (median of 5 after a warm
+    launch): its mode, photons, limits, variant, time, result and bound."""
     from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
     from artes_tpu_torch.transport import kernel, pool_cuda
-    seed = 7
     timed_k = {}
     for name in KERNEL_CELLS:
         tables, static = KERNEL_CELLS[name]("cuda")
@@ -380,53 +401,64 @@ def phase_kernel_vs_plain():
         timed_k[name] = dict(mode=kernel.walk_mode(tables, static), n=n, static=static,
                              limits=pool_cuda.limits_of(tables, static),
                              variant=pool_cuda.kernel_of(tables, static)[1], ms=ms, out=out_k,
-                             bound=pool_bound(tables, static, out_k))
+                             bound=pool_bound(tables, static, out_k), seed=seed)
+    return timed_k
+
+
+def submit_plain(ex, timed_k):
+    """Each cell's plain version on the worker processes of ``ex``, the
+    marching walks' first (the plain versions are bound by their launches
+    on the host); their futures."""
+    order = sorted(timed_k, key=lambda name: PLAIN_FIRST.index(timed_k[name]["mode"]))
+    return {name: ex.submit(_plain_run, name, timed_k[name]["seed"]) for name in order}
+
+
+def phase_kernel_vs_plain(timed_k, plain):
+    """Each cell's kernel (``phase_kernel_times``) against its plain version
+    (``submit_plain``); fails at the first cell that disagrees, else returns
+    per-cell rows."""
+    from artes_tpu_torch.transport import kernel, pool_cuda
     rows = {}
-    ex = ProcessPoolExecutor(PLAIN_TOGETHER, mp_context=torch.multiprocessing.get_context("spawn"))
-    try:
-        plain = {name: ex.submit(_plain_run, name, seed) for name in KERNEL_CELLS}
-        for name in KERNEL_CELLS:
-            c = timed_k[name]
-            mode, n, static, limits, variant, ms, out_k = (
-                c[k] for k in ("mode", "n", "static", "limits", "variant", "ms", "out"))
-            bound_ms, bound_by = c["bound"]
-            plain_ms, out_p = plain[name].result()
-            dk, dp = out_k["detector"].double().cpu(), out_p["detector"].double().cpu()
-            g = pool_cuda.gaps(out_k, out_p)
-            max_abs = float((dk[..., 0] - dp[..., 0]).abs().max())
-            tot_k, tot_p = dk.sum(0), dp.sum(0)
-            say("kernel-vs-plain",
-                f"{name} [{variant}, {dk.shape[0]} px]: N (I row) kernel {int(tot_k[0, 2])} "
-                f"plain {int(tot_p[0, 2])}, N (Q/U/V rows) kernel {int(tot_k[1, 2])} plain "
-                f"{int(tot_p[1, 2])}; capped kernel {int(out_k['n_alive_at_cap'])} plain "
-                f"{int(out_p['n_alive_at_cap'])}; abandoned kernel {int(out_k['n_error'])} "
-                f"{out_k['error_codes'].tolist()} plain {int(out_p['n_error'])} "
-                f"{out_p['error_codes'].tolist()}; flux emitted "
-                f"{float(out_k['flux_emitted']):.7g} / "
-                f"{float(out_p['flux_emitted']):.7g}, exit {float(out_k['flux_exit']):.7g} / "
-                f"{float(out_p['flux_exit']):.7g}; gaps "
-                + " ".join(f"{k}={v:.3e}" if isinstance(v, float) else
-                           f"{k}=" + ",".join(f"{x:.3e}" for x in v) for k, v in g.items())
-                + "; plain sums (I,Q,U,V) " + " ".join(f"{x:.7g}" for x in tot_p[:, 0].tolist())
-                + f"; max|dIQUV| {max_abs:.6g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-                f"bound {bound_ms:.4f} ms by {bound_by} ({n} photons"
-                + (f", {int(out_k['n_cell_face'])} cell_face passes" if mode == "march" else "")
-                + (f", {int(out_k['n_flow_booked'])} flow bookings" if static.track_flow else "")
-                + ")")
-            if not (dk.isfinite().all() and pool_cuda.agrees(g, limits)):
-                fail(f"kernel disagrees with its plain version on {name} (limits {limits})")
-            # every abandoned photon leaves a record, but for failed birth peels;
-            # a failed scatter peel leaves one unless its round's march failed too
-            n_err, n_rec = int(out_k["n_error"]), int(out_k["n_error_records"])
-            peel = int(out_k["error_codes"][3])
-            if not (n_err - peel <= n_rec <= n_err + peel) or \
-                    len(out_k["error_records"]) != min(n_rec, 2 * kernel.ERR_RECORD_K):
-                fail(f"{name}: {n_err} photons abandoned, {peel} peel walks failed, but "
-                     f"{n_rec} error records")
-            rows[name] = dict(variant=variant, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                              bound_ms=bound_ms, bound_by=bound_by)
-    finally:
-        ex.shutdown(cancel_futures=True)        # after a failure, start no other plain version
+    for name in timed_k:
+        c = timed_k[name]
+        mode, n, static, limits, variant, ms, out_k = (
+            c[k] for k in ("mode", "n", "static", "limits", "variant", "ms", "out"))
+        bound_ms, bound_by = c["bound"]
+        plain_ms, out_p = plain[name].result()
+        dk, dp = out_k["detector"].double().cpu(), out_p["detector"].double().cpu()
+        g = pool_cuda.gaps(out_k, out_p)
+        max_abs = float((dk[..., 0] - dp[..., 0]).abs().max())
+        tot_k, tot_p = dk.sum(0), dp.sum(0)
+        say("kernel-vs-plain",
+            f"{name} [{variant}, {dk.shape[0]} px]: N (I row) kernel {int(tot_k[0, 2])} "
+            f"plain {int(tot_p[0, 2])}, N (Q/U/V rows) kernel {int(tot_k[1, 2])} plain "
+            f"{int(tot_p[1, 2])}; capped kernel {int(out_k['n_alive_at_cap'])} plain "
+            f"{int(out_p['n_alive_at_cap'])}; abandoned kernel {int(out_k['n_error'])} "
+            f"{out_k['error_codes'].tolist()} plain {int(out_p['n_error'])} "
+            f"{out_p['error_codes'].tolist()}; flux emitted "
+            f"{float(out_k['flux_emitted']):.7g} / "
+            f"{float(out_p['flux_emitted']):.7g}, exit {float(out_k['flux_exit']):.7g} / "
+            f"{float(out_p['flux_exit']):.7g}; gaps "
+            + " ".join(f"{k}={v:.3e}" if isinstance(v, float) else
+                       f"{k}=" + ",".join(f"{x:.3e}" for x in v) for k, v in g.items())
+            + "; plain sums (I,Q,U,V) " + " ".join(f"{x:.7g}" for x in tot_p[:, 0].tolist())
+            + f"; max|dIQUV| {max_abs:.6g}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by} ({n} photons"
+            + (f", {int(out_k['n_cell_face'])} cell_face passes" if mode == "march" else "")
+            + (f", {int(out_k['n_flow_booked'])} flow bookings" if static.track_flow else "")
+            + ")")
+        if not (dk.isfinite().all() and pool_cuda.agrees(g, limits)):
+            fail(f"kernel disagrees with its plain version on {name} (limits {limits})")
+        # every abandoned photon leaves a record, but for failed birth peels;
+        # a failed scatter peel leaves one unless its round's march failed too
+        n_err, n_rec = int(out_k["n_error"]), int(out_k["n_error_records"])
+        peel = int(out_k["error_codes"][3])
+        if not (n_err - peel <= n_rec <= n_err + peel) or \
+                len(out_k["error_records"]) != min(n_rec, 2 * kernel.ERR_RECORD_K):
+            fail(f"{name}: {n_err} photons abandoned, {peel} peel walks failed, but "
+                 f"{n_rec} error records")
+        rows[name] = dict(variant=variant, ms=ms, plain_ms=plain_ms, max_abs_err=max_abs,
+                          bound_ms=bound_ms, bound_by=bound_by)
     return rows
 
 
@@ -554,26 +586,16 @@ def _parting(run, lo, n, rtol):
     return _parting(run, lo, n // 2, rtol) + _parting(run, lo + n // 2, n - n // 2, rtol)
 
 
-def phase_xla_paths():
+def phase_xla_times():
     """The paths of the JAX package that are XLA there and plain PyTorch
-    here, on the card. (a) ``kernel.run_batch`` at ``XLA_PHOTONS``, seed 7,
-    ids 0 .. n-1 on ``XLA_CELLS``, against the plain pool ``run_stream`` on
-    the same photons (every count equal, sums within ``BATCH_RTOL``), the
-    kernel timed on them too; then at the cell's gate photons
-    (``cells.gate_photons``, where its limits were read) against the
-    kernel within its gate (``pool_cuda.gaps``, ``limits_of``); no kernel
-    may launch on the plain paths. (b)
-    ``--f64``: the CLI's ``demo`` at ``F64_PHOTONS`` on the card and with
-    ``--device cpu``, one process each (wall times, ``spectrum.dat`` within
-    ``runner.F64_DEVICE_RTOL``), and the same run's transport in this
-    process on both devices: every count equal, sums within
-    ``F64_DEVICE_RTOL``, a photon that parts reported by id. The sharded
-    dispatch runs in the mesh phase's ranks (:func:`_mesh_probe`)."""
-    import numpy as np
+    here, on the card, timed alone (before phase 3's plain versions start):
+    ``kernel.run_batch`` at ``XLA_PHOTONS``, seed 7, ids 0 .. n-1 on
+    ``XLA_CELLS``, against the plain pool ``run_stream`` on the same photons
+    (every count equal, sums within ``BATCH_RTOL``), each timed once, and
+    the kernel on them (median of 5); no kernel may launch on the plain
+    paths. Returns the cells' times."""
     import torch
-    from artes_tpu_torch import cells
-    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
-    from artes_tpu_torch.runner import F64_DEVICE_RTOL
+    from artes_tpu_torch.cells import KERNEL_CELLS
     from artes_tpu_torch.transport import kernel, pool_cuda
     t0 = time.perf_counter()
     seed, n = 7, XLA_PHOTONS
@@ -587,42 +609,61 @@ def phase_xla_paths():
         if pool_cuda.LAUNCHES != before:
             fail(f"the plain paths launched a kernel on {name}")
         pool_cuda.run_stream_cuda(tables, static, n, seed)                  # warm-up
-        kernel_ms, k = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
+        kernel_ms, _ = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, seed), 5)
         rel = _sums_rel(batch, pool)
         same = _same_counts(batch, pool)
-        # the gate's limits hold at the photons they were read at
-        # (cells.gate_photons); at fewer, fewer photons' ulps cancel
-        n_gate = gate_photons(tables, static)
-        if n_gate != n:
-            batch_g = kernel.run_batch(tables, static,
-                                       torch.arange(n_gate, dtype=torch.int64, device="cuda"),
-                                       seed)
-            k = pool_cuda.run_stream_cuda(tables, static, n_gate, seed)
-            batch = batch_g
-        g = pool_cuda.gaps(k, batch)
-        limits = pool_cuda.limits_of(tables, static)
         say("xla-paths", f"{name}: run_batch {batch_ms:.1f} ms, plain pool run_stream "
-                         f"{pool_ms:.1f} ms, kernel {kernel_ms:.3f} ms ({n} photons, seed 7); "
-                         f"batch against pool: counts {'equal' if same else 'DIFFERENT'}, sums "
-                         f"within {rel:.3e}; batch against kernel at the gate's {n_gate} "
-                         f"photons: gaps " + _gap_text(g))
+                         f"{pool_ms:.1f} ms, kernel {kernel_ms:.3f} ms ({n} photons, seed 7; "
+                         f"each alone on the card); batch against pool: counts "
+                         f"{'equal' if same else 'DIFFERENT'}, sums within {rel:.3e}")
         if not (same and rel <= BATCH_RTOL):
             fail(f"run_batch is not the plain pool on {name}")
+        rows[name] = dict(batch_ms=batch_ms, pool_ms=pool_ms, kernel_ms=kernel_ms)
+    say("xla-paths", f"timed part took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_xla_checks():
+    """The XLA paths' comparisons, untimed, beside phase 3's plain versions.
+    (a) ``kernel.run_batch`` on ``XLA_CELLS`` at each cell's gate photons
+    (``cells.gate_photons``, where its limits were read) against the kernel
+    within its gate (``pool_cuda.gaps``, ``limits_of``). (b) ``--f64``: the
+    CLI's ``demo`` at ``F64_PHOTONS`` on the card and with ``--device cpu``,
+    one process each (``spectrum.dat`` within ``runner.F64_DEVICE_RTOL``, no
+    kernel launched), and the same run's transport in this process on both
+    devices: every count equal, sums within ``F64_DEVICE_RTOL``, a photon
+    that parts reported by id. The sharded dispatch runs in the mesh
+    phase's ranks (:func:`_mesh_probe`)."""
+    import numpy as np
+    import torch
+    from artes_tpu_torch import cells
+    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+    from artes_tpu_torch.runner import F64_DEVICE_RTOL
+    from artes_tpu_torch.transport import kernel, pool_cuda
+    t0 = time.perf_counter()
+    seed = 7
+    for name in XLA_CELLS:
+        tables, static = KERNEL_CELLS[name]("cuda")
+        n_gate = gate_photons(tables, static)
+        batch = kernel.run_batch(tables, static,
+                                 torch.arange(n_gate, dtype=torch.int64, device="cuda"), seed)
+        k = pool_cuda.run_stream_cuda(tables, static, n_gate, seed)
+        g = pool_cuda.gaps(k, batch)
+        limits = pool_cuda.limits_of(tables, static)
+        say("xla-paths", f"{name}: batch against kernel at the gate's {n_gate} photons, seed "
+                         f"7: gaps " + _gap_text(g))
         if not pool_cuda.agrees(g, limits):
             fail(f"run_batch disagrees with the kernel on {name} (limits {limits})")
-        rows[name] = dict(batch_ms=batch_ms, pool_ms=pool_ms, kernel_ms=kernel_ms)
 
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     with tempfile.TemporaryDirectory(prefix="artes_f64_") as root:
         cells.write_input(root, "demo")
-        walls, spectra = {}, {}
+        spectra = {}
         for label, dev in (("card", "cuda"), ("cpu", "cpu")):
-            t1 = time.perf_counter()
             proc = subprocess.run(
                 [sys.executable, "-m", "artes_tpu_torch.cli", "demo", str(F64_PHOTONS), "-o",
                  f"f64_{label}", "--root", root, "--f64", "--device", dev],
                 cwd=root, env=env, capture_output=True, text=True, timeout=600)
-            walls[label] = time.perf_counter() - t1
             if proc.returncode != 0:
                 fail(f"CLI --f64 --device {dev} exited {proc.returncode}:\n{proc.stdout}\n"
                      f"{proc.stderr}")
@@ -646,16 +687,14 @@ def phase_xla_paths():
         same = _same_counts(card, cpu)
         parting = [] if same and rel <= F64_DEVICE_RTOL else \
             _parting(run, 0, F64_PHOTONS, F64_DEVICE_RTOL)
-        say("xla-paths", f"--f64 demo, {F64_PHOTONS} photons: the card {walls['card']:.1f} s, "
-                         f"--device cpu {walls['cpu']:.1f} s of wall time (process start "
-                         f"included); spectrum.dat within {spec_rel:.3e}; transport card against "
-                         f"CPU: counts {'equal' if same else 'DIFFERENT'}, sums within {rel:.3e}"
-                         f" (limit {F64_DEVICE_RTOL:g}); photons that part: {parting or 'none'}")
+        say("xla-paths", f"--f64 demo, {F64_PHOTONS} photons, the card against --device cpu: "
+                         f"spectrum.dat within {spec_rel:.3e}; transport: counts "
+                         f"{'equal' if same else 'DIFFERENT'}, sums within {rel:.3e} (limit "
+                         f"{F64_DEVICE_RTOL:g}); photons that part: {parting or 'none'}")
         if not same or rel > F64_DEVICE_RTOL or spec_rel > F64_DEVICE_RTOL:
             fail(f"float64 on the card is not float64 on the CPU: photons {parting}")
-    rows["f64"] = dict(card_s=walls["card"], cpu_s=walls["cpu"], rel=rel)
-    say("xla-paths", f"phase took {time.perf_counter() - t0:.1f} s")
-    return rows
+    say("xla-paths", f"checks took {time.perf_counter() - t0:.1f} s beside phase 3's plain "
+                     f"versions")
 
 
 def phase_anchors():
@@ -779,27 +818,6 @@ def phase_anchors():
             fail("the energy crossing the outer face is not flux_exit")
 
 
-def _time_readers(path, turns=5):
-    """Each FITS reader's median and least wall time [s] on ``path``,
-    ``turns`` reads each in alternation, after one read of each; fails
-    unless both read the same arrays."""
-    import numpy as np
-    from artes_tpu_torch.io.fitsio import read_fits, read_fits_native
-    readers = {"read_fits": read_fits, "read_fits_native": read_fits_native}
-    first = {name: read(path) for name, read in readers.items()}
-    for (n_a, a), (n_b, b) in zip(*first.values()):
-        if n_a != n_b or (a is None) != (b is None) or \
-                (a is not None and not np.array_equal(a, b)):
-            fail(f"the FITS readers disagree on {path}, HDU {n_a}")
-    times = {name: [] for name in readers}
-    for _ in range(turns):
-        for name, read in readers.items():
-            t0 = time.perf_counter()
-            read(path)
-            times[name].append(time.perf_counter() - t0)
-    return {name: (sorted(t)[len(t) // 2], min(t)) for name, t in times.items()}
-
-
 def _chain(number):
     """``python -m artes_tpu_torch.baselines <number>`` in a process of its
     own: its result line, its wall time."""
@@ -823,27 +841,12 @@ def _chain(number):
 
 
 def phase_chains():
-    """The opacity chains: both FITS readers timed on blended_5184's
-    artifact, then BASELINE #4 and #3 through ``artes_tpu_torch.baselines``
+    """BASELINE #4, #3, #1, #2 and #5 through ``artes_tpu_torch.baselines``
     (its own process each: the launches it counts are its own) against the
     records' limits. Returns the chains' launches per instantiation."""
-    from artes_tpu_torch import cells
-    from artes_tpu_torch.atmosphere import write_artifact
-    with tempfile.TemporaryDirectory(prefix="artes_fits_") as tmp:
-        path = os.path.join(tmp, "atmosphere.fits")
-        write_artifact(path, cells.blended_5184())
-        size = os.path.getsize(path)
-        times = _time_readers(path)
-    say("chains", f"blended_5184's atmosphere.fits ({size} bytes) read on the card's host: "
-                  + "; ".join(f"{name} median {med:.4f} s, least {low:.4f} s"
-                              for name, (med, low) in times.items())
-                  + "; the same arrays")
     launches = {}
     four, wall4 = _chain(4)
-    checks = four["checks"]
-    say("chains", f"#4 ({wall4:.1f} s wall): " + "; ".join(
-        f"{k} {c['value']!r} against {c['record']!r} (gap {c['gap']:.4g}, limit {c['limit']:.4g}"
-        + (", reported only)" if not c.get("held", True) else ")") for k, c in checks.items())
+    say("chains", f"#4 ({wall4:.1f} s wall): " + _checks_text(four["checks"])
         + f"; abandoned by code {four['error_codes']}; {four['throughput_photons_per_s']:.6g} "
         f"photons/s; kernel vs plain {four['cross_kernel']}; launches {four['launches']}")
     three, wall3 = _chain(3)
@@ -855,12 +858,43 @@ def phase_chains():
                   f"deficit {three['conservation']['worst_deficit']:.4e}); n_error "
                   f"{three['n_error_total']}; photons/s median {rates['median']:.6g} min "
                   f"{rates['min']:.6g} max {rates['max']:.6g}; launches {three['launches']}")
-    for result in (four, three):
+    one, wall1 = _chain(1)
+    say("chains", f"#1 ({wall1:.1f} s wall): " + _checks_text(one["checks"]) + "; photons/s "
+        + ", ".join(f"{r['photons_per_s']:.6g}" for r in one["rows"])
+        + f"; kernel vs plain {one['cross_kernel']['ok']} at 0.50 um; launches {one['launches']}")
+    two, wall2 = _chain(2)
+    say("chains", f"#2 ({wall2:.1f} s wall): " + _checks_text(two["checks"])
+        + f"; {two['photons_per_s']:.6g} photons/s over {len(two['curve'])} angles; kernel vs "
+        f"plain " + ", ".join(f"{a} deg {c['ok']}" for a, c in two["cross_kernel"].items())
+        + f"; launches {two['launches']}")
+    five, wall5 = _chain(5)
+    scale = five["scale"]
+    rec = scale["record_sums"]
+    say("chains", f"#5 ({wall5:.1f} s wall): " + _checks_text(five["checks"])
+        + f" (pol_frac as the record's {rec['lanes']} float32 lanes sum the run; its own "
+        f"{scale['pol_frac']!r}; float32 minus double over I " + ", ".join(
+            f"{c['float32_minus_double_over_I'][:2]} on {c['photons']} photons"
+            for c in rec["chunks"]) + f", {rec['seconds']:.1f} s)"
+        + f"; chunks (id_hi, id_lo, n) {scale['chunks_id_hi_id_lo_n']}; "
+        f"{scale['photons_per_s']:.6g} photons/s; reflected + thermal IQUV " + "; ".join(
+            f"{k} {v['stokes_IQUV_W_m2_um']}"
+            for k, v in five["reflected_thermal"]["sources"].items())
+        + f"; thermal kernel vs plain {five['cross_kernel']['ok']}; launches {five['launches']}")
+    if {hi for hi, _, _ in scale["chunks_id_hi_id_lo_n"]} != {0, 1, 2}:
+        fail(f"#5 did not reach photon ids past 2^32 and 2^33: {scale['chunks_id_hi_id_lo_n']}")
+    for result in (four, three, one, two, five):
         for k, v in result["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    if launches.get("grid3d_image", 0) <= 0 or launches.get("thermal", 0) <= 0:
-        fail(f"the chains did not launch grid3d_image and thermal: {launches}")
+    if not all(launches.get(v, 0) > 0 for v in ("grid3d_image", "thermal", "stellar")):
+        fail(f"the chains did not launch grid3d_image, thermal and stellar: {launches}")
     return launches
+
+
+def _checks_text(checks):
+    """A chain's checks against its record, one clause each."""
+    return "; ".join(f"{k} {c['value']!r} against {c['record']!r} (gap {c['gap']:.4g}, limit "
+                     f"{c['limit']:.4g}" + (", reported only)" if not c.get("held", True) else ")")
+                     for k, c in checks.items())
 
 
 LAUNCH_LINE = re.compile(r"CUDA kernel launches: pool=(\d+) \((.*)\)")
@@ -1387,9 +1421,21 @@ def main():
         print(card_line())
         print(json.dumps({"kernels": [mesh_kernel_row(mesh_row, launches["mesh"], split_err)]}))
         return
-    rows = phase_kernel_vs_plain()
+    # the kernels and the XLA paths timed alone on the card, then phase 3's
+    # plain versions in worker processes while this one runs the XLA paths'
+    # untimed checks
+    from artes_tpu_torch import cells
+    timed_k = phase_kernel_times()
+    phase_xla_times()
+    ex = ProcessPoolExecutor(cells.PLAIN_TOGETHER,
+                             mp_context=torch.multiprocessing.get_context("spawn"))
+    try:
+        plain = submit_plain(ex, timed_k)
+        phase_xla_checks()
+        rows = phase_kernel_vs_plain(timed_k, plain)
+    finally:
+        ex.shutdown(cancel_futures=True)        # after a failure, start no other plain version
     probe_rows, base_row = phase_probe()
-    phase_xla_paths()
     phase_anchors()
     chain_launches = phase_chains()
     split_err = phase_mesh_split()
@@ -1436,5 +1482,91 @@ def main():
                                              "count": torch.cuda.device_count()}}))
 
 
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans():
+    """Make this process the reaper of every process below it: a process
+    whose parent ends is handed to this one, where :func:`stop_children`
+    finds it."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        fail(f"prctl(PR_SET_CHILD_SUBREAPER): errno {ctypes.get_errno()}")
+
+
+def _descendants():
+    """The pids of the live processes below this one, from ``/proc``, and
+    each one's command line."""
+    parent, state = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                stat = fh.read()
+        except OSError:                 # it ended meanwhile
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        parent[int(entry)], state[int(entry)] = int(fields[1]), fields[0]
+    me, found = os.getpid(), {}
+    for pid in parent:
+        up = parent[pid]
+        while up in parent and up != me:
+            up = parent[up]
+        if up == me and state[pid] != "Z":
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                    found[pid] = fh.read().replace(b"\0", b" ").decode(errors="replace").strip()
+            except OSError:
+                continue
+    return found
+
+
+def _reap():
+    """Collect the exit status of every child of this process that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_children(grace_s=10.0):
+    """Stop every process below this one that is still running: SIGTERM,
+    then SIGKILL after ``grace_s``; then the multiprocessing resource
+    tracker, by closing its pipe and waiting for it. Each process found is
+    named on standard error."""
+    from multiprocessing import resource_tracker
+    tracker = resource_tracker._resource_tracker
+    left = {pid: cmd for pid, cmd in _descendants().items() if pid != tracker._pid}
+    for pid, cmd in left.items():
+        print(f"chip_smoke: stopping process {pid} left running: {cmd}", file=sys.stderr,
+              flush=True)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid in left:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + grace_s
+        while left and time.monotonic() < deadline:
+            _reap()
+            left = {pid: cmd for pid, cmd in _descendants().items() if pid != tracker._pid}
+            time.sleep(0.05)
+        if not left:
+            break
+    # private, but the only way to end the tracker: it ignores SIGTERM and
+    # runs until every holder of its pipe has closed it
+    tracker._stop()
+    _reap()
+
+
 if __name__ == "__main__":
-    main()
+    adopt_orphans()
+    try:
+        main()
+    finally:
+        stop_children()
