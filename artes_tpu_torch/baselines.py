@@ -30,10 +30,14 @@ the TPU records of BASELINE_RUNS.json (:data:`BASELINE2`,
   pol_frac within 3 sqrt(sigma^2 + sigma_5^2) and Stokes I within 3 sqrt(2)
   sigma; no photon abandoned; the capped photons within 3 sqrt(a + b) of
   the record's (:func:`check_5`). (b) ``config5``
-  (examples/baseline_configs.py:80-98): the same kind of layer at tau 3,
-  700 K and k_abs = 0.1 k_sca, lit by the star and glowing, 2^24 photons
-  each, seed 0, full Stokes reported; the thermal kernel held against its
-  plain version.
+  (examples/baseline_configs.py:80-98, ``cells.baseline5_thermal_layer``):
+  the same kind of layer at tau 3, 700 K and k_abs = 0.1 k_sca, lit by the
+  star and glowing, 2^24 photons each, seed 0, full Stokes reported; the
+  thermal kernel held against its plain version.
+
+These three hold their kernels against their plain versions on the tables
+of ``cells.CHAIN_CELLS`` (:func:`kernel_vs_plain`), where the gate's limits
+are read too.
 
 Two start from the opacity tooling:
 
@@ -83,6 +87,7 @@ import time
 import numpy as np
 import torch
 
+from artes_tpu_torch import cells
 from artes_tpu_torch.constants import PI, planck_lambda
 from artes_tpu_torch.transport.tables import compute_cell_depth
 
@@ -172,7 +177,7 @@ BASELINE5 = {"pol_frac": 0.4032326968274678, "pol_frac_mc_err": 4.17993676173373
              "n_error": 0, "n_alive_at_cap": 43,
              "photons_per_s": 126453067.10435955}
 PHOTONS_1 = 1_000_000
-WAVELENGTHS_1 = tuple(0.5 + 0.05 * i for i in range(6))     # [micron]
+WAVELENGTHS_1 = cells.BASELINE1_WAVELENGTHS               # [micron]
 PHOTONS_2 = 10_000_000
 SEED_2 = 3
 # #2's per-angle floors: I relative, pol_frac absolute
@@ -556,11 +561,11 @@ def check_1(result) -> dict:
 
 def chain_1(photons=PHOTONS_1, device="cuda") -> dict:
     """BASELINE #1's chain, returning its figures; see the module docstring."""
-    from artes_tpu_torch import cells, presets, runner
+    from artes_tpu_torch import runner
     from artes_tpu_torch.config import ArtesConfig
     from artes_tpu_torch.transport import pool_cuda
 
-    atm = presets.rayleigh_single_layer(tau=5.0, wavelengths=WAVELENGTHS_1)
+    atm = cells.baseline1_layer()
     cfg = ArtesConfig()
     cfg.mode = "spectrum"
     before = dict(pool_cuda.LAUNCHES)
@@ -587,7 +592,7 @@ def chain_1(photons=PHOTONS_1, device="cuda") -> dict:
               "rows": rows, "launches": _launches(before)}
     ok = all(np.isfinite([r["I_over_norm"], r["minus_Q_over_I"]]).all() for r in rows)
     if torch.device(device).type == "cuda":
-        result["cross_kernel"] = kernel_vs_plain(*cells.run_tables(atm, device))
+        result["cross_kernel"] = kernel_vs_plain(*cells.CHAIN_CELLS["baseline1_0.50um"](device))
         say(f"#1 kernel vs plain at 0.50 um: {result['cross_kernel']}")
         ok = ok and result["cross_kernel"]["ok"]
     if photons == PHOTONS_1:
@@ -645,7 +650,7 @@ def check_2(curve) -> dict:
 
 def chain_2(photons=PHOTONS_2, device="cuda") -> dict:
     """BASELINE #2's chain, returning its figures; see the module docstring."""
-    from artes_tpu_torch import cells, runner
+    from artes_tpu_torch import runner
     from artes_tpu_torch.config import ArtesConfig, detector_setup
     from artes_tpu_torch.transport import pool_cuda
 
@@ -683,7 +688,7 @@ def chain_2(photons=PHOTONS_2, device="cuda") -> dict:
     if torch.device(device).type == "cuda":
         result["cross_kernel"] = {}
         for ang in (97.5, 177.5):
-            cross = kernel_vs_plain(*cells.phase_tables(atm, ang, device))
+            cross = kernel_vs_plain(*cells.CHAIN_CELLS[f"baseline2_{ang}deg"](device))
             result["cross_kernel"][str(ang)] = cross
             say(f"#2 kernel vs plain at {ang} deg: {cross}")
             ok = ok and cross["ok"]
@@ -773,23 +778,9 @@ def check_5(scale) -> dict:
             "n_alive_at_cap": _check(a, b, abs(a - b), 3.0 * math.sqrt(a + b))}
 
 
-def config5_atmosphere():
-    """examples/baseline_configs.py:80-88: a Rayleigh tau=3 layer at 0.7
-    micron, 700 K, k_abs = 0.1 k_sca."""
-    from artes_tpu_torch import presets
-
-    atm = presets.rayleigh_single_layer(tau=3.0, wavelengths=(0.7,))
-    atm.temperature[:] = 700.0
-    atm.k_abs[:] = atm.k_sca * 0.1
-    return presets.Atmosphere(
-        rfront=atm.rfront, thetafront=atm.thetafront, phifront=atm.phifront,
-        wavelengths=atm.wavelengths, density=atm.density, temperature=atm.temperature,
-        k_sca=atm.k_sca, k_abs=atm.k_abs, scatter=atm.scatter)
-
-
 def chain_5(photons=PHOTONS_5, device="cuda", photons_b=PHOTONS_5B) -> dict:
     """BASELINE #5's chain, returning its figures; see the module docstring."""
-    from artes_tpu_torch import cells, presets, runner
+    from artes_tpu_torch import presets, runner
     from artes_tpu_torch.config import ArtesConfig, detector_setup
     from artes_tpu_torch.transport import pool_cuda
 
@@ -825,7 +816,7 @@ def chain_5(photons=PHOTONS_5, device="cuda", photons_b=PHOTONS_5B) -> dict:
                         f"{c['float32_minus_double_over_I']}" for c in rec["chunks"])
             + f"; I {rec['stokes_IQUV_W_m2_um'][0]!r}, pol_frac {rec['pol_frac']!r} (the run's "
             f"own {scale['pol_frac']!r}, the record {BASELINE5['pol_frac']!r})")
-    atm_b = config5_atmosphere()
+    atm_b = cells.baseline5_thermal_layer()
     sources = {}
     for source in ("star", "planet"):
         cfg_b = ArtesConfig()
@@ -849,8 +840,7 @@ def chain_5(photons=PHOTONS_5, device="cuda", photons_b=PHOTONS_5B) -> dict:
     ok = bool(np.isfinite(scale["stokes_IQUV_W_m2_um"]).all() and all(
         np.isfinite(s["stokes_IQUV_W_m2_um"]).all() for s in sources.values()))
     if torch.device(device).type == "cuda":
-        result["cross_kernel"] = kernel_vs_plain(*cells.run_tables(atm_b, device,
-                                                                   photon_source="planet"))
+        result["cross_kernel"] = kernel_vs_plain(*cells.CHAIN_CELLS["baseline5_700K"](device))
         say(f"#5 (b) thermal kernel vs plain: {result['cross_kernel']}")
         ok = ok and result["cross_kernel"]["ok"]
     if photons == PHOTONS_5:

@@ -351,6 +351,27 @@ def hg_cloud_deck():
     return presets.hg_cloud_deck(tau=6.0, g=0.6, p_linear=0.4)
 
 
+# BASELINE #1's wavelengths (examples/baseline_configs.py:30-40) [micron]
+BASELINE1_WAVELENGTHS = tuple(0.5 + 0.05 * i for i in range(6))
+
+
+def baseline1_layer():
+    """BASELINE #1's Rayleigh tau = 5 layer at its six wavelengths."""
+    return presets.rayleigh_single_layer(tau=5.0, wavelengths=BASELINE1_WAVELENGTHS)
+
+
+def baseline5_thermal_layer():
+    """BASELINE #5's second part (examples/baseline_configs.py:80-88): a
+    Rayleigh tau = 3 layer at 0.7 micron, 700 K, k_abs = 0.1 k_sca."""
+    atm = presets.rayleigh_single_layer(tau=3.0, wavelengths=(0.7,))
+    atm.temperature[:] = 700.0
+    atm.k_abs[:] = atm.k_sca * 0.1
+    return presets.Atmosphere(
+        rfront=atm.rfront, thetafront=atm.thetafront, phifront=atm.phifront,
+        wavelengths=atm.wavelengths, density=atm.density, temperature=atm.temperature,
+        k_sca=atm.k_sca, k_abs=atm.k_abs, scatter=atm.scatter)
+
+
 def crescent_offaxis(device, dtype=torch.float32):
     """Crescent sampling with the star at theta* = 1.2, phi* = 0.4 on a
     Rayleigh tau=1 two-shell grid (tests/test_pallas_stream.py:433-446)."""
@@ -443,6 +464,18 @@ KERNEL_CELLS = {
     "noscatter_flagship": lambda dev: run_tables(flagship(), dev, photon_scattering=False),
     "noscatter_patchy3d": lambda dev: run_tables(patchy3d_small(), dev,
                                                  photon_scattering=False),
+}
+
+# the configurations of the BASELINE chains that baselines.py holds the kernel
+# against its plain version on (``baselines.kernel_vs_plain``), which the
+# gate's limits hold too: #1 at 0.50 micron, #2's deck at 97.5 and 177.5 deg
+# (the latter is KERNEL_CELLS' hg_crescent), #5's 700 K layer as a planet
+CHAIN_CELLS = {
+    "baseline1_0.50um": lambda dev: spectrum_tables(baseline1_layer(), dev),
+    "baseline2_97.5deg": lambda dev: phase_tables(hg_cloud_deck(), 97.5, dev),
+    "baseline2_177.5deg": lambda dev: phase_tables(hg_cloud_deck(), 177.5, dev),
+    "baseline5_700K": lambda dev: run_tables(baseline5_thermal_layer(), dev,
+                                             photon_source="planet"),
 }
 
 

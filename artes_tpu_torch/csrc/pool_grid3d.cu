@@ -52,9 +52,13 @@
 // matrix product, the direction update, the sampling CDFs and the jump sums
 // rounded differently from the plain version from a photon's first
 // scattering on, and rare photons took other paths (on the Mie deck, 18
-// peels against 8); op by op both take the same paths. In the photons
-// traced, what still differs by an ulp is acosf against PyTorch's arccos
-// on the card and the order of PyTorch's cumsum of the jump terms there.
+// peels against 8); op by op both take the same paths. The jump terms and
+// the kbar chords are summed left to right in float32, as the plain
+// version's radial.left_scan sums them (with the chords'
+// torch.cumsum it parted photons 73722, 86952 and 132818 of grid3d_2496 at
+// seed 9, and none without); acosf, cosf, sinf, expf, logf, tanf and atan2f
+// round as PyTorch's functions do on the card (python -m
+// artes_tpu_torch.measure parting).
 //
 // Errors. Per-code counts are per-thread counters reduced like the tallies.
 // Each erroring thread also appends one 16-float record (code, photon id as

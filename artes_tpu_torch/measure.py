@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with a CUDA card::
     python -m artes_tpu_torch.measure rates
     python -m artes_tpu_torch.measure contraction
     python -m artes_tpu_torch.measure clocks [--cells flagship,hydrostatic39] [--photons N]
-    python -m artes_tpu_torch.measure seeds <cell> [--seeds 7,8,9,10]
+    python -m artes_tpu_torch.measure gate [--walk closed|jumps|march] [--seeds 7,8,9,10]
+    python -m artes_tpu_torch.measure parting <cell> [--seed 9] [--count 3]
 
 ``compare`` times the kernels of another checkout of this repository (an
 earlier commit, unpacked beside this one) and of this one on the same card,
@@ -18,7 +19,9 @@ kernel on grid3d_2496, grid3d_thermal and blended_5184 at 2^18; the marching
 kernel on every surface and marching flow cell at its gate photons
 (``MARCH_CELLS``); the probe splat at 625, 2025 and 10201 pixels; and the
 mesh reduction alone, a flagship launch of 2^20 photons summed over a
-one-rank NCCL group as ``run_stream_mesh`` sums it. It prints each time
+one-rank NCCL group as ``run_stream_mesh`` sums it; and the plain versions
+of the jump walks' cells of ``PLAIN_CELLS`` at 2^18 photons, once each after
+a warm run (host clock). It prints each time
 (median of 5 after a warm launch, CUDA events), whether every count (the
 detector's, the photons emitted, capped and abandoned, the error codes, the
 ``cell_face`` passes and the flow bookings) is equal and every sum within
@@ -76,10 +79,26 @@ cycles, its cycles an entry and its SIMT efficiency, the mean share of a
 warp's 32 lanes active at entry (``popc(__activemask())``), and the build's
 ``ptxas -v`` registers and spills.
 
-``seeds`` holds a gate cell of ``cells.KERNEL_CELLS`` against its plain
-version at its gate photons at each seed, and prints every gap of
-``pool_cuda.gaps`` beside the limit that holds the cell: the readings a
-limit is set from.
+``gate`` reads the limits of ``pool_cuda.LIMITS``, one walk (``--walk``) or
+all three: every configuration of the walk, the gate cells of
+``cells.KERNEL_CELLS`` and the BASELINE chains' ``cells.CHAIN_CELLS``, kernel
+against plain version at ``cells.gate_photons`` at each seed (the plain
+versions ``cells.PLAIN_TOGETHER`` processes at a time). It prints every gap
+of ``pool_cuda.gaps`` a reading, then for each key the worst reading with the
+configuration and seed that gave it, today's limit and the one the rule
+``pool_cuda.limits_from`` gives (floors ``pool_cuda.floors_of``), and the
+rule's table; it exits 1 when a reading is over today's limit.
+
+``parting`` looks for the float32 operation that parts the kernel from its
+plain version on a gate cell: it builds a probe library (under
+build/probe_ops/, with the pool kernels' nvcc flags) that rounds each
+function of ``PROBE_OPS`` as the kernels do and counts, on 2^24 inputs from
+each function's domain, where ``torch``'s own differs; then it finds by
+bisection the first photons whose counts, capped or abandoned photons part
+at the cell's gate photons, and runs each again through the plain version
+with ``torch``'s function swapped for the kernels' rounding of it, one
+function at a time and all at once: a swap that makes the photon's tallies
+the kernel's names the operation that parts it.
 
 Every line names the card (``nvidia-smi`` name and power limit).
 """
@@ -109,6 +128,8 @@ COMPARE_CELLS = (("flagship", 1 << 20), ("flagship", 1 << 24), ("hydrostatic39",
                  ("imaging25_flow", PHOTONS), ("thermal_imaging25_flow", PHOTONS),
                  ("grid3d_2496", 1 << 18), ("grid3d_thermal", 1 << 18),
                  ("blended_5184", 1 << 18)) + MARCH_CELLS
+# the plain versions compare times: the jump walks' (host clock, one run)
+PLAIN_CELLS = (("grid3d_2496", 1 << 18), ("grid3d_thermal", 1 << 18), ("blended_5184", 1 << 18))
 PROBE_SIZES = (625, 2025, 10201)
 REPS = 5
 SUM_RTOL = 1e-12
@@ -125,12 +146,12 @@ PHASES = ("emission", "prewalk + first march", "roulette + peel_prep", "sample_b
 # what runs in each checkout: the kernels' times and tallies as JSON on the
 # last line of its output (the other checkout's package, never this one's)
 _TIMES = r'''
-import json, sys, torch
+import json, sys, time, torch
 sys.modules["jax"] = None
 from artes_tpu_torch.cells import KERNEL_CELLS
-from artes_tpu_torch.transport import pool_cuda
+from artes_tpu_torch.transport import kernel, pool_cuda
 from artes_tpu_torch import probe_splat as P
-cells, sizes, reps = json.loads(sys.argv[1])
+cells, plain_cells, sizes, reps = json.loads(sys.argv[1])
 dev = torch.device("cuda")
 
 def timed(fn):
@@ -142,18 +163,29 @@ def timed(fn):
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2], out
 
-res = {"cells": {}, "probe": {}}
+def tallies(out):
+    flow = [out[k].cpu().reshape(-1).tolist() for k in ("flow_global", "flow_theta")
+            if out.get(k) is not None]
+    return dict(detector=out["detector"].cpu().reshape(-1).tolist(),
+                fluxes=[float(out["flux_emitted"]), float(out["flux_exit"])], flow=flow,
+                ints=[int(out[k]) for k in ("n_emitted", "n_alive_at_cap", "n_error",
+                                            "n_cell_face", "n_flow_booked")
+                      if out.get(k) is not None] + out["error_codes"].cpu().tolist())
+
+res = {"cells": {}, "plain": {}, "probe": {}}
 for name, n in cells:
     tables, static = KERNEL_CELLS[name](dev)
     ms, out = timed(lambda: pool_cuda.run_stream_cuda(tables, static, n, 7))
-    flow = [out[k].cpu().reshape(-1).tolist() for k in ("flow_global", "flow_theta")
-            if out.get(k) is not None]
-    res["cells"][f"{name}@{n}"] = dict(
-        ms=ms, detector=out["detector"].cpu().reshape(-1).tolist(),
-        fluxes=[float(out["flux_emitted"]), float(out["flux_exit"])], flow=flow,
-        ints=[int(out[k]) for k in ("n_emitted", "n_alive_at_cap", "n_error", "n_cell_face",
-                                    "n_flow_booked")
-              if out.get(k) is not None] + out["error_codes"].cpu().tolist())
+    res["cells"][f"{name}@{n}"] = dict(ms=ms, **tallies(out))
+# plain versions, once each after a warm run of 2^12 photons (host clock)
+for name, n in plain_cells:
+    tables, static = KERNEL_CELLS[name](dev)
+    kernel.run_stream(tables, static, 1 << 12, 7, 1 << 12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = kernel.run_stream(tables, static, n, 7, n)
+    torch.cuda.synchronize()
+    res["plain"][f"{name}@{n}"] = dict(ms=(time.perf_counter() - t0) * 1e3, **tallies(out))
 for npix in sizes:
     ms, (vals, counts) = timed(lambda: P.splat(npix, device=dev))
     res["probe"][str(npix)] = dict(ms=ms, vals=float(vals.sum()), counts=int(counts.sum()))
@@ -194,7 +226,7 @@ def card_line() -> str:
 def _times(checkout: str) -> dict:
     """One process in ``checkout``: its kernels' times and tallies."""
     env = dict(os.environ, PYTHONPATH=checkout)
-    arg = json.dumps([COMPARE_CELLS, PROBE_SIZES, REPS])
+    arg = json.dumps([COMPARE_CELLS, PLAIN_CELLS, PROBE_SIZES, REPS])
     proc = subprocess.run([sys.executable, "-c", _TIMES, arg], cwd=checkout, env=env,
                           capture_output=True, text=True, timeout=1800)
     if proc.returncode != 0:
@@ -240,6 +272,13 @@ def compare(other: str) -> int:
         ok = ok and counts and rel <= SUM_RTOL
         print(f"[compare] {key}: other {o[0]:.3f} / {o[1]:.3f} ms, this {t[0]:.3f} / "
               f"{t[1]:.3f} ms ({min(o) / min(t):.3f}x); counts "
+              f"{'equal' if counts else 'DIFFERENT'}, sums within {rel:.3e}; {card}")
+    for key in got["this"][0]["plain"]:
+        t = [r["plain"][key]["ms"] for r in got["this"]]
+        o = [r["plain"][key]["ms"] for r in got["other"]]
+        counts, rel = _same(got["this"][0]["plain"][key], got["other"][0]["plain"][key])
+        print(f"[compare] plain {key}: other {o[0]:.1f} / {o[1]:.1f} ms, this {t[0]:.1f} / "
+              f"{t[1]:.1f} ms ({min(o) / min(t):.3f}x); counts "
               f"{'equal' if counts else 'DIFFERENT'}, sums within {rel:.3e}; {card}")
     for npix in got["this"][0]["probe"]:
         t = [r["probe"][npix]["ms"] for r in got["this"]]
@@ -411,27 +450,21 @@ def _contraction_build(source: str, label: str) -> str:
     return lib
 
 
-def _plain_gate(name: str) -> dict:
-    """A gate cell's plain version at its gate photons, seed 7, on the card
-    (in a worker process), on the host."""
+def _plain_run(name: str, seed: int) -> tuple[float, dict]:
+    """A configuration of :func:`gate_configs` run by its plain version at
+    its gate photons on the card (in a worker process): its time [ms] and
+    its result on the host."""
+    import time
     import torch
-    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+    from artes_tpu_torch.cells import gate_photons
     from artes_tpu_torch.transport import kernel
-    tables, static = KERNEL_CELLS[name]("cuda")
+    tables, static = gate_configs()[name]("cuda")
     n = gate_photons(tables, static)
-    out = kernel.run_stream(tables, static, n, SEED, n)
-    return {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
-
-
-def worst_ratio(g: dict, limits: dict) -> float:
-    """The largest gap of ``pool_cuda.gaps`` over its limit (a gap over a
-    limit of 0 is infinite, none is 0)."""
-    worst = 0.0
-    for key, limit in limits.items():
-        pairs = zip(g[key], limit) if isinstance(limit, tuple) else [(g[key], limit)]
-        for gap, lim in pairs:
-            worst = max(worst, gap / lim if lim > 0 else (math.inf if gap > 0 else 0.0))
-    return worst
+    t0 = time.perf_counter()
+    out = kernel.run_stream(tables, static, n, seed, n)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
 
 
 def contraction_verdict(ratios: dict, times: dict) -> tuple[bool, str]:
@@ -483,17 +516,16 @@ def _gate_reading(source: str, libs: dict, card: str) -> None:
                     ms.append(a.elapsed_time(b))
                 times[label][name].append(sorted(ms)[len(ms) // 2])
                 outs.setdefault((label, name), out)
-        plain = {name: ex.submit(_plain_gate, name) for name in setups}
+        plain = {name: ex.submit(_plain_run, name, SEED) for name in setups}
         ratios = {label: {} for label in labels}
         for name, (tables, static, n) in setups.items():
-            ref = plain[name].result()
+            ref = plain[name].result()[1]
             limits = pool_cuda.limits_of(tables, static)
             for label in labels:
                 g = pool_cuda.gaps(outs[label, name], ref)
-                ratios[label][name] = worst_ratio(g, limits)
+                ratios[label][name] = pool_cuda.worst_ratio(g, limits)
                 print(f"[contraction] {source} {label}: {name}, {n} photons, seed {SEED}: "
-                      + " ".join(f"{k}={v:.4g}" if isinstance(v, float) else
-                                 f"{k}=" + ",".join(f"{x:.4g}" for x in v) for k, v in g.items())
+                      + " ".join(f"{k}={_fmt(v)}" for k, v in g.items())
                       + f"; worst gap / limit {ratios[label][name]:.4g}; kernel "
                       + " / ".join(f"{t:.3f}" for t in times[label][name]) + f" ms; {card}",
                       flush=True)
@@ -603,23 +635,207 @@ def clocks(names: list[str], n: int) -> int:
     return 0
 
 
-def seeds(name: str, seed_list: list[int]) -> int:
-    from artes_tpu_torch.cells import KERNEL_CELLS, gate_photons
+def gate_configs() -> dict:
+    """Every configuration a table of ``pool_cuda.LIMITS`` holds: the gate
+    cells of ``cells.KERNEL_CELLS`` and the BASELINE chains' own,
+    ``cells.CHAIN_CELLS``."""
+    from artes_tpu_torch import cells
+    return {**cells.KERNEL_CELLS, **cells.CHAIN_CELLS}
+
+
+def _fmt(v) -> str:
+    return f"{v:.4g}" if isinstance(v, float) else ",".join(f"{x:.4g}" for x in v)
+
+
+def gate(walks: list[str], seed_list: list[int]) -> int:
+    """Read every configuration of each walk in ``walks`` (kernel against
+    plain version at its gate photons, each seed of ``seed_list``) and print
+    the worst gap of each key with the configuration and seed that gave it,
+    beside today's limit and the one ``pool_cuda.limits_from`` gives; 1 when
+    a reading is over today's limit."""
+    import torch
+    from concurrent.futures import ProcessPoolExecutor
+    from artes_tpu_torch import cells
+    from artes_tpu_torch.baselines import LIMIT_NAMES
+    from artes_tpu_torch.cells import gate_photons
     from artes_tpu_torch.transport import kernel, pool_cuda
     card = card_line()
-    tables, static = KERNEL_CELLS[name]("cuda")
-    n, limits = gate_photons(tables, static), pool_cuda.limits_of(tables, static)
     ok = True
-    for seed in seed_list:
-        g = pool_cuda.gaps(pool_cuda.run_stream_cuda(tables, static, n, seed),
-                           kernel.run_stream(tables, static, n, seed, n))
-        over = [key for key in limits if not pool_cuda.agrees({key: g[key]}, {key: limits[key]})]
-        ok = ok and not over
-        print(f"[seeds] {name}, {n} photons, seed {seed}: " + " ".join(
-            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}=" + ",".join(f"{x:.4g}" for x in v)
-            for k, v in g.items()) + f"; over their limits: {over or 'none'} ({card})",
-            flush=True)
+    for walk in walks:
+        setups = {}
+        for name, make in gate_configs().items():
+            tables, static = make("cuda")
+            if kernel.walk_mode(tables, static) == walk:
+                setups[name] = (tables, static, gate_photons(tables, static))
+        old = pool_cuda.LIMITS[walk]
+        ex = ProcessPoolExecutor(cells.PLAIN_TOGETHER,
+                                 mp_context=torch.multiprocessing.get_context("spawn"))
+        readings = []                                   # (name, seed, gaps, event counts)
+        try:
+            plain = {(name, seed): ex.submit(_plain_run, name, seed)
+                     for seed in seed_list for name in setups}
+            for (name, seed), fut in plain.items():
+                tables, static, n = setups[name]
+                out = pool_cuda.run_stream_cuda(tables, static, n, seed)
+                ms, ref = fut.result()
+                g = pool_cuda.gaps(out, ref)
+                readings.append((name, seed, g, pool_cuda.event_counts(ref)))
+                over = [key for key in old if not pool_cuda.agrees({key: g[key]}, {key: old[key]})]
+                ok = ok and not over
+                print(f"[gate] {walk} {name}, {n} photons, seed {seed}: "
+                      + " ".join(f"{k}={_fmt(v)}" for k, v in g.items())
+                      + f"; worst gap / limit {pool_cuda.worst_ratio(g, old):.4g}, over "
+                      f"{over or 'none'}; plain {ms:.1f} ms; {card}", flush=True)
+        finally:
+            ex.shutdown(cancel_futures=True)
+        floors = pool_cuda.floors_of([r[3] for r in readings])
+        new = pool_cuda.limits_from([r[2] for r in readings], old, floors)
+        for key, lim in old.items():
+            tup = isinstance(lim, tuple)
+            for i, (o, n_new) in enumerate(zip(lim, new[key]) if tup else [(lim, new[key])]):
+                vals = [(r[2][key][i] if tup else r[2][key], r[0], r[1]) for r in readings]
+                val, name, seed = max(vals, key=lambda v: math.inf if math.isnan(v[0]) else v[0])
+                print(f"[gate] {walk} {key}{f'[{i}]' if tup else ''}: worst {val:.4g} ({name}, "
+                      f"seed {seed}); limit {o:.4g} -> {n_new!r} (floor {floors[key]:.4g}); "
+                      f"{card}")
+        print(f"[gate] {walk}: {len(setups)} configurations x seeds {seed_list}; "
+              f"{LIMIT_NAMES[walk]} by the rule = {new!r}; {card}", flush=True)
     return 0 if ok else 1
+
+
+# the float32 functions the plain version calls through torch, rounded as the
+# pool kernels round them (nvcc with _build.SOURCE_FLAGS' -fmad=false): the
+# probe library that ``parting`` builds under build/probe_ops/
+PROBE_OPS = ("arccos", "cos", "sin", "exp", "log", "tan", "arctan2")
+_PROBE_OPS_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void unary(int op, const float* x, float* y, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float v = x[i];
+    y[i] = op == 0 ? acosf(v) : op == 1 ? cosf(v) : op == 2 ? sinf(v)
+         : op == 3 ? expf(v) : op == 4 ? logf(v) : tanf(v);
+  }
+}
+__global__ void binary(const float* a, const float* b, float* y, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    y[i] = atan2f(a[i], b[i]);
+}
+extern "C" int artes_probe_op(int op, const float* a, const float* b, float* y, long long n) {
+  if (n > 0) {
+    if (op == 6) binary<<<1024, 256>>>(a, b, y, n);
+    else unary<<<1024, 256>>>(op, a, y, n);
+  }
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def _probe_ops():
+    """The probe library's ``artes_probe_op``, built at first use."""
+    from artes_tpu_torch import _build
+    root = os.path.join(os.path.dirname(_build.BUILD_DIR), "probe_ops")
+    os.makedirs(root, exist_ok=True)
+    src, lib = os.path.join(root, "probe_ops.cu"), os.path.join(root, "libprobe_ops.so")
+    with open(src, "w") as fh:
+        fh.write(_PROBE_OPS_SRC)
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-fmad=false", "-o", lib, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"probe_ops: nvcc failed\n{proc.stdout}{proc.stderr}")
+    fn = ctypes.CDLL(lib).artes_probe_op
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _as_kernel(fn, name, orig):
+    """``torch.<name>`` with its float32 CUDA calls rounded as the kernels
+    round them."""
+    import torch
+    op = PROBE_OPS.index(name)
+
+    def call(*args, **kw):
+        if kw or not all(isinstance(a, torch.Tensor) and a.is_cuda and a.dtype == torch.float32
+                         for a in args):
+            return orig(*args, **kw)
+        a = torch.broadcast_tensors(*args) if len(args) == 2 else args
+        a = [x.contiguous() for x in a]
+        y = torch.empty_like(a[0])
+        torch.cuda.synchronize()
+        rc = fn(op, a[0].data_ptr(), a[-1].data_ptr(), y.data_ptr(), y.numel())
+        if rc != 0:
+            raise RuntimeError(f"probe_ops {name}: cudaError {rc}")
+        return y
+    return call
+
+
+def parting(name: str, seed: int, count: int) -> int:
+    """Where the kernel and its plain version part on ``name`` at its gate
+    photons and ``seed``: each function of :data:`PROBE_OPS` against the
+    kernels' rounding of it on 2^24 inputs from its domain, then the first
+    ``count`` photons (by id, found by bisection) whose counts, capped or
+    abandoned photons part, each run again by the plain version with each
+    function, and with all, rounded as the kernels round them."""
+    import torch
+    from artes_tpu_torch.cells import gate_photons
+    from artes_tpu_torch.transport import kernel, pool_cuda
+    card = card_line()
+    fn = _probe_ops()
+    orig = {op: getattr(torch, op) for op in PROBE_OPS}
+    gen = torch.Generator("cuda").manual_seed(seed)
+    m = 1 << 24
+    u = torch.rand(m, device="cuda", generator=gen)
+    domain = {"arccos": 2 * u - 1, "cos": 8 * u, "sin": 8 * u, "exp": -60 * u, "log": u + 1e-7,
+              "tan": 1.5 * u, "arctan2": (2 * u - 1, torch.roll(2 * u - 1, 1))}
+    for op in PROBE_OPS:
+        x = domain[op] if isinstance(domain[op], tuple) else (domain[op],)
+        mine = _as_kernel(fn, op, orig[op])(*x)
+        ref = orig[op](*x)
+        diff = mine != ref
+        ulps = (mine.view(torch.int32) - ref.view(torch.int32)).abs().max()
+        print(f"[parting] torch.{op} against the kernels' rounding on {m} inputs: "
+              f"{int(diff.sum())} differ, by at most {int(ulps)} ulp; {card}", flush=True)
+    tables, static = gate_configs()[name]("cuda")
+    n = gate_photons(tables, static)
+
+    def tallies(out):
+        return (out["detector"][..., 2].cpu().tolist(), int(out["n_alive_at_cap"]),
+                int(out["n_error"]), out["error_codes"].cpu().tolist())
+
+    def both(lo, k):
+        return (tallies(pool_cuda.run_stream_cuda(tables, static, k, seed, 0, lo)),
+                tallies(kernel.run_stream(tables, static, k, seed, k, 0, lo)))
+
+    def bisect(lo, k, want):
+        a, b = both(lo, k)
+        if a == b or want == 0:
+            return []
+        if k == 1:
+            return [lo]
+        found = bisect(lo, k // 2, want)
+        return found + bisect(lo + k // 2, k - k // 2, want - len(found))
+
+    photons = bisect(0, n, count)
+    print(f"[parting] {name}, {n} photons, seed {seed}: the first {len(photons)} photons that "
+          f"part: {photons}; {card}", flush=True)
+    for pid in photons:
+        mine = tallies(pool_cuda.run_stream_cuda(tables, static, 1, seed, 0, pid))
+        for label, ops in [("none", ())] + [(op, (op,)) for op in PROBE_OPS] + \
+                [("all", PROBE_OPS)]:
+            try:
+                for op in ops:
+                    setattr(torch, op, _as_kernel(fn, op, orig[op]))
+                plain = tallies(kernel.run_stream(tables, static, 1, seed, 1, 0, pid))
+            finally:
+                for op in ops:
+                    setattr(torch, op, orig[op])
+            print(f"[parting] photon {pid}, plain with {label} rounded as the kernels: "
+                  f"{'equal to the kernel' if plain == mine else 'parts'} (kernel counts "
+                  f"{mine[0]}, capped, abandoned {mine[1:3]}; plain {plain[0]}, {plain[1:3]})",
+                  flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -632,9 +848,13 @@ def main(argv=None) -> int:
     c = sub.add_parser("clocks")
     c.add_argument("--cells", default="flagship,hydrostatic39")
     c.add_argument("--photons", type=int, default=PHOTONS)
-    d = sub.add_parser("seeds")
-    d.add_argument("cell")
+    d = sub.add_parser("gate")
+    d.add_argument("--walk", choices=("closed", "jumps", "march"))
     d.add_argument("--seeds", default="7,8,9,10")
+    e = sub.add_parser("parting")
+    e.add_argument("cell")
+    e.add_argument("--seed", type=int, default=9)
+    e.add_argument("--count", type=int, default=3)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure runs on a CUDA device; none found")
@@ -645,8 +865,11 @@ def main(argv=None) -> int:
         return rates()
     if args.what == "contraction":
         return contraction()
-    if args.what == "seeds":
-        return seeds(args.cell, [int(x) for x in args.seeds.split(",")])
+    if args.what == "parting":
+        return parting(args.cell, args.seed, args.count)
+    if args.what == "gate":
+        walks = [args.walk] if args.walk else ["closed", "jumps", "march"]
+        return gate(walks, [int(x) for x in args.seeds.split(",")])
     return clocks(args.cells.split(","), args.photons)
 
 

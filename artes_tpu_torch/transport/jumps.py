@@ -19,10 +19,10 @@ part pays per-crossing jumps, each read from a per-face difference table
 The JAX package hands its walk per-kernel gather callbacks; here the tables
 are plain tensors (:class:`JumpTables`, built once per wavelength by
 :func:`jump_tables`), and the faces form a trailing tensor dimension: the
-jumps are evaluated for all faces at once and summed by one prefix sum in
-the reference's order (radial faces inward then outward, theta faces low
-root then high root, phi faces), so on the CPU every float64 operation
-matches the JAX package's loop.
+jumps are evaluated for all faces at once and added one at a time in the
+reference's order (radial faces inward then outward, theta faces low root
+then high root, phi faces) and in their dtype, ``radial.left_scan``, as the JAX
+package's loop and the 3-D kernel add them, on every device.
 
 Scope: 3-D grids (ntheta > 1 or nphi > 1) without a Lambert surface and
 without flow diagnostics. The walk has no failure modes.
@@ -238,8 +238,7 @@ def tau_walk_jumps(grid, jt: JumpTables, rf_floor, px, py, pz, dx, dy, dz, cr0, 
         face = torch.arange(NP, device=px.device)
         terms.append(term(sign_p * jt.dpp[face, m_i * NT + ct_i], t_i))
 
-    # one prefix sum in the reference's order of additions
-    dk_sum = torch.cumsum(torch.cat(terms, dim=-1), dim=-1)[..., -1]
+    dk_sum = RAD.left_scan(torch.cat(terms, dim=-1))[..., -1]
     tau = torch.clamp_min(tau_bar + dk_sum, 0.0)
     return dict(tau=tau, exited=~surface_hit, surface=surface_hit,
                 err=torch.zeros_like(surface_hit))

@@ -72,65 +72,89 @@ F_CRESCENT, F_BIASED, F_DEBUG_STOKES, F_NO_SCATTER = 1, 2, 4, 8
 REC_CAP = 1 << 16
 
 # How far the kernel may stray from its plain version on the same photon
-# streams in float32 (read when the kernels let nvcc contract FMAs and the
-# plain version rounded op by op, so rare trajectories flipped; the kernels
-# now build with -fmad=false, _build.SOURCE_FLAGS, and read far inside them). "count" is the Stokes-I row's count (scatter plus
-# birth peels) and "count_quv" the Q, U, V rows' count (scatter peels), each
-# summed over the pixels and relative to the plain sum; "pixel_I" and
-# "pixel_N" are sum_p |dI_p| / sum_p I_p and sum_p |dN_p| / sum_p N_p over
-# the pixels (the Stokes-I row), which see a shifted or transposed image;
-# "capped" is the photons stopped at max_scatter, "n_error" the photons
-# abandoned but on a Stokes anomaly and "error_codes" the largest per-code
-# difference, each as a share of the photons emitted; "stokes" the sums of
-# I, Q, U, V as |dS_k| <= lim_k * I; "squares" each sum of squares relative
-# to its own plain value;
-# "flux_emitted" and "flux_exit" relative to the plain value (0 when both
-# are 0); "flow_global" sum |d flow| over all cells and columns relative to
-# the energy x distance the plain version booked in all (its "flow_path": the
-# signed projections nearly cancel in a cell, their unsigned total does not);
-# "flow_theta" sum |d flow| / sum flow, whose terms are energies (both 0 when
-# there is no flow); "stokes_anomaly" the photons abandoned on a Stokes
-# anomaly (--debug-stokes, error 050), as a share of the photons emitted.
-# "error_codes" covers the peel-walk code of the marching walks too. AGREE
-# holds the closed-form walks of radial grids, set from readings at 2^20
-# photons, seed 7; AGREE_3D
-# the jump walks of 3-D grids, whose cone and half-plane roots flip more
-# trajectories, set from readings at 2^18 photons, seed 7 (when
-# pool_grid3d.cu still contracted its float32 expressions: it no longer
-# does, and its gaps read far inside them, PERF.md); AGREE_MARCH the
-# marching walks (Lambert surfaces on any grid, flow on 3-D grids), set from
-# readings at the photon counts chip_smoke.py gives those cells; there a
-# photon whose float32 geometry fails in one version only can book a chord
-# through the planet into one cell, so "flow_global" reads far above
-# "flow_theta". "stokes_anomaly" read 0 on all five --debug-stokes and
-# scattering-off cells at their gate photons, so each of its limits is 0.
-# "pixel_V" is sum_p |dV_p| / sum_p |V_p| over the pixels' Stokes V, scaled
-# by V itself: "stokes" scales V's gap by I, and "squares" cannot see V's
-# sign. Stokes V is zero on every cell but the Mie cloud deck (its F34 makes
-# circular polarization), so AGREE and AGREE_MARCH hold it at 0; on the deck
-# it read 9.3e-7, 8.1e-7, 4.4e-7 and 7.4e-7 at seeds 7-10 (2^18 photons),
-# and 2.0 with F34's sign turned in the kernel.
-# All on the chip_smoke.py cells (NVIDIA H100 80GB HBM3, 700 W); PERF.md
-# section 2 has the readings.
-AGREE = {"count": 1.2e-4, "count_quv": 1.2e-4, "pixel_I": 8e-4, "pixel_N": 4.2e-4,
-         "pixel_V": 0.0,
-         "capped": 3e-6, "n_error": 0.0, "error_codes": 0.0,
-         "stokes": (3e-4, 5e-6, 1e-4, 1e-4),
-         "squares": (4.2e-4, 3.2e-4, 7e-4, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 6e-6,
-         "flow_global": 1.7e-4, "flow_theta": 4e-4, "stokes_anomaly": 0.0}
-AGREE_3D = {"count": 1.6e-3, "count_quv": 1.6e-3, "pixel_I": 1e-2, "pixel_N": 6.5e-3,
-            "pixel_V": 2e-6,
-            "capped": 1.2e-5, "n_error": 2.3e-5, "error_codes": 2.3e-5,
-            "stokes": (9e-4, 9.5e-4, 6.5e-4, 1e-4),
-            "squares": (2.1e-3, 2.3e-3, 5.5e-3, 7e-4), "flux_emitted": 6.5e-8, "flux_exit": 7e-5,
-            "flow_global": 0.0, "flow_theta": 0.0, "stokes_anomaly": 0.0}
-AGREE_MARCH = {"count": 1.1e-2, "count_quv": 1.2e-2, "pixel_I": 3e-3, "pixel_N": 1.1e-2,
-               "pixel_V": 0.0,
-               "capped": 1.6e-3, "n_error": 9.2e-4, "error_codes": 1.7e-3,
-               "stokes": (2.8e-3, 3.2e-3, 2.2e-3, 1e-4),
-               "squares": (3.7e-3, 8.1e-3, 8.9e-3, 7e-4), "flux_emitted": 6.5e-8,
-               "flux_exit": 2.4e-4, "flow_global": 8.3e-2, "flow_theta": 5.5e-3,
+# streams in float32. "count" is the Stokes-I row's count (scatter plus birth
+# peels) and "count_quv" the Q, U, V rows' count (scatter peels), each summed
+# over the pixels and relative to the plain sum; "pixel_I" and "pixel_N" are
+# sum_p |dI_p| / sum_p I_p and sum_p |dN_p| / sum_p N_p over the pixels (the
+# Stokes-I row), which see a shifted or transposed image; "pixel_V" is
+# sum_p |dV_p| / sum_p |V_p| over the pixels' Stokes V, scaled by V itself
+# ("stokes" scales V's gap by I, and "squares" cannot see V's sign); "capped"
+# is the photons stopped at max_scatter, "n_error" the photons abandoned but
+# on a Stokes anomaly and "error_codes" the largest per-code difference (the
+# marching walks' peel-walk code among them), each as a share of the photons
+# emitted; "stokes" the sums of I, Q, U, V as |dS_k| <= lim_k * I; "squares"
+# each sum of squares relative to its own plain value; "flux_emitted" and
+# "flux_exit" relative to the plain value (0 when both are 0); "flow_global"
+# sum |d flow| over all cells and columns relative to the energy x distance
+# the plain version booked in all (its "flow_path": the signed projections
+# nearly cancel in a cell, their unsigned total does not); "flow_theta" sum
+# |d flow| / sum flow, whose terms are energies (both 0 when there is no
+# flow); "stokes_anomaly" the photons abandoned on a Stokes anomaly
+# (--debug-stokes, error 050), as a share of the photons emitted.
+#
+# AGREE holds the closed-form walks of radial grids, AGREE_3D the jump walks
+# of 3-D grids, AGREE_MARCH the marching walks (Lambert surfaces on any grid,
+# flow on 3-D grids), each at cells.gate_photons. Each table is the output of
+# limits_from over readings of `python -m artes_tpu_torch.measure gate`: the
+# kernels built with -fmad=false (_build.SOURCE_FLAGS) against the plain
+# version, whose walks add their terms in the kernels' order
+# (radial.left_scan), at seeds 7-10 on every configuration
+# the table holds, the gate cells of cells.KERNEL_CELLS and the BASELINE
+# chains' cells.CHAIN_CELLS (NVIDIA H100 80GB HBM3, 700 W). Closed-form
+# walks (20 configurations, 2^20 photons): every count equal at every seed;
+# the worst sums Stokes I 1.262e-8 (thermal_biased, seed 8), a sum of squares
+# 1.321e-7, the flow 6e-16. Jump walks (9 configurations, 2^18): every count
+# equal; Stokes I 8.348e-9 (grid3d_thermal, seed 7), Stokes V pixel by pixel
+# 3.916e-8 on the Mie deck (seed 10). So their counts sit on
+# their floors (3 of the 12,056 peels of AGREE's sparsest configuration are
+# more than the former 1.2e-4, which stays; 3 of 242,817 for AGREE_3D) and their
+# sums on 3 x the worst reading or 1e-9. Marching walks (12 configurations,
+# 2^16 or, on grids of at most 4 cells, 2^20): rare photons still part, the
+# most on lambert_thick (count 3.859e-4, Stokes I 4.312e-4, seed 9, its 256
+# orders) and on the 2 x 3 x 4 grid imaged over a surface with flow
+# (count 2.711e-4, flow_global 6.572e-5); there the limits are 3 x those
+# readings, about a tenth of the former. Stokes V is zero on every cell but the
+# Mie deck, so AGREE and AGREE_MARCH hold it at 0, and "stokes_anomaly" read 0
+# on all five --debug-stokes and scattering-off cells, so each of its limits
+# is 0.
+AGREE = {"count": 0.00012, "count_quv": 0.00012, "pixel_I": 3.785509433481169e-08,
+         "pixel_N": 0.00024883875248838755, "pixel_V": 0.0, "capped": 2.86102294921875e-06,
+         "n_error": 0.0, "error_codes": 0.0,
+         "stokes": (3.785509433481169e-08, 1.351228438584348e-09, 1e-09, 1e-09),
+         "squares": (7.574496148885004e-08, 1.321348718203276e-07, 1.0604796661686927e-07,
+                     1e-09),
+         "flux_emitted": 1e-09, "flux_exit": 1e-09, "flow_global": 1e-09, "flow_theta": 1e-09,
+         "stokes_anomaly": 0.0}
+AGREE_3D = {"count": 1.235503426462836e-05, "count_quv": 1.235503426462836e-05,
+            "pixel_I": 2.5043863590565514e-08, "pixel_N": 1.235503426462836e-05,
+            "pixel_V": 1.1748001744010348e-07, "capped": 1.1444091796875e-05,
+            "n_error": 1.1444091796875e-05, "error_codes": 1.1444091796875e-05,
+            "stokes": (2.5043863590565514e-08, 1.4989177993731333e-09, 1e-09, 1e-09),
+            "squares": (6.549480219809434e-08, 1.848117578789449e-08, 2.3659487024632975e-08,
+                        1.3429841011361575e-08),
+            "flux_emitted": 1e-09, "flux_exit": 1e-09, "flow_global": 0.0, "flow_theta": 0.0,
+            "stokes_anomaly": 0.0}
+AGREE_MARCH = {"count": 0.0011577584396799104, "count_quv": 0.0011190139362759256,
+               "pixel_I": 0.0012935704371267091, "pixel_N": 0.0011577584396799104,
+               "pixel_V": 0.0, "capped": 0.000457763671875, "n_error": 0.0003662109375,
+               "error_codes": 0.0003662109375,
+               "stokes": (0.0012935704371267091, 0.000404356649343037, 0.00020039982441817658,
+                          1e-09),
+               "squares": (0.0009039246993598995, 0.0010492648187941669, 0.0030338059746613526,
+                           1e-09),
+               "flux_emitted": 1e-09, "flux_exit": 5.351413100815897e-07,
+               "flow_global": 0.00019716019698504312, "flow_theta": 0.00046758728836258603,
                "stokes_anomaly": 0.0}
+LIMITS = {"closed": AGREE, "jumps": AGREE_3D, "march": AGREE_MARCH}
+# the rule of limits_from: RULE_FACTOR x the worst reading, floored at
+# FLOOR_EVENTS events of the gap's denominator (EVENT_KEYS: booked peels or
+# photons emitted, event_counts) or at SUM_FLOOR for a sum
+RULE_FACTOR = 3.0
+FLOOR_EVENTS = 3.0
+SUM_FLOOR = 1e-9
+EVENT_KEYS = {"count": "peels", "count_quv": "peels_quv", "pixel_N": "peels",
+              "capped": "emitted", "n_error": "emitted", "error_codes": "emitted",
+              "stokes_anomaly": "emitted"}
 
 _vp = ctypes.c_void_p
 _ARGTYPES = ([_vp] * 10 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
@@ -243,7 +267,7 @@ def limits_of(tables: TransportTables, static: KernelStatic) -> dict:
     """The limits that hold a configuration, by the walks it takes:
     :data:`AGREE` closed-form, :data:`AGREE_3D` jump walks,
     :data:`AGREE_MARCH` marching walks."""
-    return {"closed": AGREE, "jumps": AGREE_3D, "march": AGREE_MARCH}[walk_mode(tables, static)]
+    return LIMITS[walk_mode(tables, static)]
 
 
 def agrees(g: dict, limits: dict = AGREE) -> bool:
@@ -252,6 +276,57 @@ def agrees(g: dict, limits: dict = AGREE) -> bool:
     return all(all(x <= lim for x, lim in zip(g[key], limits[key]))
                if isinstance(limits[key], tuple) else g[key] <= limits[key]
                for key in limits)
+
+
+def worst_ratio(g: dict, limits: dict) -> float:
+    """The largest gap of :func:`gaps` over its limit (a gap over a limit of
+    0 is infinite, none is 0; a NaN gap is infinite)."""
+    worst = 0.0
+    for key, limit in limits.items():
+        pairs = zip(g[key], limit) if isinstance(limit, tuple) else [(g[key], limit)]
+        for gap, lim in pairs:
+            ratio = gap / lim if lim > 0 else (math.inf if gap != 0 else 0.0)
+            worst = max(worst, math.inf if math.isnan(ratio) else ratio)
+    return worst
+
+
+def event_counts(plain_out: dict) -> dict:
+    """What the event gaps of :func:`gaps` divide by, of a plain result:
+    the Stokes-I row's booked peels ("peels"), the fewest of the Q, U, V
+    rows' ("peels_quv") and the photons emitted ("emitted")."""
+    tot = plain_out["detector"].double().cpu().sum(0)
+    return {"peels": float(tot[0, 2]), "peels_quv": float(tot[1:, 2].min()),
+            "emitted": float(plain_out["n_emitted"])}
+
+
+def floors_of(counts: list[dict]) -> dict:
+    """Each key's floor for :func:`limits_from` over configurations whose
+    :func:`event_counts` are ``counts``: for an event key, the share that
+    :data:`FLOOR_EVENTS` events make of its denominator where that share is
+    largest (denominators of 0 left out); for a sum, :data:`SUM_FLOOR`."""
+    return {key: max((FLOOR_EVENTS / c[EVENT_KEYS[key]] for c in counts
+                      if c[EVENT_KEYS[key]] > 0), default=0.0)
+            if key in EVENT_KEYS else SUM_FLOOR for key in AGREE}
+
+
+def limits_from(readings: list[dict], old: dict, floors: dict) -> dict:
+    """The rule that sets a table of limits from ``readings``, gap dicts of
+    :func:`gaps` over seeds and configurations: each key (each component of
+    "stokes" and "squares") gets ``min(old, max(RULE_FACTOR x the worst
+    reading, floor))``. A limit of 0 stays 0 and none rises; a NaN reading
+    counts as infinite."""
+    def worst(values):
+        return max((math.inf if math.isnan(v) else v for v in values), default=0.0)
+
+    new = {}
+    for key, lim in old.items():
+        if isinstance(lim, tuple):
+            new[key] = tuple(min(o, max(RULE_FACTOR * worst(r[key][i] for r in readings),
+                                        floors[key]))
+                             for i, o in enumerate(lim))
+        else:
+            new[key] = min(lim, max(RULE_FACTOR * worst(r[key] for r in readings), floors[key]))
+    return new
 
 
 def _library(name: str, argtypes, layout: tuple, build: str | None = None):

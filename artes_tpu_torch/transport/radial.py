@@ -8,10 +8,11 @@ per-shell chord lengths and the march to a sampled optical depth is a
 prefix-sum walk over at most 2 nr segments.
 
 Here the face roots and the segments are computed for all faces at once (a
-trailing face dimension), and the running optical depth is one prefix sum
-over the segments in the reference's path order, so on the CPU every
-float64 operation matches the JAX package's loops. The ``flow`` hook of :func:`march` books
-the flow diagnostics of every segment a photon walks.
+trailing face dimension), and the running optical depth adds the segments
+one at a time in the reference's path order and in their dtype
+(:func:`left_scan`), as the JAX package's loops and the kernels do, on every
+device. The ``flow`` hook of :func:`march` books the flow diagnostics of
+every segment a photon walks.
 """
 
 from __future__ import annotations
@@ -19,6 +20,21 @@ from __future__ import annotations
 import torch
 
 BIG = 1.0e30
+
+
+def left_scan(terms):
+    """The running sums of ``terms`` over the last dimension, each added to
+    the one before in their dtype, ``t0, t0 + t1, (t0 + t1) + t2, ...``, as
+    the reference's loops add them. ``torch.cumsum`` is not that scan: on
+    the CPU it carries float32 in float64 and rounds each prefix once, and
+    on a CUDA device its parallel scan over the last dimension adds in
+    another order."""
+    acc = terms[..., 0]
+    out = [acc]
+    for k in range(1, terms.shape[-1]):
+        acc = acc + terms[..., k]
+        out.append(acc)
+    return torch.stack(out, dim=-1)
 
 
 def use_closed_form(grid, static) -> bool:
@@ -85,8 +101,8 @@ def _path_segments(e, h, surface_hit, s_surf, kx):
     """The 2 nr shell segments of a ray in path order: inbound shells
     nr-1 .. 0, then outbound shells 0 .. nr-1 (zero past the floor).
     Returns per-segment ``start``, ``contrib`` (opacity x length), the
-    running optical depth ``cum`` (a sequential prefix sum, the order of
-    the reference's loop), the shell index and the length ``seg``."""
+    running optical depth ``cum`` (:func:`left_scan`), the shell index and
+    the length ``seg``."""
     nr = kx.shape[0]
     inb = torch.arange(nr - 1, -1, -1, device=kx.device)
     s_col = s_surf.unsqueeze(-1)
@@ -97,7 +113,7 @@ def _path_segments(e, h, surface_hit, s_surf, kx):
                          torch.where(surface_hit.unsqueeze(-1), 0.0, kx * seg_out)], dim=-1)
     start = torch.cat([start_in, h[..., :-1]], dim=-1)
     shell = torch.cat([inb, torch.arange(nr, device=kx.device)])
-    return (start, contrib, torch.cumsum(contrib, dim=-1), shell,
+    return (start, contrib, left_scan(contrib), shell,
             torch.cat([seg_in, seg_out], dim=-1))
 
 

@@ -18,6 +18,7 @@ from artes_tpu_torch import _build, cells, config, probe_splat
 from artes_tpu_torch.parallel import mesh
 from artes_tpu_torch.cells import CELLS, KERNEL_CELLS, gate_photons, spectrum_tables
 from artes_tpu_torch.transport import kernel, pool_cuda
+from test_torch_gate import FORMER_LIMITS
 
 SEED = 7
 
@@ -129,8 +130,15 @@ def test_cuda_instantiations_match_plain(cuda, name):
             <= float(p["flow_path"].sum()) * (1 + 1e-2)
 
 
-# Small faults of the surface and flow code, each with the cells whose gate
-# must see it: (file under csrc/, text to replace, replacement, cells)
+# the main path's gate cells: the flagship, the bench's graded grid and
+# BASELINE #2's crescent at 177.5 deg
+MAIN_PATH_CELLS = ("flagship", "hydrostatic39", "hg_crescent")
+MAIN_PATH_SMALL = 1e-3
+# how far over its limit a mutant's largest gap must be on each of its cells
+MUTANT_MARGIN = 3.0
+
+# Small faults of the kernels, each with the cells whose gate must see it:
+# (file under csrc/, text to replace, replacement, cells)
 MUTANTS = {
     "lambert direction u for sqrt(u)": (
         "pool_march.cu", "direction_cosine(sqrtf(u[1]), TWO_PI_F * u[2], normal, lambert);",
@@ -190,6 +198,28 @@ MUTANTS = {
         "pool_grid3d.cu", "const bool no_scatter = (flags & F_NO_SCATTER) != 0;",
         "const bool no_scatter = false;",
         ("noscatter_patchy3d",)),
+    # small faults of the main path, pool_radial <false, false, false>: each
+    # moves the flagship's I and Q sums by under MAIN_PATH_SMALL
+    "peel matrix angle from a rounded degree": (
+        "pool_common.cuh", "acosf(mu) / DEG_F, m);", "acosf(mu) * 57.29f, m);",
+        MAIN_PATH_CELLS),
+    "zenith CDF without its last row": (
+        "pool_common.cuh", "const float target = u3 * cum(N_ANGLE);",
+        "const float target = u3 * cum(N_ANGLE - 1);", MAIN_PATH_CELLS),
+    "azimuth mirror past a slipped half": (
+        "pool_common.cuh", "if (u2 > 0.5f) beta += PI_F;", "if (u2 > 0.5002f) beta += PI_F;",
+        MAIN_PATH_CELLS),
+    "stellar beam short of the limb": (
+        "pool_common.cuh", "const float r_disk = sqrtf(u1);",
+        "const float r_disk = 0.9999f * sqrtf(u1);", MAIN_PATH_CELLS),
+    # hg_crescent's tallies do not move under it at seed 7 (no count, Stokes I
+    # by 4e-10), so only the two cells that see it are named
+    "roulette at twice its threshold": (
+        "pool_radial.cu", "if (d[0] < S.fstop) {", "if (d[0] < 2.0f * S.fstop) {",
+        ("flagship", "hydrostatic39")),
+    "roulette weight on conservative scatterings": (
+        "pool_radial.cu", "alb / (1.0f - S.fstop) : 1.0f;",
+        "alb / (1.0f - S.fstop) : 1.0f / (1.0f - S.fstop);", ("flagship", "hydrostatic39")),
 }
 
 
@@ -204,7 +234,10 @@ def plain_results():
 def test_mutant_kernels_fail_the_gate(cuda, fault, tmp_path, monkeypatch, plain_results):
     """A copy of the CUDA sources with one fault, built beside the real
     libraries: the gate that holds the kernel against its plain version must
-    refuse it on every cell named for the fault."""
+    refuse it on every cell named for the fault, its largest gap at least
+    ``MUTANT_MARGIN`` times its limit. Each reading also prints the verdict
+    of the former limits (``test_torch_gate.FORMER_LIMITS``); a main-path
+    fault must move the flagship's I and Q sums by under ``MAIN_PATH_SMALL``."""
     file, old, new, cell_names = MUTANTS[fault]
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
@@ -224,8 +257,15 @@ def test_mutant_kernels_fail_the_gate(cuda, fault, tmp_path, monkeypatch, plain_
         limits = pool_cuda.limits_of(tables, static)
         over = {key: g[key] for key in limits
                 if not pool_cuda.agrees({key: g[key]}, {key: limits[key]})}
-        print(f"mutant [{fault}] on {name}: gaps over their limits {over}")
-        assert over, f"{fault} passes the gate on {name}: {g}"
+        ratio = pool_cuda.worst_ratio(g, limits)
+        old = FORMER_LIMITS[kernel.walk_mode(tables, static)]
+        verdict = "pass" if pool_cuda.agrees(g, old) else "refuse"
+        print(f"mutant [{fault}] on {name}: largest gap / limit {ratio:.4g}, gaps over their "
+              f"limits {over}; the former limits: {verdict} (largest gap / limit "
+              f"{pool_cuda.worst_ratio(g, old):.4g}); stokes {g['stokes']}, count {g['count']:.4g}")
+        assert ratio >= MUTANT_MARGIN, f"{fault} passes the gate on {name} by a margin: {g}"
+        if name == "flagship":                  # only main-path faults name it
+            assert max(g["stokes"][:2]) < MAIN_PATH_SMALL, f"{fault} is not small: {g}"
 
 
 @pytest.mark.gpu
