@@ -1,0 +1,9 @@
+"""The radial pool kernel's share of its roofline: the least time the H100
+could take for every launch of the window (``costmodel``) over the device time
+of every ``pool_radial`` kernel in the trace."""
+
+from portbench.costmodel import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "pool_radial_kernel")
