@@ -24,7 +24,8 @@ the TPU records of BASELINE_RUNS.json (:data:`BASELINE2`,
   The kernel against the plain version at 97.5 and 177.5 degrees.
 * **#5**, (a) the flagship at 1e10 photons, seed 5, through
   ``runner.run_wavelength``'s chunk loop: ten chunks of at most 2^30 ids,
-  the high id word 0, 1 and 2 (tools/baseline_scale_artifacts.py:76-107).
+  the high id word 0, 1 and 2 (tools/baseline_scale_artifacts.py:76-107),
+  read from the run's ``chunk`` spans (:func:`chunk_schedule`).
   Held: Stokes I within 2e-3 (the flagship anchor's limit); with the
   run's sums added as the TPU kernel adds them (:func:`record_sums`),
   pol_frac within 3 sqrt(sigma^2 + sigma_5^2) and Stokes I within 3 sqrt(2)
@@ -87,7 +88,7 @@ import time
 import numpy as np
 import torch
 
-from artes_tpu_torch import cells
+from artes_tpu_torch import cells, spans
 from artes_tpu_torch.constants import PI, planck_lambda
 from artes_tpu_torch.transport.tables import compute_cell_depth
 
@@ -778,6 +779,13 @@ def check_5(scale) -> dict:
             "n_alive_at_cap": _check(a, b, abs(a - b), 3.0 * math.sqrt(a + b))}
 
 
+def chunk_schedule(recorded) -> list:
+    """``(id_hi, id_lo, n)`` of each ``chunk`` span of a recording, in
+    order: the chunks ``runner.run_wavelength`` ran."""
+    return [(c.attrs["id_hi"], c.attrs["id_lo"], c.attrs["n"]) for c in recorded
+            if c.name == "chunk"]
+
+
 def chain_5(photons=PHOTONS_5, device="cuda", photons_b=PHOTONS_5B) -> dict:
     """BASELINE #5's chain, returning its figures; see the module docstring."""
     from artes_tpu_torch import presets, runner
@@ -790,11 +798,11 @@ def chain_5(photons=PHOTONS_5, device="cuda", photons_b=PHOTONS_5B) -> dict:
     det = detector_setup(cfg, float(atm.rfront[-1]))
     before = dict(pool_cuda.LAUNCHES)
     runner.run_wavelength(atm, cfg, det, 0, 1 << 16, seed=SEED_5, device=device)   # warm-up
-    chunks = []
-    t0 = time.perf_counter()
-    res = runner.run_wavelength(atm, cfg, det, 0, photons, seed=SEED_5, device=device,
-                                on_chunk=lambda n, hi, lo: chunks.append((hi, lo, n)))
-    wall = time.perf_counter() - t0
+    with spans.recording() as recorded:
+        t0 = time.perf_counter()
+        res = runner.run_wavelength(atm, cfg, det, 0, photons, seed=SEED_5, device=device)
+        wall = time.perf_counter() - t0
+    chunks = chunk_schedule(recorded.spans)
     p = res.photometry
     scale = {"photons": photons, "seed": SEED_5, "wall_seconds": wall,
              "photons_per_s": photons / wall, "tpu_photons_per_s": BASELINE5["photons_per_s"],

@@ -4,6 +4,7 @@ Usage (the contract of ``artes_tpu.cli``)::
 
     python -m artes_tpu_torch.cli <atmosphere> <photons> -o <run> [-k key=value ...]
         [--seed N] [--f64] [--device cuda|cpu] [--mesh] [--resume] [--debug-stokes]
+        [--spans]
     python -m artes_tpu_torch.cli build <atmosphere>
     torchrun --nproc-per-node N -m artes_tpu_torch.cli <atmosphere> <photons> --mesh ...
 
@@ -28,7 +29,9 @@ launcher (``torchrun``: NCCL on cards, gloo with ``--device cpu``) or, with
 ``--device cuda`` and no launcher, over every visible card, one spawned
 worker each; the tallies are summed over the processes and rank 0 alone
 writes. ``--resume`` runs only the wavelengths that ``spectrum.dat`` does
-not hold yet.
+not hold yet. ``--spans`` records the run's spans (``artes_tpu_torch.spans``)
+and adds one line to the report: each span name's self time in seconds and
+its count (on a mesh, the coordinator's own).
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from artes_tpu_torch import spans
 
 
 def build_main(argv=None):
@@ -88,6 +93,8 @@ def run_main(argv=None):
                    help="Stokes-anomaly check I^2 >= Q^2+U^2+V^2 after every scatter "
                         "(error 050); anomalous photons are abandoned and tallied "
                         "(the CUDA kernels and the plain version alike)")
+    p.add_argument("--spans", action="store_true",
+                   help="record the run's spans and report each span name's self time")
     args = p.parse_args(argv)
 
     from artes_tpu_torch.parallel import make_mesh, multihost
@@ -157,6 +164,14 @@ def _resume_todo(dirs, atm, mesh):
 
 
 def _run(args, mesh) -> int:
+    """The run of ``args``, inside ``spans.recording()`` with ``--spans``."""
+    if not args.spans:
+        return _transport(args, mesh)
+    with spans.recording():
+        return _transport(args, mesh)
+
+
+def _transport(args, mesh) -> int:
     """The run of ``args``; over ``mesh`` every rank computes, the
     coordinator (rank 0) alone writes the output tree, the report,
     ``error.log`` and the progress lines."""
@@ -307,6 +322,8 @@ def _run(args, mesh) -> int:
                     + " ".join(f"{k}={v}" for k, v in launches.items()) + ")")
     if mesh is not None:
         report.emit(f"mesh launches: {n_mesh} over {mesh.size} ranks")
+    if args.spans:
+        report.emit(spans.self_time_line(spans.recorded()))
     report.stage4(n_error)
     out.send_completion_email(cfg, args.output)
     return 0

@@ -612,6 +612,45 @@ __device__ __forceinline__ unsigned long long next_photon(unsigned long long* ne
   return base + (unsigned long long)__popc(mask & ((1u << lane) - 1u));
 }
 
+// ------------------------------------------------------------- lanes ----
+
+// A launch's lane counters (pool_cuda.LANE_KEYS), counted where the launch
+// is given a buffer for them: a warp's passes through the persistent loop's
+// refill branch and the lanes active at each, then the same for its
+// scattering rounds. A block counts in shared memory and adds its counts
+// into the buffer at its end.
+enum { L_REFILL = 0, L_ROUND = 2, N_LANE = 4 };
+
+// one pass of a warp's active lanes `mask`: its leader adds 1 to slot[0] and
+// the lanes to slot[1] (shared memory); the phase clocks of
+// ARTES_POOL_CLOCKS count their entries and lanes with it too
+__device__ __forceinline__ void count_pass(unsigned long long* slot, unsigned int mask) {
+  if ((int)(threadIdx.x & 31) == __ffs(mask) - 1) {
+    atomicAdd(slot, 1ull);
+    atomicAdd(slot + 1, (unsigned long long)__popc(mask));
+  }
+}
+
+__device__ __forceinline__ void lanes_begin(unsigned long long* sh,
+                                            const unsigned long long* out) {
+  if (out == nullptr) return;
+  if (threadIdx.x < N_LANE) sh[threadIdx.x] = 0ull;
+  __syncthreads();
+}
+
+// a pass through branch `at` (L_REFILL, L_ROUND)
+__device__ __forceinline__ void lane_pass(unsigned long long* sh, int at,
+                                          const unsigned long long* out) {
+  if (out != nullptr) count_pass(sh + at, __activemask());
+}
+
+__device__ __forceinline__ void lanes_end(const unsigned long long* sh,
+                                          unsigned long long* out) {
+  if (out == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x < N_LANE) atomicAdd(out + threadIdx.x, sh[threadIdx.x]);
+}
+
 // the blocks of `threads` the card holds at once for kernel `fn`
 // (instantiation `variant` of at most 8): queried once for each (the first
 // launch's device), 0 when the query fails

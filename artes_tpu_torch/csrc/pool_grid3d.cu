@@ -42,7 +42,10 @@
 // march cell_face cell by cell, at most max_crossings passes (error 032
 // beyond; 031 when no face is found, 034 at a degenerate floor bounce).
 // Tables are indexed per cell in global memory: no mixture dedup, no cell
-// cap.
+// cap. Given a buffer for them (pool_cuda passes one while
+// artes_tpu_torch.spans records), a launch counts its warps' passes through
+// the refill and round branches and their active lanes
+// (pool_common.cuh::lane_pass).
 //
 // Rounding. The file builds with -fmad=false (_build.SOURCE_FLAGS): every
 // float32 expression rounds op by op, as the plain version's PyTorch
@@ -340,7 +343,9 @@ __global__ void __launch_bounds__(256, 4)
 pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
                    uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
                    int flags, double* __restrict__ out_d, unsigned long long* __restrict__ out_i,
-                   unsigned long long* next_id) {
+                   unsigned long long* next_id, unsigned long long* lanes) {
+  __shared__ unsigned long long lanes_sh[N_LANE];
+  lanes_begin(lanes_sh, lanes);
   const Scal S = load_scal(scal);
   const bool crescent = (flags & F_CRESCENT) != 0;
   const bool biased = (flags & F_BIASED) != 0;
@@ -367,6 +372,7 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
   // a lane without one, a scattering round and its march for a lane with one
   while (true) {
     if (!alive) {
+      lane_pass(lanes_sh, L_REFILL, lanes);   // before the break: every lane's last pass counts
       const unsigned long long i = next_photon(next_id);
       if (i >= n_photons) break;
       pid = id_lo + (uint32_t)i;
@@ -414,6 +420,7 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
       n_scat = 0;
     } else {
       // the scattering round after march n_scat (ARTES.f90:786-951)
+      lane_pass(lanes_sh, L_ROUND, lanes);
       alive = false;
       if (n_scat > 0 && n_scat >= max_scatter) {
         cnt[1] += 1;
@@ -485,11 +492,13 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
     alive = out == M_INTER && !no_scatter;
   }
 
+  lanes_end(lanes_sh, lanes);
   reduce_block<N_OUT_D, N_OUT_I3>(acc, cnt, out_d, out_i);
 }
 
 using KernelFn = void (*)(Tables, Grid3, const float*, Image, uint32_t, uint32_t, uint32_t, int,
-                          int, double*, unsigned long long*, unsigned long long*);
+                          int, double*, unsigned long long*, unsigned long long*,
+                          unsigned long long*);
 KernelFn variant_fn(int variant) {
   switch (variant) {
     case 0: return pool_grid3d_kernel<false, false>;
@@ -513,12 +522,14 @@ KernelFn variant_fn(int variant) {
 // abandoned, codes 031 / 032 / 034 and Stokes anomalies. `flags` as
 // pool_radial's. The grid is persistent, as pool_radial's: the blocks the
 // card holds at once, whose lanes take photon ids id_lo + *next_id from the
-// launch's counter, which the caller zeroes.
+// launch's counter, which the caller zeroes. `lanes`, where not null, is
+// N_LANE zeroed counters the launch adds its lane counts into
+// (pool_common.cuh::lane_pass).
 extern "C" int artes_pool_grid3d_launch(
     const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
     double* img_sums, unsigned long long* img_counts, double* out_d, unsigned long long* out_i,
-    unsigned long long* next_id, int threads, void* stream) {
+    unsigned long long* next_id, unsigned long long* lanes, int threads, void* stream) {
   auto f = [&](int i) { return (const float*)tables[i]; };
   Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
   Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
@@ -533,8 +544,17 @@ extern "C" int artes_pool_grid3d_launch(
   const int resident = resident_blocks(variant, fn, threads);
   if (resident < 1) return (int)cudaErrorInvalidConfiguration;
   fn<<<persistent_blocks(resident, n_photons, threads), threads, 0, (cudaStream_t)stream>>>(
-      T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, next_id);
+      T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, next_id,
+      lanes);
   return (int)cudaGetLastError();
+}
+
+// The blocks of a launch of `variant` with n_photons and `threads` a block
+// (the persistent grid), 0 when the occupancy query fails.
+extern "C" int artes_pool_grid3d_blocks(int variant, unsigned int n_photons, int threads) {
+  const KernelFn fn = variant_fn(variant);
+  const int resident = fn == nullptr ? 0 : resident_blocks(variant, fn, threads);
+  return resident < 1 ? 0 : persistent_blocks(resident, n_photons, threads);
 }
 
 // Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, REC_W}.

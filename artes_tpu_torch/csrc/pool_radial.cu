@@ -76,6 +76,10 @@
 // also sums the scatter peels as the TPU kernel sums a single pixel: in
 // float32, per lane, over a whole launch (artes_tpu_torch.baselines
 // .record_sums reads it).
+// Given a buffer for them (pool_cuda passes one while artes_tpu_torch.spans
+// records), a launch counts its warps' passes through the loop's refill and
+// round branches and the lanes active at each (pool_common.cuh::lane_pass),
+// in every build and every instantiation but the stellar image (CountsLanes).
 
 #include "pool_common.cuh"
 
@@ -237,11 +241,8 @@ __device__ unsigned long long g_clocks[(N_PHASE + 1) * 3];
 __device__ __forceinline__ void clock_add(unsigned long long* sh, int k, long long t0,
                                           unsigned int mask) {
   const long long dt = clock64() - t0;
-  if ((int)(threadIdx.x & 31) == __ffs(mask) - 1) {
-    atomicAdd(sh + 3 * k, (unsigned long long)dt);
-    atomicAdd(sh + 3 * k + 1, 1ull);
-    atomicAdd(sh + 3 * k + 2, (unsigned long long)__popc(mask));
-  }
+  if ((int)(threadIdx.x & 31) == __ffs(mask) - 1) atomicAdd(sh + 3 * k, (unsigned long long)dt);
+  count_pass(sh + 3 * k + 1, mask);
 }
 #define CLOCK_BEGIN() (clk_t0 = clock64(), clk_mask = __activemask())
 #define CLOCK_END(k) clock_add(clk_sh, k, clk_t0, clk_mask)
@@ -272,6 +273,15 @@ struct MinBlocks {
   static constexpr int value = (THERMAL || IMAGE || FLOW) ? 2 : 4;
 };
 
+// instantiations that count lanes where given a buffer: all but the stellar
+// image, whose counting code took a register (128, was 127) and 2% of its
+// kernel time at 2^24 photons with the buffer null (H100, PERF.md); its
+// buffer stays zero, which pool_cuda reads as no count
+template <bool THERMAL, bool IMAGE, bool FLOW>
+struct CountsLanes {
+  static constexpr bool value = THERMAL || !IMAGE || FLOW;
+};
+
 // out_i slots: scatter peels, photons capped, photons emitted, birth peels,
 // photons abandoned on a Stokes anomaly (error 050), and with FLOW the
 // segments that booked flow
@@ -284,9 +294,12 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
                    uint32_t key_hi, uint32_t id_lo, int max_scatter, int flags,
                    double* __restrict__ out_d, unsigned long long* __restrict__ out_i,
                    double* flow_g, double* flow_t, double* flow_buf, Records rec,
-                   unsigned long long* next_id) {
+                   unsigned long long* next_id, unsigned long long* lanes) {
   Flow fl{nullptr, nullptr};
   if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_buf, T.nr);
+  constexpr bool COUNTS = CountsLanes<THERMAL, IMAGE, FLOW>::value;
+  __shared__ unsigned long long lanes_sh[N_LANE];
+  if constexpr (COUNTS) lanes_begin(lanes_sh, lanes);
 #ifdef ARTES_POOL_CLOCKS
   __shared__ unsigned long long clk_sh[(N_PHASE + 1) * 3];
   for (int k = threadIdx.x; k < (N_PHASE + 1) * 3; k += blockDim.x) clk_sh[k] = 0ull;
@@ -321,6 +334,8 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
   // a lane without one, one scattering round for a lane with one
   while (true) {
     if (!alive) {
+      // before the break: every lane's last pass counts
+      if constexpr (COUNTS) lane_pass(lanes_sh, L_REFILL, lanes);
       CLOCK_BEGIN();
       const unsigned long long i = next_photon(next_id);
       if (i >= n_photons) break;
@@ -376,6 +391,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
     }
 
     // a scattering round (ARTES.f90:786-951); the max_scatter cap bounds them
+    if constexpr (COUNTS) lane_pass(lanes_sh, L_ROUND, lanes);
     CLOCK_BEGIN();
     alive = false;
     cr = heal_cell(T, S, pos, cr);
@@ -454,6 +470,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
     CLOCK_END(P_MARCH);
   }
 
+  if constexpr (COUNTS) lanes_end(lanes_sh, lanes);
   if constexpr (FLOW) flow_end(flow_g, flow_t, fl, T.nr);
   reduce_block<N_OUT_D, NI>(acc, cnt, out_d, out_i);
 #ifdef ARTES_F32_LANES
@@ -475,7 +492,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
 // the instantiation of a variant: bit 0 thermal, bit 1 image, bit 2 flow
 using KernelFn = void (*)(Tables, const float*, Image, uint32_t, uint32_t, uint32_t, int, int,
                           double*, unsigned long long*, double*, double*, double*, Records,
-                          unsigned long long*);
+                          unsigned long long*, unsigned long long*);
 KernelFn variant_fn(int variant) {
   switch (variant) {
     case 0: return pool_radial_kernel<false, false, false>;
@@ -509,7 +526,9 @@ KernelFn variant_fn(int variant) {
 // flow_buf_blocks x 7 nr doubles (pool_common.cuh::flow_begin;
 // artes_pool_radial_blocks gives the launch's blocks), else straight. Stokes
 // anomalies leave records (pool_common.cuh::record_error) in rec (rec_cap,
-// 16), their count in rec_count.
+// 16), their count in rec_count. `lanes`, where not null, is N_LANE zeroed
+// counters the launch adds its lane counts into (pool_common.cuh::lane_pass;
+// every instantiation but the stellar image, CountsLanes).
 extern "C" int artes_pool_radial_launch(
     const float* rfront, const float* opacity, const float* albedo, const float* scatter,
     const float* prefix, const float* p_int, const float* consts, const float* scal,
@@ -518,7 +537,7 @@ extern "C" int artes_pool_radial_launch(
     int ny, double* img_sums, unsigned long long* img_counts, double* out_d,
     unsigned long long* out_i, double* flow_g, double* flow_t, double* flow_buf,
     int flow_buf_blocks, float* rec, unsigned int* rec_count, int rec_cap,
-    unsigned long long* next_id, int threads, void* stream) {
+    unsigned long long* next_id, unsigned long long* lanes, int threads, void* stream) {
   Tables T{rfront, opacity, albedo, scatter, prefix, p_int, consts, emis_cum, cell_weight, nr};
   Image img{img_sums, img_counts, nx, ny};
   Records R{rec, rec_count, (unsigned int)rec_cap};
@@ -538,7 +557,7 @@ extern "C" int artes_pool_radial_launch(
   if (flow_buf != nullptr && blocks > flow_buf_blocks) return (int)cudaErrorInvalidValue;
   fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       T, scal, img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, flow_g, flow_t,
-      flow_buf, R, next_id);
+      flow_buf, R, next_id, lanes);
   return (int)cudaGetLastError();
 }
 

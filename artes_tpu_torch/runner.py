@@ -30,6 +30,7 @@ import sys
 import numpy as np
 import torch
 
+from artes_tpu_torch import spans
 from artes_tpu_torch.config import ArtesConfig, DetectorSetup, detector_setup
 from artes_tpu_torch.constants import PI, planck_lambda
 from artes_tpu_torch.parallel.mesh import run_stream_mesh
@@ -127,8 +128,7 @@ def chunk_ids(lo: int, n: int, device) -> torch.Tensor:
 def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
                    packages: int, seed: int = 0, batch_size: int = 1 << 17,
                    dtype=torch.float32, device="cuda", crescent: bool = False,
-                   progress: bool = False, mesh=None, dispatch=None,
-                   on_chunk=None) -> WavelengthResult:
+                   progress: bool = False, mesh=None, dispatch=None) -> WavelengthResult:
     """Transport ``packages`` photons at one wavelength on ``device``, or
     over the ranks of ``mesh`` (a ``parallel.mesh.Mesh``; its rank's device
     takes the place of ``device``).
@@ -146,84 +146,107 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
     into the seed as ``(seed + (start >> 32) * 0x9E3779B9) & 0xFFFFFFFF``.
     Nothing reaches it unless a caller passes it.
 
-    ``on_chunk``, if given, is called as ``on_chunk(n, id_hi, id_lo)`` after
-    each chunk's launch returns: it reports the chunk schedule and changes
-    nothing launched.
+    The call is one job of ``spans`` (recorded inside ``spans.recording()``
+    or a profiler session): ``job`` (``wl``, ``packages``, ``path``: kernel,
+    plain, mesh or dispatch, and ``launches``, the pool kernels launched)
+    holds ``tables`` (``build_tables``), ``prepare`` (the kernel's static
+    configuration, the path, the host's sums), a ``chunk`` a chunk (``n``,
+    ``id_hi``, ``id_lo``; the kernel's ``launch`` in it, then ``wait``, where
+    the host waits for the device, and ``accumulate``, the chunk's copies
+    and host sums), and ``finish`` (package energy, scaling, photometry).
     """
-    device = torch.device(device) if mesh is None else mesh.device
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    prep = build_tables(atm, cfg, det, wl_index, dtype=dtype, device=device)
-    static = _kernel_static(cfg, det, atm, crescent)
+    with spans.job(wl=wl_index, packages=packages) as job:
+        device = torch.device(device) if mesh is None else mesh.device
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {device}")
+        launches = sum(pool_cuda.LAUNCHES.values()) if job else 0
+        prep = build_tables(atm, cfg, det, wl_index, dtype=dtype, device=device)
+        with spans.span("prepare"):
+            static = _kernel_static(cfg, det, atm, crescent)
 
-    width = max(1024, min(1 << int(np.ceil(np.log2(max(packages, 2)))), batch_size))
-    chunk = CHUNK
-    if dispatch is not None:
-        chunk = batch_size
+            width = max(1024, min(1 << int(np.ceil(np.log2(max(packages, 2)))), batch_size))
+            chunk = CHUNK
+            if dispatch is not None:
+                chunk, path = batch_size, "dispatch"
 
-        def kern(n, id_hi, id_lo):
-            return dispatch(prep.tables, static, chunk_ids(id_lo, n, device),
-                            R.key_hi(seed, id_hi))
-    elif mesh is not None:
-        def kern(n, id_hi, id_lo):
-            return run_stream_mesh(prep.tables, static, n, seed, id_hi, id_lo, mesh, width)
-    elif device.type == "cuda" and pool_cuda.supports(prep.tables, static):
-        def kern(n, id_hi, id_lo):
-            return pool_cuda.run_stream_cuda(prep.tables, static, n, seed, id_hi, id_lo)
-    else:
-        def kern(n, id_hi, id_lo):
-            return run_stream(prep.tables, static, n, seed, width, id_hi, id_lo)
+                def kern(n, id_hi, id_lo):
+                    return dispatch(prep.tables, static, chunk_ids(id_lo, n, device),
+                                    R.key_hi(seed, id_hi))
+            elif mesh is not None:
+                path = "mesh"
 
-    detector = np.zeros((det.nx * det.ny, 4, 3), np.float64)
-    shape3 = (atm.nr, atm.ntheta, atm.nphi)
-    flow_g = np.zeros(shape3 + (3,), np.float64) if static.track_flow else None
-    flow_t = np.zeros(shape3 + (4,), np.float64) if static.track_flow else None
-    flux_emitted = flux_exit = 0.0
-    n_alive = n_error = n_anom = 0
-    error_codes = np.zeros(4, np.int64)
-    records = []
-    if progress:
-        chunk = min(chunk, max(1 << 20, -(-packages // 5)))
-    start = 0
-    while start < packages:
-        # chunks never straddle a 2^32 id boundary: the kernel keys each
-        # photon by (seed + id_hi * GOLDEN, low id word)
-        n = min(chunk, packages - start, (1 << 32) - (start & 0xFFFFFFFF))
-        out = kern(n, start >> 32, start & 0xFFFFFFFF)
-        if on_chunk is not None:
-            on_chunk(n, start >> 32, start & 0xFFFFFFFF)
-        detector += out["detector"].cpu().numpy().astype(np.float64)
-        if static.track_flow:
-            flow_g += out["flow_global"].cpu().numpy().reshape(flow_g.shape)
-            flow_t += out["flow_theta"].cpu().numpy().reshape(flow_t.shape)
-        flux_emitted += float(out["flux_emitted"])
-        flux_exit += float(out["flux_exit"])
-        n_alive += int(out["n_alive_at_cap"])
-        n_error += int(out["n_error"])
-        n_anom += int(out.get("n_stokes_anomaly", 0))
-        error_codes += torch.as_tensor(out["error_codes"]).cpu().numpy()
-        if "error_records" in out:
-            records.append(torch.as_tensor(out["error_records"], dtype=torch.float64).cpu())
-        start += n
-        if progress:
-            print(f"  [{100 * start // packages:3d}%] {start:,} / {packages:,} photons",
-                  file=sys.stderr, flush=True)
+                def kern(n, id_hi, id_lo):
+                    return run_stream_mesh(prep.tables, static, n, seed, id_hi, id_lo, mesh, width)
+            elif device.type == "cuda" and pool_cuda.supports(prep.tables, static):
+                path = "kernel"
 
-    e_pack = package_energy(cfg, atm, wl_index, packages, prep.emissivity_total, crescent)
-    det_img = detector.reshape(det.nx, det.ny, 4, 3)
-    scaled = np.empty_like(det_img)
-    scaled[..., 0] = det_img[..., 0] * e_pack      # (ARTES.f90:959-975)
-    scaled[..., 1] = det_img[..., 1] * e_pack * e_pack
-    scaled[..., 2] = det_img[..., 2]
-    return WavelengthResult(
-        detector=scaled, photometry=photometry_from_detector(scaled),
-        flux_emitted=flux_emitted, flux_exit=flux_exit, n_error=n_error,
-        n_alive_at_cap=n_alive, cell_depth=prep.cell_depth, prep=prep, error_codes=error_codes,
-        n_stokes_anomaly=n_anom,
-        error_records=select_error_records(records, ERR_RECORD_K).numpy(),
-        flow_global=flow_g, flow_theta=flow_t)
+                def kern(n, id_hi, id_lo):
+                    return pool_cuda.run_stream_cuda(prep.tables, static, n, seed, id_hi, id_lo)
+            else:
+                path = "plain"
+
+                def kern(n, id_hi, id_lo):
+                    return run_stream(prep.tables, static, n, seed, width, id_hi, id_lo)
+
+            detector = np.zeros((det.nx * det.ny, 4, 3), np.float64)
+            shape3 = (atm.nr, atm.ntheta, atm.nphi)
+            flow_g = np.zeros(shape3 + (3,), np.float64) if static.track_flow else None
+            flow_t = np.zeros(shape3 + (4,), np.float64) if static.track_flow else None
+            flux_emitted = flux_exit = 0.0
+            n_alive = n_error = n_anom = 0
+            error_codes = np.zeros(4, np.int64)
+            records = []
+            if progress:
+                chunk = min(chunk, max(1 << 20, -(-packages // 5)))
+        start = 0
+        while start < packages:
+            # chunks never straddle a 2^32 id boundary: the kernel keys each
+            # photon by (seed + id_hi * GOLDEN, low id word)
+            n = min(chunk, packages - start, (1 << 32) - (start & 0xFFFFFFFF))
+            with spans.span("chunk", n=n, id_hi=start >> 32, id_lo=start & 0xFFFFFFFF):
+                out = kern(n, start >> 32, start & 0xFFFFFFFF)
+                with spans.span("wait"):
+                    if device.type == "cuda":
+                        torch.cuda.current_stream(device).synchronize()
+                with spans.span("accumulate"):
+                    detector += out["detector"].cpu().numpy().astype(np.float64)
+                    if static.track_flow:
+                        flow_g += out["flow_global"].cpu().numpy().reshape(flow_g.shape)
+                        flow_t += out["flow_theta"].cpu().numpy().reshape(flow_t.shape)
+                    flux_emitted += float(out["flux_emitted"])
+                    flux_exit += float(out["flux_exit"])
+                    n_alive += int(out["n_alive_at_cap"])
+                    n_error += int(out["n_error"])
+                    n_anom += int(out.get("n_stokes_anomaly", 0))
+                    error_codes += torch.as_tensor(out["error_codes"]).cpu().numpy()
+                    if "error_records" in out:
+                        records.append(torch.as_tensor(out["error_records"],
+                                                       dtype=torch.float64).cpu())
+            start += n
+            if progress:
+                print(f"  [{100 * start // packages:3d}%] {start:,} / {packages:,} photons",
+                      file=sys.stderr, flush=True)
+
+        with spans.span("finish"):
+            e_pack = package_energy(cfg, atm, wl_index, packages, prep.emissivity_total,
+                                    crescent)
+            det_img = detector.reshape(det.nx, det.ny, 4, 3)
+            scaled = np.empty_like(det_img)
+            scaled[..., 0] = det_img[..., 0] * e_pack      # (ARTES.f90:959-975)
+            scaled[..., 1] = det_img[..., 1] * e_pack * e_pack
+            scaled[..., 2] = det_img[..., 2]
+            result = WavelengthResult(
+                detector=scaled, photometry=photometry_from_detector(scaled),
+                flux_emitted=flux_emitted, flux_exit=flux_exit, n_error=n_error,
+                n_alive_at_cap=n_alive, cell_depth=prep.cell_depth, prep=prep,
+                error_codes=error_codes, n_stokes_anomaly=n_anom,
+                error_records=select_error_records(records, ERR_RECORD_K).numpy(),
+                flow_global=flow_g, flow_theta=flow_t)
+        if job:
+            job.set(path=path, launches=sum(pool_cuda.LAUNCHES.values()) - launches)
+        return result
 
 
 def photometry_from_detector(detector: np.ndarray) -> np.ndarray:

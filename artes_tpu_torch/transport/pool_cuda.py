@@ -40,7 +40,7 @@ import math
 import numpy as np
 import torch
 
-from artes_tpu_torch import _build
+from artes_tpu_torch import _build, spans
 from artes_tpu_torch.transport import geometry as G
 from artes_tpu_torch.transport import rng as R
 from artes_tpu_torch.transport import sampling as S
@@ -56,6 +56,10 @@ VARIANTS_MARCH = tuple("march_" + v for v in VARIANTS + VARIANTS_FLOW)
 LAUNCHES = dict.fromkeys(VARIANTS + VARIANTS_FLOW + VARIANTS_3D + VARIANTS_MARCH, 0)
 
 THREADS = 256
+# the lane counters of pool_radial and pool_grid3d (pool_common.cuh::lane_pass)
+# while spans record: a warp's passes through the persistent loop's refill
+# branch and the lanes active at each, then the same for its scattering rounds
+LANE_KEYS = ("refill_passes", "refill_lanes", "round_passes", "round_lanes")
 N_SCAL = 32
 N_OUT_D = 10
 N_OUT_I = 4             # scatter peels, photons capped, emitted, birth (and surface) peels
@@ -159,8 +163,8 @@ EVENT_KEYS = {"count": "peels", "count_quv": "peels_quv", "pixel_N": "peels",
 _vp = ctypes.c_void_p
 _ARGTYPES = ([_vp] * 10 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
              + [ctypes.c_int] * 5 + [_vp] * 7 + [ctypes.c_int] + [_vp] * 2 + [ctypes.c_int]
-             + [_vp, ctypes.c_int, _vp])
-_ARGTYPES_3D = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 5
+             + [_vp, _vp, ctypes.c_int, _vp])
+_ARGTYPES_3D = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 6
                 + [ctypes.c_int, _vp])
 _ARGTYPES_MARCH = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 7
                    + [ctypes.c_int, _vp, ctypes.c_int, _vp])
@@ -354,8 +358,7 @@ def launch_blocks(tables: TransportTables, static: KernelStatic, n: int,
     ``n`` photons: the kernel's persistent grid, the blocks the card holds
     at once (fewer for a small launch), as ``artes_<kernel>_blocks`` of
     library ``lib`` (the configuration's kernel, or a variant build of it)
-    gives it (``pool_radial`` and ``pool_march``: ``pool_grid3d`` takes no
-    flow buffer); the library is built at first use."""
+    gives it; the library is built at first use."""
     source = kernel_of(tables, static)[0]
     fn = getattr(_build.load(lib or source), f"artes_{source}_blocks")
     fn.argtypes = [ctypes.c_int, ctypes.c_uint, ctypes.c_int]
@@ -484,8 +487,8 @@ def _layout(source: str, static: KernelStatic, ncell: int) -> tuple:
     """``(source, track_flow, rows, ncell, n_out_i)``: what the two tally
     allocations hold. float64: the kernel's out_d, img_d (rows x 8), and
     with flow flow_g (ncell x 3) and flow_t (ncell x 4); int64: out_i, img_i
-    (rows x 2) and the error records' row count (a 32-bit counter in the low
-    word of the last element)."""
+    (rows x 2), the lane counters (LANE_KEYS) and the error records' row
+    count (a 32-bit counter in the low word of the last element)."""
     npix = static.nx * static.ny
     # the radial kernel's flow instantiations count their bookings in a sixth counter
     n_out_i = {"pool_radial": N_OUT_IR + int(static.track_flow), "pool_grid3d": N_OUT_I3,
@@ -497,21 +500,24 @@ def _alloc(layout, dev):
     source, flow, rows, ncell, n_out_i = layout
     flat_f = torch.zeros(N_OUT_D + rows * N_IMG_D + (7 * ncell if flow else 0),
                          dtype=torch.float64, device=dev)
-    flat_i = torch.zeros(n_out_i + rows * N_IMG_I + 1, dtype=torch.int64, device=dev)
+    flat_i = torch.zeros(n_out_i + rows * N_IMG_I + len(LANE_KEYS) + 1, dtype=torch.int64,
+                         device=dev)
     return flat_f, flat_i, tally_views(layout, flat_f, flat_i)
 
 
 def tally_views(layout, flat_f: torch.Tensor, flat_i: torch.Tensor) -> dict:
     """The kernel's tally buffers as views into the two allocations:
     ``out_d``, ``img_d``, ``flow_g``, ``flow_t`` (None without flow),
-    ``out_i``, ``img_i`` and ``rec_count``."""
+    ``out_i``, ``img_i``, ``lanes`` and ``rec_count``."""
     source, flow, rows, ncell, n_out_i = layout
     at = N_OUT_D + rows * N_IMG_D
+    at_i = n_out_i + rows * N_IMG_I
     return {"out_d": flat_f[:N_OUT_D], "img_d": flat_f[N_OUT_D:at].view(rows, N_IMG_D),
             "flow_g": flat_f[at:at + 3 * ncell].view(ncell, 3) if flow else None,
             "flow_t": flat_f[at + 3 * ncell:at + 7 * ncell].view(ncell, 4) if flow else None,
             "out_i": flat_i[:n_out_i],
-            "img_i": flat_i[n_out_i:n_out_i + rows * N_IMG_I].view(rows, N_IMG_I),
+            "img_i": flat_i[n_out_i:at_i].view(rows, N_IMG_I),
+            "lanes": flat_i[at_i:at_i + len(LANE_KEYS)],
             "rec_count": flat_i[-1:].view(torch.int32)[:1]}
 
 
@@ -577,7 +583,28 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     records on the device (:func:`record_block`) and ``error_records`` is
     empty. ``build`` launches a variant build of the radial kernel
     (``_build.VARIANT_BUILDS``: ``pool_radial_clocks``, ``pool_radial_lanes``)
-    in its place, which ``LAUNCHES`` does not count."""
+    in its place, which ``LAUNCHES`` does not count.
+
+    The call is the span ``launch`` of ``artes_tpu_torch.spans``, from entry
+    to return, with a child ``wait`` where it waits for the kernel's
+    records. While it records, the launch is bracketed by two CUDA events on
+    its stream and ``pool_radial`` and ``pool_grid3d`` count their warps'
+    passes through the persistent loop, into the launch's own integer
+    tallies; once the spans are read (``spans.settle``) the span holds ``kernel`` (the instantiation),
+    ``source``, ``blocks``, ``photons_emitted``, ``rounds`` (scattering
+    rounds that booked a peel), ``capped``, ``device_ms`` (the events'
+    elapsed time: the kernel's, and where the stream idles before it, the
+    host's time to launch it) and, from those two kernels but the stellar
+    image, which counts none (``pool_radial.cu::CountsLanes``),
+    :data:`LANE_KEYS`."""
+    with spans.span("launch") as s:
+        return _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, build,
+                                host_records)
+
+
+def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, build,
+                     host_records):
+    """:func:`run_stream_cuda` inside its ``launch`` span ``s``."""
     source, name = kernel_of(tables, static)
     if build is not None and _build.VARIANT_BUILDS[build][0] != source:
         raise ValueError(f"{build} is a build of {_build.VARIANT_BUILDS[build][0]}, not of "
@@ -620,9 +647,15 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
         buf_blocks = buf.numel() // (7 * ncell) if buf is not None else 0
         outs = (v["img_d"].data_ptr(), v["img_i"].data_ptr(), v["out_d"].data_ptr(),
                 v["out_i"].data_ptr())
+        # the lane counters (LANE_KEYS) and the events, while recording
+        lanes = v["lanes"] if s and source != "pool_march" else None
+        lanes_ptr = None if lanes is None else lanes.data_ptr()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             launch = (n, key_hi, int(id_lo), int(static.max_scatter), variant, flags_of(static))
+            if s:
+                events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                events[0].record()
             if source == "pool_radial":
                 fn = _library("pool_radial", _ARGTYPES,
                               (N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, ERR_RECORD_W), lib)
@@ -632,7 +665,7 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
                         t.emis_cum.data_ptr(), t.cell_weight.data_ptr(), nr, *launch,
                         static.nx, static.ny, *outs, *flow_ptrs, buf_blocks,
                         rec.data_ptr(), v["rec_count"].data_ptr(), REC_CAP,
-                        next_id.data_ptr(), THREADS, stream)
+                        next_id.data_ptr(), lanes_ptr, THREADS, stream)
                 keep = ()
             else:
                 ptrs, sizes, keep = _cell_tables(t, static, scal, consts, rec, v["rec_count"])
@@ -641,8 +674,8 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
                                   (N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, ERR_RECORD_W))
                     eps = (ctypes.c_float * 3)(g.same_eps, g.sel2, g.boundary_tol)
                     rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
-                            ctypes.addressof(eps), *launch, *outs, next_id.data_ptr(), THREADS,
-                            stream)
+                            ctypes.addressof(eps), *launch, *outs, next_id.data_ptr(), lanes_ptr,
+                            THREADS, stream)
                 else:
                     fn = _library("pool_march", _ARGTYPES_MARCH,
                                   (N_SCAL, N_OUT_D, N_OUT_IM, N_IMG_D, N_IMG_I, ERR_RECORD_W))
@@ -651,12 +684,18 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
                     rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
                             ctypes.addressof(eps), *launch, *outs, *flow_ptrs, buf_blocks,
                             next_id.data_ptr(), THREADS, stream)
+            if s:
+                events[1].record()
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         if build is None:
             LAUNCHES[name] += 1
+        if s:
+            s.set(kernel=name, source=source, blocks=launch_blocks(tables, static, n, lib))
+            spans.later(lambda: _read_launch(s, events, v["out_i"], lanes))
         if abandons and host_records:
-            n_rec = int(v["rec_count"])                 # waits for the kernel
+            with spans.span("wait"):
+                n_rec = int(v["rec_count"])             # waits for the kernel
             records = _decode_records(rec[:min(n_rec, REC_CAP)])
         del keep, next_id, buf
     out = result_of(layout, flat_f, flat_i, records, err_k)
@@ -664,3 +703,16 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
         out["record_block"] = (record_block(rec, v["rec_count"]) if abandons else torch.zeros(
             (2 * ERR_RECORD_K + 1, ERR_RECORD_W), dtype=torch.float64, device=dev))
     return out
+
+
+def _read_launch(s, events, out_i, lanes) -> None:
+    """Set a launch span's device values (:func:`run_stream_cuda`) when the
+    spans are read; lane counters that stayed zero (an instantiation that
+    counts none) are left out."""
+    events[1].synchronize()
+    rounds, capped, emitted = out_i[:3].tolist()
+    s.set(device_ms=events[0].elapsed_time(events[1]), rounds=rounds, capped=capped,
+          photons_emitted=emitted)
+    counts = [] if lanes is None else lanes.tolist()
+    if any(counts):
+        s.set(**dict(zip(LANE_KEYS, counts)))

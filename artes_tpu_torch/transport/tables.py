@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from artes_tpu_torch import spans
 from artes_tpu_torch.constants import PI, planck_lambda
 from artes_tpu_torch.transport import jumps as J
 from artes_tpu_torch.transport import sampling as S
@@ -97,12 +98,36 @@ def build_tables(atm, cfg, det, wl_index: int, dtype=torch.float64,
     """Tables for wavelength ``wl_index`` on ``device`` in ``dtype``.
 
     ``cfg`` is an :class:`~artes_tpu.config.ArtesConfig`, ``det`` a
-    :class:`~artes_tpu.config.DetectorSetup`.
+    :class:`~artes_tpu.config.DetectorSetup`. Recorded as the span
+    ``tables`` (``artes_tpu_torch.spans``) with the children
+    ``tables.geometry`` (``make_grid_geometry``), ``tables.depth``
+    (``compute_cell_depth``), ``tables.cells`` (the per-cell rows, the
+    emission tables and their uploads) and, where the jump walks need them,
+    ``tables.jumps`` (``jump_tables_of``).
     """
-    source = 1 if cfg.photon_source == "star" else 2
-    grid, r_scale = make_grid_geometry(atm, cfg.oblateness, dtype=dtype, device=device)
-    cell_depth = compute_cell_depth(atm, wl_index, source, cfg.ring)
+    with spans.span("tables"):
+        source = 1 if cfg.photon_source == "star" else 2
+        with spans.span("tables.geometry"):
+            grid, r_scale = make_grid_geometry(atm, cfg.oblateness, dtype=dtype, device=device)
+        with spans.span("tables.depth"):
+            cell_depth = compute_cell_depth(atm, wl_index, source, cfg.ring)
+        with spans.span("tables.cells"):
+            tables, lum, emis_total = _cell_tables(atm, cfg, det, wl_index, source, grid,
+                                                   r_scale, cell_depth, dtype, device)
+        # the jump walks serve 3-D grids without a Lambert surface and without
+        # flow diagnostics (kernel.walk_mode); every other walk reads no jump
+        # table
+        if not (cfg.surface_albedo > 0.0 or cfg.flow_global or cfg.flow_theta):
+            with spans.span("tables.jumps"):
+                tables.jump = J.jump_tables_of(grid, tables.opacity)
+    return PreparedWavelength(tables=tables, r_scale=r_scale, cell_depth=cell_depth,
+                              emissivity_total=emis_total, cell_luminosity=lum)
 
+
+def _cell_tables(atm, cfg, det, wl_index, source, grid, r_scale, cell_depth, dtype, device):
+    """The per-cell tables and the detector's and run's scalars on
+    ``device``: ``(TransportTables without jump tables, cell luminosity or
+    None, total emissivity)``."""
     ncell = atm.nr * atm.ntheta * atm.nphi
     k_ext = atm.k_ext[:, :, :, wl_index].reshape(-1) * r_scale
     albedo = atm.albedo[:, :, :, wl_index].reshape(-1)
@@ -141,9 +166,4 @@ def build_tables(atm, cfg, det, wl_index: int, dtype=torch.float64,
         star_theta=t(cfg.theta_star),
         star_phi=t(cfg.phi_star),
     )
-    # the jump walks serve 3-D grids without a Lambert surface and without
-    # flow diagnostics (kernel.walk_mode); every other walk reads no jump table
-    if not (cfg.surface_albedo > 0.0 or cfg.flow_global or cfg.flow_theta):
-        tables.jump = J.jump_tables_of(grid, tables.opacity)
-    return PreparedWavelength(tables=tables, r_scale=r_scale, cell_depth=cell_depth,
-                              emissivity_total=emis_total, cell_luminosity=lum)
+    return tables, lum, emis_total

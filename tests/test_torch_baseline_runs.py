@@ -15,7 +15,8 @@ the JAX package and the records of BASELINE_RUNS.json, on the CPU.
   ``run_stream`` at (id_hi, id_lo) = (1, 0) and (2, 2^32 - 2^10).
 * ``runner.run_wavelength``'s chunk schedule for 1e10 photons (the launch
   stubbed to record ``(n, id_hi, id_lo)``) equals the JAX runner's
-  (artes_tpu/runner.py:198-208), and ``on_chunk`` reports it.
+  (artes_tpu/runner.py:198-208), and the run's ``chunk`` spans, which
+  ``baselines.chunk_schedule`` reads for #5, report it.
 * ``baselines``' constants equal BASELINE_RUNS.json's; ``figures_2`` on the
   record's own curve gives its three figures; each ``check_*`` passes the
   record and refuses a mutant; ``summed_as_record`` weighs each chunk's
@@ -41,7 +42,7 @@ from artes_tpu.config import ArtesConfig, detector_setup
 from artes_tpu.runner import _kernel_static
 from artes_tpu.transport import kernel as JK
 from artes_tpu.transport.tables import build_tables
-from artes_tpu_torch import baselines, presets, runner
+from artes_tpu_torch import baselines, presets, runner, spans
 from artes_tpu_torch.config import ArtesConfig as TorchConfig
 from artes_tpu_torch.config import detector_setup as t_detector_setup
 from artes_tpu_torch.constants import PI
@@ -153,7 +154,7 @@ def test_photon_ids_past_2_32_match_jax_f64(id_hi, id_lo):
 def test_chunk_schedule_of_1e10_photons_equals_jax(monkeypatch):
     """Ten chunks of at most 2^30 ids, none across 2^32 or 2^33."""
     n = baselines.PHOTONS_5
-    port, ref, reported = [], [], []
+    port, ref = [], []
 
     def port_stub(tables, static, k, seed, width, id_hi, id_lo):
         port.append((k, id_hi, id_lo))
@@ -169,9 +170,10 @@ def test_chunk_schedule_of_1e10_photons_equals_jax(monkeypatch):
     monkeypatch.setattr(runner, "run_stream", port_stub)
     monkeypatch.setattr(j_runner, "run_stream", jax_stub)
     atm, cfg = _atm(5, presets), TorchConfig()
-    runner.run_wavelength(atm, cfg, t_detector_setup(cfg, float(atm.rfront[-1])), 0, n,
-                          seed=baselines.SEED_5, dtype=torch.float64, device="cpu",
-                          on_chunk=lambda k, hi, lo: reported.append((k, hi, lo)))
+    with spans.recording() as recorded:
+        runner.run_wavelength(atm, cfg, t_detector_setup(cfg, float(atm.rfront[-1])), 0, n,
+                              seed=baselines.SEED_5, dtype=torch.float64, device="cpu")
+    reported = [(k, hi, lo) for hi, lo, k in baselines.chunk_schedule(recorded.spans)]
     jatm, jcfg = _atm(5, j_presets), ArtesConfig()
     j_runner.run_wavelength(jatm, jcfg, detector_setup(jcfg, float(jatm.rfront[-1])), 0, n,
                             seed=baselines.SEED_5, dtype=jnp.float64)

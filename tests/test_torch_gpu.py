@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from artes_tpu_torch import _build, cells, config, probe_splat
+from artes_tpu_torch import _build, cells, config, probe_splat, runner, spans
 from artes_tpu_torch.parallel import mesh
 from artes_tpu_torch.cells import CELLS, KERNEL_CELLS, gate_photons, spectrum_tables
 from artes_tpu_torch.transport import kernel, pool_cuda
@@ -469,3 +469,104 @@ def test_nccl_mesh_of_one_card_equals_one_launch(cuda, monkeypatch):
         assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= mesh.SPLIT_RTOL, g
     finally:
         dist.destroy_process_group()
+
+
+# the instantiations the benchmark's cells run: the radial kernel's stellar
+# spectrum and image, the 3-D kernel's image (the Mie deck)
+LANE_CELLS = {"flagship": 1 << 22, "imaging25": 1 << 20, "mie_patchy_imaging25": 1 << 18}
+TALLY_KEYS = ("detector", "flux_emitted", "flux_exit", "n_error", "error_codes",
+              "n_stokes_anomaly", "n_alive_at_cap", "n_emitted", "n_error_records")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(LANE_CELLS))
+def test_lane_counters_change_no_tally(cuda, name):
+    """A launch with its lane counters on (recorded) against the same launch
+    with them off: every count and error record equal, every sum equal or,
+    where the blocks' atomic double additions land in another order (as in
+    two launches with the counters off), within ``mesh.SPLIT_RTOL``; the
+    refill branch's lanes are the photons emitted plus the threads launched
+    (each thread's last pass finds no photon); no pass counts more than 32
+    lanes; the stellar image counts none."""
+    tables, static = KERNEL_CELLS[name](cuda)
+    n = LANE_CELLS[name]
+    off = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    with spans.recording() as rec:
+        on = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    again = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    (launch,) = [s for s in rec.spans if s.name == "launch"]
+    a = launch.attrs
+
+    def same(x, y):
+        return [k for k in TALLY_KEYS
+                if torch.equal(torch.as_tensor(x[k]).cpu(), torch.as_tensor(y[k]).cpu())]
+
+    print(f"lanes [{name}]: {a}; bit-equal, on and off: {same(on, off)}; off twice: "
+          f"{same(again, off)}; sums, on and off: {mesh.split_gaps(on, off)['values']:.3e}, "
+          f"off twice: {mesh.split_gaps(again, off)['values']:.3e}")
+    g = mesh.split_gaps(on, off)
+    assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= mesh.SPLIT_RTOL, g
+    assert a["kernel"] == pool_cuda.kernel_of(tables, static)[1]
+    assert a["photons_emitted"] == n == int(on["n_emitted"])
+    assert a["blocks"] == pool_cuda.launch_blocks(tables, static, n)
+    assert a["device_ms"] > 0 and a["rounds"] == int(on["detector"][:, 1, 2].sum())
+    if a["kernel"] == "image":                    # pool_radial.cu::CountsLanes
+        assert not set(pool_cuda.LANE_KEYS) & set(a)
+    else:
+        assert a["refill_lanes"] == a["photons_emitted"] + a["blocks"] * pool_cuda.THREADS
+        assert a["refill_lanes"] <= 32 * a["refill_passes"]
+        assert 0 < a["round_lanes"] <= 32 * a["round_passes"]
+
+
+@pytest.mark.gpu
+def test_device_ms_is_the_profilers_kernel_time(cuda):
+    """The launch span's CUDA-event time within 2% of the profiler's kernel
+    time, one launch of 2^24 photons on the flagship."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tables, static = KERNEL_CELLS["flagship"](cuda)
+    pool_cuda.run_stream_cuda(tables, static, 1 << 20, SEED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, spans.recording() as rec:
+        pool_cuda.run_stream_cuda(tables, static, 1 << 24, SEED)
+        torch.cuda.synchronize()
+    (kern,) = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "pool_radial_kernel" in e.name()]
+    (launch,) = [s for s in rec.spans if s.name == "launch"]
+    ratio = launch.attrs["device_ms"] / (kern.duration_ns() * 1e-6)
+    print(f"device_ms {launch.attrs['device_ms']:.4f} against the profiler's "
+          f"{kern.duration_ns() * 1e-6:.4f} ms: {ratio:.5f}")
+    assert abs(ratio - 1.0) <= 0.02
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flagship", "mie_patchy_imaging25"])
+def test_cuda_only_profiler_records_jobs_on_its_clock(cuda, name):
+    """A job under a CUDA-only profiler session (the benchmark's traced
+    window) records its spans; the kernel's interval in the trace starts after
+    its ``launch`` span starts and ends before its chunk's ``wait`` ends,
+    within 20 us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    atm = cells.mie_patchy_deck()[0] if name != "flagship" else cells.flagship()
+    cfg = config.ArtesConfig()
+    cfg.mode, cfg.npix = ("spectrum", 1) if name == "flagship" else ("imaging_mono", 25)
+    det = config.detector_setup(cfg, float(atm.rfront[-1]))
+    runner.run_wavelength(atm, cfg, det, 0, 1 << 16, device="cuda")      # warm
+    spans.take()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner.run_wavelength(atm, cfg, det, 0, 1 << 20, device="cuda")
+    kept = spans.take()
+    by = {s.name: s for s in kept}
+    assert {"job", "tables", "tables.cells", "chunk", "launch", "wait", "accumulate",
+            "finish"} <= set(by)
+    assert by["job"].attrs["path"] == "kernel" and by["job"].attrs["launches"] == 1
+    (kern,) = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "pool_" in e.name() and "_kernel" in e.name()]
+    chunk_wait = next(s for s in kept if s.name == "wait" and s.parent == by["chunk"].id)
+    start, end = kern.start_ns(), kern.start_ns() + kern.duration_ns()
+    print(f"[{name}] kernel {start - by['launch'].start} ns after the launch span's start, "
+          f"{chunk_wait.end - end} ns before the wait's end")
+    assert start >= by["launch"].start - 20_000 and end <= chunk_wait.end + 20_000
