@@ -26,7 +26,8 @@ Atmospheres:
 
 * :func:`grid3d_2496`: the 39 x 8 x 8 patchy cloud deck of the bench
   (bench.py:161-175), BASELINE #4's class of grid; :func:`patchy3d_small`
-  the 2 x 3 x 4 grid of tests/test_pallas_stream.py:197;
+  the 2 x 3 x 4 grid of tests/test_pallas_stream.py:197, and
+  :func:`wedge_grid` its zones on 4 x 3 x ``nphi`` cells;
   :func:`grid3d_thermal_atm` a self-luminous, half-scattering 3-D grid with
   a patchy deck, whose theta faces include the equatorial plane and are not
   mirrored about it;
@@ -144,6 +145,15 @@ def grid3d_2496():
 
 def patchy3d_small():
     return presets.patchy_3d(0.5, 6.0)
+
+
+def wedge_grid(nphi: int):
+    """:func:`patchy3d_small`'s patchy zones on 4 shells, theta faces at 60 and
+    120 degrees and ``nphi`` equal phi wedges (none cut where ``nphi`` is 1):
+    the jump walks' phi crossings at every size class of their table
+    (``pool_cuda.PHI_TABLE_MAX``)."""
+    phi = tuple(np.linspace(0.0, 360.0, nphi + 1)[:-1]) if nphi > 1 else ()
+    return presets.patchy_3d(0.5, 6.0, nr=4, phi_deg=phi)
 
 
 def _patch(atm, scale, shells):

@@ -652,19 +652,23 @@ __device__ __forceinline__ void lanes_end(const unsigned long long* sh,
 }
 
 // the blocks of `threads` the card holds at once for kernel `fn`
-// (instantiation `variant` of at most 8): queried once for each (the first
-// launch's device), 0 when the query fails
+// (instantiation `variant` of at most 8) with `smem` bytes of dynamic shared
+// memory a block: queried once for each (the first launch's device) and
+// again when threads or smem change, 0 when the query fails
 template <typename Fn>
-int resident_blocks(int variant, Fn fn, int threads) {
+int resident_blocks(int variant, Fn fn, int threads, size_t smem = 0) {
   static int cached_threads[8] = {0}, cached_blocks[8] = {0};
-  if (cached_blocks[variant] > 0 && cached_threads[variant] == threads)
+  static size_t cached_smem[8] = {0};
+  if (cached_blocks[variant] > 0 && cached_threads[variant] == threads &&
+      cached_smem[variant] == smem)
     return cached_blocks[variant];
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, 0) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem) != cudaSuccess)
     return 0;
   cached_threads[variant] = threads;
+  cached_smem[variant] = smem;
   cached_blocks[variant] = per_sm * sms;
   return cached_blocks[variant];
 }

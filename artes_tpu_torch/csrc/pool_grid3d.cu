@@ -35,17 +35,24 @@
 // Peels, the prewalk and the exit precheck are jump walks: the closed-form
 // radial chords carry the baseline opacity kbar[shell], and every face the
 // ray crosses (nr-1 radial, NT-1 theta, NP phi faces, at run-time sizes)
-// adds its opacity jump from the per-face difference tables dr/dtt/dpp. No
-// array is sized per grid: the phi wedge of a crossing is counted by
-// re-evaluating the NP half-plane crossings. A photon whose sampled optical
-// depth exceeds the walk's exact total leaves without marching; the others
-// march cell_face cell by cell, at most max_crossings passes (error 032
-// beyond; 031 when no face is found, 034 at a degenerate floor bounce).
+// adds its opacity jump from the per-face difference tables dr/dtt/dpp. The
+// phi wedge of a crossing is the count of phi half-plane crossings at or
+// below it: a walk evaluates its NP half-plane crossings once, into its
+// thread's column of a table in dynamic shared memory (NP x threads floats,
+// given at launch), and every radial, theta and phi crossing reads them from
+// there. Past PHI_TABLE_MAX half-planes the walk re-evaluates the NP
+// crossings at every crossing instead (walk_jumps<false>, as on a grid
+// without phi faces, which has none to count), on the same float32
+// expression: both give the same wedge bit for bit. A photon whose sampled optical depth exceeds the
+// walk's exact total leaves without marching; the others march cell_face
+// cell by cell, at most max_crossings passes (error 032 beyond; 031 when no
+// face is found, 034 at a degenerate floor bounce).
 // Tables are indexed per cell in global memory: no mixture dedup, no cell
 // cap. Given a buffer for them (pool_cuda passes one while
 // artes_tpu_torch.spans records), a launch counts its warps' passes through
 // the refill and round branches and their active lanes
-// (pool_common.cuh::lane_pass).
+// (pool_common.cuh::lane_pass), then its jump walks and those that read the
+// phi table (count_walk).
 //
 // Rounding. The file builds with -fmad=false (_build.SOURCE_FLAGS): every
 // float32 expression rounds op by op, as the plain version's PyTorch
@@ -72,15 +79,37 @@
 //
 // What bounds it on an H100: arithmetic, divergence and table latency, not
 // memory bandwidth. Marches differ by tens of crossings between the photons
-// of a warp; a jump walk costs (2 nr + 2 NT + NP) crossings times NP plane
-// evaluations; the per-cell scatter tables (36 MB at 2,496 cells) are
-// gathered at random from L2.
+// of a warp; a jump walk costs NP plane evaluations, 2 (nr + 1) chords and
+// (2 nr + 2 NT + NP) crossings, each with NP table reads (NP plane
+// evaluations each past PHI_TABLE_MAX); the per-cell scatter tables (36 MB
+// at 2,496 cells) are gathered at random from L2.
 
 #include "pool_geom3d.cuh"
 
 namespace {
 
 // ----------------------------------------------------------- jump walk ----
+
+// the most phi half-planes a walk keeps in its table: at 32 x 256 threads x
+// 4 B = 32 KB a block the four resident blocks of __launch_bounds__ take
+// 128 KB of an SM's 228 KB of shared memory and L1, and no block needs the
+// opt-in past 48 KB (the gate's grids have at most 24 phi faces)
+constexpr int PHI_TABLE_MAX = 32;
+// the walk counters after the N_LANE lane counters: jump walks, and those
+// that read the phi table
+enum { W_WALKS = 0, W_TABLED = 1, N_WALK = 2 };
+
+// whether the jump walks of a grid of np phi faces keep their phi crossings
+// in a table (phi_column)
+__host__ __device__ __forceinline__ bool phi_tabled(int np) {
+  return np > 1 && np <= PHI_TABLE_MAX;
+}
+
+// bytes of dynamic shared memory of a block of `threads` on a grid of np
+// phi faces: the walks' phi tables, none where the walks recount
+inline size_t phi_table_bytes(int np, int threads) {
+  return phi_tabled(np) ? (size_t)np * threads * sizeof(float) : 0;
+}
 
 // both roots of A s^2 + 2 Bh s + C = 0 (jumps._stable_roots)
 __device__ __forceinline__ bool stable_roots(float A, float Bh, float C, float& lo, float& hi) {
@@ -173,12 +202,31 @@ __device__ __forceinline__ float phi_crossing(const Grid3& G, const JumpRay& J, 
   return valid ? s : BIG;
 }
 
+// this thread's column of the walks' phi table in dynamic shared memory:
+// entry j at phi_column()[j * blockDim.x], so a warp's lanes read 32 banks
+__device__ __forceinline__ float* phi_column() {
+  extern __shared__ float phi_table[];
+  return phi_table + threadIdx.x;
+}
+
+// the crossing of phi half-plane j: from the walk's table (TABLED), or
+// evaluated anew
+template <bool TABLED>
+__device__ __forceinline__ float phi_at(const Grid3& G, const JumpRay& J, int j) {
+  if constexpr (TABLED) return phi_column()[j * blockDim.x];
+  else return phi_crossing(G, J, j);
+}
+
 // phi wedge at parameter t: the signed count of half-plane crossings at or
-// below t, wrapped (phi is monotone along a straight ray)
+// below t, wrapped (phi is monotone along a straight ray). Unrolled, a pass
+// has four table reads in flight; rolled, each waits on the one before it
+// (PERF.md: 1.94 s against 1.56 s a 2^24-photon job on the deck).
+template <bool TABLED>
 __device__ int cp_at(const Grid3& G, const JumpRay& J, float t) {
   if (G.np == 1) return 0;
   int cnt = 0;
-  for (int j = 0; j < G.np; ++j) cnt += phi_crossing(G, J, j) <= t;
+#pragma unroll 4
+  for (int j = 0; j < G.np; ++j) cnt += phi_at<TABLED>(G, J, j) <= t;
   int cp = J.lz_pos ? J.cp0 + cnt : J.cp0 - cnt;
   if (cp < 0) cp += G.np;
   if (cp < 0) cp += G.np;
@@ -203,10 +251,24 @@ __device__ __forceinline__ float jump_term(float delta, float s_end, float t) {
   return delta * fmaxf(s_end - t, 0.0f);
 }
 
+// one jump walk of the active lanes into the walk counters `walks` (shared
+// memory; nullptr while the launch counts nothing)
+__device__ __forceinline__ void count_walk(unsigned long long* walks, bool tabled) {
+  if (walks == nullptr) return;
+  const unsigned int mask = __activemask();
+  if ((int)(threadIdx.x & 31) == __ffs(mask) - 1) {
+    atomicAdd(walks + W_WALKS, (unsigned long long)__popc(mask));
+    if (tabled) atomicAdd(walks + W_TABLED, (unsigned long long)__popc(mask));
+  }
+}
+
 // optical depth from (p, d) to the grid boundary or the photon floor
-// (jumps.tau_walk_jumps); `cell` is the caller's current cell
-__device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, const float* p,
-                                const float* d, const int* cell, bool& surface_hit) {
+// (jumps.tau_walk_jumps); `cell` is the caller's current cell; `walks` as
+// count_walk's; TABLED: the phi crossings in the walk's table
+template <bool TABLED>
+__device__ float walk_jumps(const Tables& T, const Grid3& G, const Scal& S, const float* p,
+                            const float* d, const int* cell, bool& surface_hit,
+                            unsigned long long* walks) {
   JumpRay J;
   J.p = p;
   J.d = d;
@@ -216,6 +278,10 @@ __device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, 
   J.sq_c = S.ob[2];
   J.cp0 = cell[2];
   J.lz_pos = (p[0] * d[1] - p[1] * d[0]) > 0.0f;
+  // the NP half-plane crossings, once a walk (the launch sized the table)
+  if (TABLED)
+    for (int j = 0; j < G.np; ++j) phi_column()[j * blockDim.x] = phi_crossing(G, J, j);
+  count_walk(walks, TABLED);
   // the floor: hit where the forward path enters the photon-floor sphere
   float lo_f, hi_f, lo_o, hi_o;
   surface_hit = roots_fma(J.r, S.rfloor, lo_f, hi_f) && lo_f > S.pos_eps;
@@ -240,7 +306,7 @@ __device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, 
       const float t = fmaxf(k == 0 ? lo : hi, 0.0f);
       if (!(t > 0.0f && t < BIG)) continue;
       const int ct_i = ct_at(G, J.sq_c * (pz + t * dz) * inv_rf);
-      const int cp_i = cp_at(G, J, t);
+      const int cp_i = cp_at<TABLED>(G, J, t);
       const float delta = __ldg(row + ct_i * NP + cp_i);
       dk_sum += jump_term(k == 0 ? -delta : delta, s_end, t);
     }
@@ -270,7 +336,7 @@ __device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, 
         // crossing direction: the sign of d(cos theta)/ds at t
         const float u = J.sq_c * dz * r2 - J.sq_c * (pz + t * dz) * (J.r.A * t + J.r.Bq);
         const int m_i = locate_m(T, G, r2);
-        const int cp_i = cp_at(G, J, t);
+        const int cp_i = cp_at<TABLED>(G, J, t);
         const float delta = __ldg(row + m_i * NP + cp_i);
         dk_sum += jump_term(u < 0.0f ? delta : -delta, s_end, t);
       }
@@ -280,7 +346,7 @@ __device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, 
   // phi faces
   if (NP > 1) {
     for (int f = 0; f < NP; ++f) {
-      const float t = phi_crossing(G, J, f);
+      const float t = phi_at<TABLED>(G, J, f);
       if (!(t > 0.0f && t < BIG)) continue;
       const float r2 = (J.r.A * t + 2.0f * J.r.Bq) * t + J.r.Cq;
       const int m_i = locate_m(T, G, r2);
@@ -290,6 +356,15 @@ __device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, 
     }
   }
   return fmaxf(tau_bar + dk_sum, 0.0f);
+}
+
+// the jump walk of walk_jumps, its phi crossings in a table where the grid's
+// phi faces fit one (phi_tabled), else evaluated anew at each crossing
+__device__ float tau_walk_jumps(const Tables& T, const Grid3& G, const Scal& S, const float* p,
+                                const float* d, const int* cell, bool& surface_hit,
+                                unsigned long long* walks) {
+  return phi_tabled(G.np) ? walk_jumps<true>(T, G, S, p, d, cell, surface_hit, walks)
+                          : walk_jumps<false>(T, G, S, p, d, cell, surface_hit, walks);
 }
 
 // --------------------------------------------------------------- march ----
@@ -344,8 +419,11 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
                    uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
                    int flags, double* __restrict__ out_d, unsigned long long* __restrict__ out_i,
                    unsigned long long* next_id, unsigned long long* lanes) {
-  __shared__ unsigned long long lanes_sh[N_LANE];
+  // the lane counters, then the walk counters (N_WALK)
+  __shared__ unsigned long long lanes_sh[N_LANE + N_WALK];
+  if (lanes != nullptr && threadIdx.x < N_WALK) lanes_sh[N_LANE + threadIdx.x] = 0ull;
   lanes_begin(lanes_sh, lanes);
+  unsigned long long* walks = lanes != nullptr ? lanes_sh + N_LANE : nullptr;
   const Scal S = load_scal(scal);
   const bool crescent = (flags & F_CRESCENT) != 0;
   const bool biased = (flags & F_BIASED) != 0;
@@ -387,7 +465,7 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
         ctr = 6;
         // birth peel: e^-tau / 4 pi on Stokes I (ARTES.f90:4519-4598)
         bool surf;
-        const float tau_b = tau_walk_jumps(T, G, S, pos, S.det, cell, surf);
+        const float tau_b = tau_walk_jumps(T, G, S, pos, S.det, cell, surf, walks);
         const int pix = pixel_of<IMAGE>(S, img, pos);
         if (!surf && tau_b < 50.0f && pix >= 0) {
           const float v = expf(-fminf(tau_b, 500.0f)) / FOUR_PI_F * st[0];
@@ -408,7 +486,7 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
 
       // prewalk along the photon's direction + forced first interaction; the
       // prewalk's total is the exit precheck of the first march
-      tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface);
+      tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface, walks);
       draws(key_hi, pid, ctr, 1, d);
       ctr += 1;
       const bool thin = tau_path < 1.0e-6f;
@@ -457,7 +535,7 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
       }
 
       bool peel_surface;
-      const float tau_peel = tau_walk_jumps(T, G, S, pos, S.det, cell, peel_surface);
+      const float tau_peel = tau_walk_jumps(T, G, S, pos, S.det, cell, peel_surface, walks);
       if (!peel_surface && tau_peel < 50.0f && pix >= 0) {
         const float w = expf(-fminf(tau_peel, 500.0f));
         float v[4];
@@ -467,7 +545,7 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
       }
 
       tau = -logf(1.0f - d[4]);
-      tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface);
+      tau_path = tau_walk_jumps(T, G, S, pos, dir, cell, path_surface, walks);
       n_scat += 1;
     }
 
@@ -493,6 +571,8 @@ pool_grid3d_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
   }
 
   lanes_end(lanes_sh, lanes);
+  if (lanes != nullptr && threadIdx.x < N_WALK)
+    atomicAdd(lanes + N_LANE + threadIdx.x, lanes_sh[N_LANE + threadIdx.x]);
   reduce_block<N_OUT_D, N_OUT_I3>(acc, cnt, out_d, out_i);
 }
 
@@ -523,8 +603,9 @@ KernelFn variant_fn(int variant) {
 // pool_radial's. The grid is persistent, as pool_radial's: the blocks the
 // card holds at once, whose lanes take photon ids id_lo + *next_id from the
 // launch's counter, which the caller zeroes. `lanes`, where not null, is
-// N_LANE zeroed counters the launch adds its lane counts into
-// (pool_common.cuh::lane_pass).
+// N_LANE + N_WALK zeroed counters the launch adds its lane counts
+// (pool_common.cuh::lane_pass) and its walk counts (count_walk) into. The
+// launch gives each block phi_table_bytes of dynamic shared memory.
 extern "C" int artes_pool_grid3d_launch(
     const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
     unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
@@ -541,23 +622,28 @@ extern "C" int artes_pool_grid3d_launch(
   const KernelFn fn = variant_fn(variant);
   if (fn == nullptr || threads > 256 || threads % 32 != 0 || threads < 32)
     return (int)cudaErrorInvalidValue;
-  const int resident = resident_blocks(variant, fn, threads);
+  const size_t smem = phi_table_bytes(G.np, threads);
+  const int resident = resident_blocks(variant, fn, threads, smem);
   if (resident < 1) return (int)cudaErrorInvalidConfiguration;
-  fn<<<persistent_blocks(resident, n_photons, threads), threads, 0, (cudaStream_t)stream>>>(
+  fn<<<persistent_blocks(resident, n_photons, threads), threads, smem, (cudaStream_t)stream>>>(
       T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, next_id,
       lanes);
   return (int)cudaGetLastError();
 }
 
 // The blocks of a launch of `variant` with n_photons and `threads` a block
-// (the persistent grid), 0 when the occupancy query fails.
-extern "C" int artes_pool_grid3d_blocks(int variant, unsigned int n_photons, int threads) {
+// on a grid of np phi faces (the persistent grid), 0 when the occupancy query
+// fails.
+extern "C" int artes_pool_grid3d_blocks(int variant, unsigned int n_photons, int threads,
+                                        int np) {
   const KernelFn fn = variant_fn(variant);
-  const int resident = fn == nullptr ? 0 : resident_blocks(variant, fn, threads);
+  const int resident =
+      fn == nullptr ? 0 : resident_blocks(variant, fn, threads, phi_table_bytes(np, threads));
   return resident < 1 ? 0 : persistent_blocks(resident, n_photons, threads);
 }
 
-// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, REC_W}.
+// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, REC_W,
+// N_WALK, PHI_TABLE_MAX}.
 extern "C" int artes_pool_grid3d_layout(int* sizes) {
   sizes[0] = N_SCAL;
   sizes[1] = N_OUT_D;
@@ -565,5 +651,7 @@ extern "C" int artes_pool_grid3d_layout(int* sizes) {
   sizes[3] = N_IMG_D;
   sizes[4] = N_IMG_I;
   sizes[5] = REC_W;
+  sizes[6] = N_WALK;
+  sizes[7] = PHI_TABLE_MAX;
   return 0;
 }

@@ -15,7 +15,9 @@ in turns (other, this, this, other), one process each, on the cells of
 ``COMPARE_CELLS`` (``cells.KERNEL_CELLS``, seed 7): the radial pool kernel on
 the flagship at 2^20 and 2^24 photons and on hydrostatic39, imaging25 and
 thermal_iso at 2^20; the closed-form flow instantiations at 2^20; the 3-D
-kernel on grid3d_2496, grid3d_thermal and blended_5184 at 2^18; the marching
+kernel on every jump-walk gate cell of its four instantiations at 2^18
+(grid3d_2496, grid3d_thermal, grid3d_imaging25, grid3d_thermal_imaging25,
+blended_5184 and the Mie deck mie_patchy_imaging25); the marching
 kernel on every surface and marching flow cell at its gate photons
 (``MARCH_CELLS``); the probe splat at 625, 2025 and 10201 pixels; and the
 mesh reduction alone, a flagship launch of 2^20 photons summed over a
@@ -127,7 +129,8 @@ COMPARE_CELLS = (("flagship", 1 << 20), ("flagship", 1 << 24), ("hydrostatic39",
                  ("hydrostatic39_flow", PHOTONS), ("thermal_flow", PHOTONS),
                  ("imaging25_flow", PHOTONS), ("thermal_imaging25_flow", PHOTONS),
                  ("grid3d_2496", 1 << 18), ("grid3d_thermal", 1 << 18),
-                 ("blended_5184", 1 << 18)) + MARCH_CELLS
+                 ("grid3d_imaging25", 1 << 18), ("grid3d_thermal_imaging25", 1 << 18),
+                 ("blended_5184", 1 << 18), ("mie_patchy_imaging25", 1 << 18)) + MARCH_CELLS
 # the plain versions compare times: the jump walks' (host clock, one run)
 PLAIN_CELLS = (("grid3d_2496", 1 << 18), ("grid3d_thermal", 1 << 18), ("blended_5184", 1 << 18))
 PROBE_SIZES = (625, 2025, 10201)

@@ -60,6 +60,12 @@ THREADS = 256
 # while spans record: a warp's passes through the persistent loop's refill
 # branch and the lanes active at each, then the same for its scattering rounds
 LANE_KEYS = ("refill_passes", "refill_lanes", "round_passes", "round_lanes")
+# pool_grid3d's walk counters after them (pool_grid3d.cu::count_walk): its jump
+# walks, and those that read the walk's table of phi half-plane crossings
+WALK_KEYS = ("jump_walks", "jump_walks_tabled")
+# the most phi faces a grid may have for the jump walks to keep their phi
+# crossings in a table (pool_grid3d.cu::PHI_TABLE_MAX); past it they recount
+PHI_TABLE_MAX = 32
 N_SCAL = 32
 N_OUT_D = 10
 N_OUT_I = 4             # scatter peels, photons capped, emitted, birth (and surface) peels
@@ -358,13 +364,17 @@ def launch_blocks(tables: TransportTables, static: KernelStatic, n: int,
     ``n`` photons: the kernel's persistent grid, the blocks the card holds
     at once (fewer for a small launch), as ``artes_<kernel>_blocks`` of
     library ``lib`` (the configuration's kernel, or a variant build of it)
-    gives it; the library is built at first use."""
+    gives it; the library is built at first use. ``pool_grid3d`` is also
+    given the grid's phi faces, which size its blocks' shared memory."""
     source = kernel_of(tables, static)[0]
     fn = getattr(_build.load(lib or source), f"artes_{source}_blocks")
-    fn.argtypes = [ctypes.c_int, ctypes.c_uint, ctypes.c_int]
+    args = (variant_of(static), n, THREADS)
+    if source == "pool_grid3d":
+        args += (tables.grid.nphi,)
+    fn.argtypes = [ctypes.c_int, ctypes.c_uint] + [ctypes.c_int] * (len(args) - 2)
     fn.restype = ctypes.c_int
     with torch.cuda.device(tables.opacity.device):
-        blocks = fn(variant_of(static), n, THREADS)
+        blocks = fn(*args)
     if blocks < 1:
         raise RuntimeError(f"{lib or source}: no resident blocks for variant "
                            f"{variant_of(static)}")
@@ -487,8 +497,8 @@ def _layout(source: str, static: KernelStatic, ncell: int) -> tuple:
     """``(source, track_flow, rows, ncell, n_out_i)``: what the two tally
     allocations hold. float64: the kernel's out_d, img_d (rows x 8), and
     with flow flow_g (ncell x 3) and flow_t (ncell x 4); int64: out_i, img_i
-    (rows x 2), the lane counters (LANE_KEYS) and the error records' row
-    count (a 32-bit counter in the low word of the last element)."""
+    (rows x 2), the counters of :func:`counter_keys` and the error records'
+    row count (a 32-bit counter in the low word of the last element)."""
     npix = static.nx * static.ny
     # the radial kernel's flow instantiations count their bookings in a sixth counter
     n_out_i = {"pool_radial": N_OUT_IR + int(static.track_flow), "pool_grid3d": N_OUT_I3,
@@ -496,12 +506,18 @@ def _layout(source: str, static: KernelStatic, ncell: int) -> tuple:
     return source, bool(static.track_flow), npix if npix > 1 else 1, ncell, n_out_i
 
 
+def counter_keys(source: str) -> tuple:
+    """The names of the counters kernel ``source`` counts while spans record:
+    :data:`LANE_KEYS`, and in ``pool_grid3d`` :data:`WALK_KEYS` after them."""
+    return LANE_KEYS + (WALK_KEYS if source == "pool_grid3d" else ())
+
+
 def _alloc(layout, dev):
     source, flow, rows, ncell, n_out_i = layout
     flat_f = torch.zeros(N_OUT_D + rows * N_IMG_D + (7 * ncell if flow else 0),
                          dtype=torch.float64, device=dev)
-    flat_i = torch.zeros(n_out_i + rows * N_IMG_I + len(LANE_KEYS) + 1, dtype=torch.int64,
-                         device=dev)
+    flat_i = torch.zeros(n_out_i + rows * N_IMG_I + len(counter_keys(source)) + 1,
+                         dtype=torch.int64, device=dev)
     return flat_f, flat_i, tally_views(layout, flat_f, flat_i)
 
 
@@ -517,7 +533,7 @@ def tally_views(layout, flat_f: torch.Tensor, flat_i: torch.Tensor) -> dict:
             "flow_t": flat_f[at + 3 * ncell:at + 7 * ncell].view(ncell, 4) if flow else None,
             "out_i": flat_i[:n_out_i],
             "img_i": flat_i[n_out_i:at_i].view(rows, N_IMG_I),
-            "lanes": flat_i[at_i:at_i + len(LANE_KEYS)],
+            "lanes": flat_i[at_i:at_i + len(counter_keys(source))],
             "rec_count": flat_i[-1:].view(torch.int32)[:1]}
 
 
@@ -596,7 +612,10 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     elapsed time: the kernel's, and where the stream idles before it, the
     host's time to launch it) and, from those two kernels but the stellar
     image, which counts none (``pool_radial.cu::CountsLanes``),
-    :data:`LANE_KEYS`."""
+    :data:`LANE_KEYS`, and from ``pool_grid3d`` :data:`WALK_KEYS`: its jump
+    walks, and those that read their phi crossings from the walk's table
+    (all of them where the grid has 2 to :data:`PHI_TABLE_MAX` phi faces, none
+    elsewhere)."""
     with spans.span("launch") as s:
         return _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, build,
                                 host_records)
@@ -647,7 +666,7 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
         buf_blocks = buf.numel() // (7 * ncell) if buf is not None else 0
         outs = (v["img_d"].data_ptr(), v["img_i"].data_ptr(), v["out_d"].data_ptr(),
                 v["out_i"].data_ptr())
-        # the lane counters (LANE_KEYS) and the events, while recording
+        # the lane and walk counters (counter_keys) and the events, while recording
         lanes = v["lanes"] if s and source != "pool_march" else None
         lanes_ptr = None if lanes is None else lanes.data_ptr()
         with torch.cuda.device(dev):
@@ -671,7 +690,8 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
                 ptrs, sizes, keep = _cell_tables(t, static, scal, consts, rec, v["rec_count"])
                 if source == "pool_grid3d":
                     fn = _library("pool_grid3d", _ARGTYPES_3D,
-                                  (N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, ERR_RECORD_W))
+                                  (N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, ERR_RECORD_W,
+                                   len(WALK_KEYS), PHI_TABLE_MAX))
                     eps = (ctypes.c_float * 3)(g.same_eps, g.sel2, g.boundary_tol)
                     rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
                             ctypes.addressof(eps), *launch, *outs, next_id.data_ptr(), lanes_ptr,
@@ -692,7 +712,8 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
             LAUNCHES[name] += 1
         if s:
             s.set(kernel=name, source=source, blocks=launch_blocks(tables, static, n, lib))
-            spans.later(lambda: _read_launch(s, events, v["out_i"], lanes))
+            spans.later(lambda: _read_launch(s, events, v["out_i"], lanes,
+                                             counter_keys(source)))
         if abandons and host_records:
             with spans.span("wait"):
                 n_rec = int(v["rec_count"])             # waits for the kernel
@@ -705,14 +726,14 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
     return out
 
 
-def _read_launch(s, events, out_i, lanes) -> None:
+def _read_launch(s, events, out_i, lanes, keys) -> None:
     """Set a launch span's device values (:func:`run_stream_cuda`) when the
-    spans are read; lane counters that stayed zero (an instantiation that
-    counts none) are left out."""
+    spans are read; the counters ``keys`` are left out where all stayed zero
+    (an instantiation that counts none)."""
     events[1].synchronize()
     rounds, capped, emitted = out_i[:3].tolist()
     s.set(device_ms=events[0].elapsed_time(events[1]), rounds=rounds, capped=capped,
           photons_emitted=emitted)
     counts = [] if lanes is None else lanes.tolist()
     if any(counts):
-        s.set(**dict(zip(LANE_KEYS, counts)))
+        s.set(**dict(zip(keys, counts)))

@@ -487,7 +487,9 @@ def test_lane_counters_change_no_tally(cuda, name):
     two launches with the counters off), within ``mesh.SPLIT_RTOL``; the
     refill branch's lanes are the photons emitted plus the threads launched
     (each thread's last pass finds no photon); no pass counts more than 32
-    lanes; the stellar image counts none."""
+    lanes; the stellar image counts none. The deck's 3-D kernel also counts
+    its jump walks, at least one a photon (its prewalk), every one read from
+    its table of phi crossings; the radial kernel counts none."""
     tables, static = KERNEL_CELLS[name](cuda)
     n = LANE_CELLS[name]
     off = pool_cuda.run_stream_cuda(tables, static, n, SEED)
@@ -516,6 +518,11 @@ def test_lane_counters_change_no_tally(cuda, name):
         assert a["refill_lanes"] == a["photons_emitted"] + a["blocks"] * pool_cuda.THREADS
         assert a["refill_lanes"] <= 32 * a["refill_passes"]
         assert 0 < a["round_lanes"] <= 32 * a["round_passes"]
+    if a["source"] == "pool_grid3d":
+        assert a["jump_walks"] >= a["photons_emitted"]
+        assert a["jump_walks_tabled"] == a["jump_walks"]
+    else:
+        assert not set(pool_cuda.WALK_KEYS) & set(a)
 
 
 @pytest.mark.gpu
