@@ -79,7 +79,10 @@
 // Given a buffer for them (pool_cuda passes one while artes_tpu_torch.spans
 // records), a launch counts its warps' passes through the loop's refill and
 // round branches and the lanes active at each (pool_common.cuh::lane_pass),
-// in every build and every instantiation but the stellar image (CountsLanes).
+// in every build and every instantiation but the stellar image (CountsLanes),
+// and, in every instantiation, stamps when its blocks leave the loop
+// (drain_stamp): the drain, from the first block's exit to the last's, in
+// which SMs empty.
 
 #include "pool_common.cuh"
 
@@ -282,6 +285,26 @@ struct CountsLanes {
   static constexpr bool value = THERMAL || !IMAGE || FLOW;
 };
 
+// the drain's two stamps after the N_LANE lane counters (pool_cuda.DRAIN_KEYS):
+// the earliest and the latest time, %globaltimer in ns, at which a block's
+// threads have all left the persistent loop
+constexpr int N_DRAIN = 2;
+
+// once every thread of the block has left the loop, its thread 0 stamps the
+// time into the launch's counters, where it is given them: the earliest exit
+// as its complement under atomicMax, so that the zeroed slot needs no fill,
+// and the latest under atomicMax
+__device__ __forceinline__ void drain_stamp(unsigned long long* out) {
+  if (out == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    atomicMax(out + N_LANE, ~t);
+    atomicMax(out + N_LANE + 1, t);
+  }
+}
+
 // out_i slots: scatter peels, photons capped, photons emitted, birth peels,
 // photons abandoned on a Stokes anomaly (error 050), and with FLOW the
 // segments that booked flow
@@ -470,6 +493,7 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
     CLOCK_END(P_MARCH);
   }
 
+  drain_stamp(lanes);
   if constexpr (COUNTS) lanes_end(lanes_sh, lanes);
   if constexpr (FLOW) flow_end(flow_g, flow_t, fl, T.nr);
   reduce_block<N_OUT_D, NI>(acc, cnt, out_d, out_i);
@@ -526,9 +550,10 @@ KernelFn variant_fn(int variant) {
 // flow_buf_blocks x 7 nr doubles (pool_common.cuh::flow_begin;
 // artes_pool_radial_blocks gives the launch's blocks), else straight. Stokes
 // anomalies leave records (pool_common.cuh::record_error) in rec (rec_cap,
-// 16), their count in rec_count. `lanes`, where not null, is N_LANE zeroed
-// counters the launch adds its lane counts into (pool_common.cuh::lane_pass;
-// every instantiation but the stellar image, CountsLanes).
+// 16), their count in rec_count. `lanes`, where not null, is N_LANE + N_DRAIN
+// zeroed counters the launch adds its lane counts into (pool_common.cuh::
+// lane_pass; every instantiation but the stellar image, CountsLanes) and
+// stamps its drain into (drain_stamp; every instantiation).
 extern "C" int artes_pool_radial_launch(
     const float* rfront, const float* opacity, const float* albedo, const float* scatter,
     const float* prefix, const float* p_int, const float* consts, const float* scal,
@@ -569,7 +594,8 @@ extern "C" int artes_pool_radial_blocks(int variant, unsigned int n_photons, int
   return resident < 1 ? 0 : persistent_blocks(resident, n_photons, threads);
 }
 
-// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, REC_W}.
+// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, REC_W,
+// N_LANE + N_DRAIN}.
 extern "C" int artes_pool_radial_layout(int* sizes) {
   sizes[0] = N_SCAL;
   sizes[1] = N_OUT_D;
@@ -577,6 +603,7 @@ extern "C" int artes_pool_radial_layout(int* sizes) {
   sizes[3] = N_IMG_D;
   sizes[4] = N_IMG_I;
   sizes[5] = REC_W;
+  sizes[6] = N_LANE + N_DRAIN;
   return 0;
 }
 

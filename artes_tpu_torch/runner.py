@@ -147,15 +147,18 @@ def run_wavelength(atm, cfg: ArtesConfig, det: DetectorSetup, wl_index: int,
     Nothing reaches it unless a caller passes it.
 
     The call is one job of ``spans`` (recorded inside ``spans.recording()``
-    or a profiler session): ``job`` (``wl``, ``packages``, ``path``: kernel,
-    plain, mesh or dispatch, and ``launches``, the pool kernels launched)
+    or a profiler session): ``job`` (``wl``, ``packages``, ``view_deg``: the
+    detector's phi in degrees, ``crescent``: whether photons are emitted
+    toward the crescent, ``path``: kernel, plain, mesh or dispatch, and
+    ``launches``, the pool kernels launched)
     holds ``tables`` (``build_tables``), ``prepare`` (the kernel's static
     configuration, the path, the host's sums), a ``chunk`` a chunk (``n``,
     ``id_hi``, ``id_lo``; the kernel's ``launch`` in it, then ``wait``, where
     the host waits for the device, and ``accumulate``, the chunk's copies
     and host sums), and ``finish`` (package energy, scaling, photometry).
     """
-    with spans.job(wl=wl_index, packages=packages) as job:
+    with spans.job(wl=wl_index, packages=packages, view_deg=det.det_phi * 180.0 / PI,
+                   crescent=bool(crescent)) as job:
         device = torch.device(device) if mesh is None else mesh.device
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")

@@ -173,12 +173,13 @@ def job(**attrs):
 
 
 def later(read) -> None:
-    """Run ``read()`` at the next :func:`settle`: a read of device values
-    for a span, made when the spans are read."""
+    """Run ``read()`` when the spans are next read (:func:`recorded`,
+    :func:`take`, the end of a :func:`recording` block): a read of device
+    values for a span."""
     _pending.append(read)
 
 
-def settle() -> None:
+def _run_late_reads() -> None:
     """Run the reads :func:`later` registered (each waits for the device
     work it reads)."""
     if not _pending:
@@ -192,7 +193,7 @@ def settle() -> None:
 def take() -> list:
     """The spans kept, which leave the buffer; resets :func:`dropped`."""
     global _dropped
-    settle()
+    _run_late_reads()
     out = _spans[:]
     del _spans[:]
     _dropped = 0
@@ -202,7 +203,7 @@ def take() -> list:
 def recorded() -> list:
     """The spans kept so far (the buffer itself, not a copy): each reader of
     a traced window reads them without taking them."""
-    settle()
+    _run_late_reads()
     return _spans
 
 
@@ -229,7 +230,7 @@ class recording:
 
     def __exit__(self, *exc):
         global _recordings, _dropped
-        settle()
+        _run_late_reads()
         _recordings -= 1
         self.spans = _spans[self._first:]
         self.dropped = _dropped

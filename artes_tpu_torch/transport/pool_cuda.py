@@ -63,6 +63,10 @@ LANE_KEYS = ("refill_passes", "refill_lanes", "round_passes", "round_lanes")
 # pool_grid3d's walk counters after them (pool_grid3d.cu::count_walk): its jump
 # walks, and those that read the walk's table of phi half-plane crossings
 WALK_KEYS = ("jump_walks", "jump_walks_tabled")
+# pool_radial's drain stamps after them (pool_radial.cu::drain_stamp), in every
+# instantiation: the earliest time a block left the persistent loop (as its
+# complement) and the latest, %globaltimer in ns; the launch span's drain_ms
+DRAIN_KEYS = ("drain_first", "drain_last")
 # the most phi faces a grid may have for the jump walks to keep their phi
 # crossings in a table (pool_grid3d.cu::PHI_TABLE_MAX); past it they recount
 PHI_TABLE_MAX = 32
@@ -508,8 +512,9 @@ def _layout(source: str, static: KernelStatic, ncell: int) -> tuple:
 
 def counter_keys(source: str) -> tuple:
     """The names of the counters kernel ``source`` counts while spans record:
-    :data:`LANE_KEYS`, and in ``pool_grid3d`` :data:`WALK_KEYS` after them."""
-    return LANE_KEYS + (WALK_KEYS if source == "pool_grid3d" else ())
+    :data:`LANE_KEYS`, and after them :data:`WALK_KEYS` in ``pool_grid3d``,
+    :data:`DRAIN_KEYS` in ``pool_radial``."""
+    return LANE_KEYS + {"pool_grid3d": WALK_KEYS, "pool_radial": DRAIN_KEYS}.get(source, ())
 
 
 def _alloc(layout, dev):
@@ -606,7 +611,8 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     records. While it records, the launch is bracketed by two CUDA events on
     its stream and ``pool_radial`` and ``pool_grid3d`` count their warps'
     passes through the persistent loop, into the launch's own integer
-    tallies; once the spans are read (``spans.settle``) the span holds ``kernel`` (the instantiation),
+    tallies, and ``pool_radial`` stamps when its blocks leave the loop; once the
+    spans are read the span holds ``kernel`` (the instantiation),
     ``source``, ``blocks``, ``photons_emitted``, ``rounds`` (scattering
     rounds that booked a peel), ``capped``, ``device_ms`` (the events'
     elapsed time: the kernel's, and where the stream idles before it, the
@@ -615,7 +621,9 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     :data:`LANE_KEYS`, and from ``pool_grid3d`` :data:`WALK_KEYS`: its jump
     walks, and those that read their phi crossings from the walk's table
     (all of them where the grid has 2 to :data:`PHI_TABLE_MAX` phi faces, none
-    elsewhere)."""
+    elsewhere), and from ``pool_radial``, every instantiation, ``drain_ms``:
+    from the first block's exit from the persistent loop to the last's, the
+    tail of the launch in which SMs empty (:data:`DRAIN_KEYS`)."""
     with spans.span("launch") as s:
         return _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, build,
                                 host_records)
@@ -666,7 +674,8 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
         buf_blocks = buf.numel() // (7 * ncell) if buf is not None else 0
         outs = (v["img_d"].data_ptr(), v["img_i"].data_ptr(), v["out_d"].data_ptr(),
                 v["out_i"].data_ptr())
-        # the lane and walk counters (counter_keys) and the events, while recording
+        # the lane, walk and drain counters (counter_keys) and the events, while
+        # recording
         lanes = v["lanes"] if s and source != "pool_march" else None
         lanes_ptr = None if lanes is None else lanes.data_ptr()
         with torch.cuda.device(dev):
@@ -677,7 +686,8 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
                 events[0].record()
             if source == "pool_radial":
                 fn = _library("pool_radial", _ARGTYPES,
-                              (N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, ERR_RECORD_W), lib)
+                              (N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, ERR_RECORD_W,
+                               len(counter_keys(source))), lib)
                 rc = fn(g.rfront.data_ptr(), t.opacity.data_ptr(), t.albedo.data_ptr(),
                         t.scatter_rows.data_ptr(), t.alpha_prefix.data_ptr(),
                         t.p_int.data_ptr(), consts.data_ptr(), scal.data_ptr(),
@@ -728,12 +738,17 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
 
 def _read_launch(s, events, out_i, lanes, keys) -> None:
     """Set a launch span's device values (:func:`run_stream_cuda`) when the
-    spans are read; the counters ``keys`` are left out where all stayed zero
-    (an instantiation that counts none)."""
+    spans are read: the drain stamps as ``drain_ms``, and the other counters
+    ``keys``, left out where all stayed zero (an instantiation that counts
+    none)."""
     events[1].synchronize()
     rounds, capped, emitted = out_i[:3].tolist()
     s.set(device_ms=events[0].elapsed_time(events[1]), rounds=rounds, capped=capped,
           photons_emitted=emitted)
-    counts = [] if lanes is None else lanes.tolist()
-    if any(counts):
-        s.set(**dict(zip(keys, counts)))
+    counts = dict(zip(keys, [] if lanes is None else lanes.tolist()))
+    first, last = (counts.pop(k, 0) for k in DRAIN_KEYS)
+    if last:
+        # the earliest stamp is kept as its complement (pool_radial.cu::drain_stamp)
+        s.set(drain_ms=(last - ~first) * 1e-6)
+    if any(counts.values()):
+        s.set(**counts)

@@ -525,6 +525,48 @@ def test_lane_counters_change_no_tally(cuda, name):
         assert not set(pool_cuda.WALK_KEYS) & set(a)
 
 
+# the radial kernel's stellar spectrum (the spectrum cells), BASELINE #2's deck
+# at 177.5 degrees (the phase curve's crescent), and the stellar image, which
+# counts no lanes but stamps its drain
+DRAIN_CELLS = {"flagship": 1 << 22, "hg_crescent": 1 << 20, "imaging25": 1 << 20}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(DRAIN_CELLS))
+def test_drain_stamps_change_no_tally(cuda, name, monkeypatch):
+    """``pool_radial``'s drain stamps: a recorded launch against the same
+    launch unrecorded, counts and error records equal and sums within 1e-14;
+    the recorded span's ``drain_ms`` within [0, ``device_ms``]; unrecorded,
+    the kernel is given no counter buffer and nothing is stamped."""
+    tables, static = KERNEL_CELLS[name](cuda)
+    n = DRAIN_CELLS[name]
+    buffers = []
+    library = pool_cuda._library
+
+    def spy(*args, **kw):
+        fn = library(*args, **kw)
+
+        def launch(*a):
+            buffers.append(a[-3])               # lanes: the counters' pointer
+            return fn(*a)
+        return launch
+
+    monkeypatch.setattr(pool_cuda, "_library", spy)
+    off = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    with spans.recording() as rec:
+        on = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+    (launch,) = [s for s in rec.spans if s.name == "launch"]
+    a = launch.attrs
+    g = mesh.split_gaps(on, off)
+    print(f"drain [{name}]: {a['drain_ms']:.4f} of {a['device_ms']:.4f} ms; sums, on and off: "
+          f"{g['values']:.3e}")
+    assert g["counts"] == 0 and g["records"] == 0 and g["values"] <= 1e-14, g
+    assert a["source"] == "pool_radial" and 0.0 <= a["drain_ms"] <= a["device_ms"]
+    assert buffers[0] is None and buffers[1] is not None
+    layout, flat_f, flat_i = off["packed"]
+    assert not pool_cuda.tally_views(layout, flat_f, flat_i)["lanes"].any()
+
+
 @pytest.mark.gpu
 def test_device_ms_is_the_profilers_kernel_time(cuda):
     """The launch span's CUDA-event time within 2% of the profiler's kernel

@@ -53,10 +53,12 @@ def test_phi_table_max_is_the_kernels():
 @pytest.mark.parametrize("source", ["pool_radial", "pool_grid3d", "pool_march"])
 def test_counter_slots_by_kernel(source):
     """``pool_grid3d`` counts its jump walks in two slots after the four lane
-    counters; the other kernels' integer tallies keep their four."""
+    counters, ``pool_radial`` stamps its drain in two; ``pool_march`` keeps
+    the four."""
     keys = pool_cuda.counter_keys(source)
     assert keys[:4] == pool_cuda.LANE_KEYS
-    assert keys[4:] == (pool_cuda.WALK_KEYS if source == "pool_grid3d" else ())
+    assert keys[4:] == {"pool_grid3d": pool_cuda.WALK_KEYS,
+                        "pool_radial": pool_cuda.DRAIN_KEYS}.get(source, ())
     tables, static = spectrum_tables(cells.wedge_grid(8), torch.device("cpu"))
     layout = pool_cuda._layout(source, static, tables.opacity.shape[0])
     flat_f, flat_i, v = pool_cuda._alloc(layout, torch.device("cpu"))

@@ -142,9 +142,9 @@ def test_full_buffer_drops_and_counts(monkeypatch):
     assert spans.dropped() == 0 and spans.recorded() == []
 
 
-def test_late_reads_run_at_settle():
-    """The reads run at ``settle``, which reading the spans calls: never inside
-    a job."""
+def test_late_reads_run_when_the_spans_are_read():
+    """The reads run when the spans are read (``recorded``, the recording's
+    end): never inside a job."""
     got = []
     with spans.recording() as rec:
         with spans.job():
@@ -157,7 +157,7 @@ def test_late_reads_run_at_settle():
         assert [x.name for x in spans.recorded()] == ["job", "launch", "accumulate"]
         assert s.attrs == {"device_ms": 1.5} and got == [1]
         spans.later(lambda: got.append(2))
-    assert got == [1, 2]                   # the recording's end settles too
+    assert got == [1, 2]                   # the recording's end runs them too
     assert [x.name for x in rec.spans] == ["job", "launch", "accumulate"]
 
 
@@ -186,7 +186,8 @@ def test_plain_run_wavelength_records_its_tree():
         "job > tables > tables.cells", "job > tables > tables.jumps", "job > prepare",
         "job > chunk", "job > chunk > wait", "job > chunk > accumulate", "job > finish"]
     job = rec.spans[0]
-    assert job.attrs == {"wl": 0, "packages": 300, "path": "plain", "launches": 0}
+    assert job.attrs == {"wl": 0, "packages": 300, "view_deg": 90.0, "crescent": False,
+                         "path": "plain", "launches": 0}
     assert rec.spans[7].attrs == {"n": 300, "id_hi": 0, "id_lo": 0}
     assert {s.job for s in rec.spans} == {job.job}
     assert all(job.start <= s.start <= s.end <= job.end for s in rec.spans)
