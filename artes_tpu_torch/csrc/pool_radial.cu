@@ -39,12 +39,16 @@
 // One loop iteration is one step of a lane's photon: a lane without a photon
 // takes the next id from the launch's counter (one atomicAdd for the lanes
 // of a warp that ask together), emits it and runs its prewalk and first
-// march; a lane with one runs one scattering round. A lane whose photon dies
-// takes a new one in the next iteration, so the lanes of a warp stay busy
-// until the ids run out instead of waiting for the longest photon of a
-// static share, and no block holds an SM for its slowest photon. Each
-// photon's arithmetic is the same whichever lane runs it; only the order in
-// which the per-thread double sums add photons moves.
+// march; a lane with one runs one scattering round. A lane whose new photon
+// meets its first interaction goes on into that photon's first round in the
+// same iteration, beside the warp's other lanes, instead of sitting the
+// round out; one whose photon leaves, reaches the floor or ends there
+// (scattering off) takes a new one in the next iteration. So the lanes of a
+// warp stay busy until the ids run out instead of waiting for the longest
+// photon of a static share, and no block holds an SM for its slowest
+// photon. Each photon's arithmetic is the same whichever lane runs it, and
+// in whichever iteration; only the order in which the per-thread double
+// sums add photons moves.
 // The closed-form shell-chord walks (artes_tpu/transport/radial.py) need no
 // per-face arrays: face roots are computed on the fly in path order.
 // Tables live in global memory and are read per cell (__ldg). Per-thread
@@ -354,7 +358,8 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
   float s_stop = 0.0f;
 
   // one loop iteration: a new photon's emission, prewalk and first march for
-  // a lane without one, one scattering round for a lane with one
+  // a lane without one, then one scattering round for a lane with one,
+  // whether it had it before the iteration or has just drawn it
   while (true) {
     if (!alive) {
       // before the break: every lane's last pass counts
@@ -410,8 +415,12 @@ pool_radial_kernel(Tables T, const float* __restrict__ scal, Image img, uint32_t
         n_scat = 1;
       }
       CLOCK_END(P_FIRST);
-      continue;
     }
+    // outside the refill branch, so that the warp's lanes meet before the
+    // round: with the `continue` inside the branch the round is entered from
+    // two places, and the warp runs it twice a pass, once for the lanes that
+    // have just refilled and once for the rest
+    if (!alive) continue;
 
     // a scattering round (ARTES.f90:786-951); the max_scatter cap bounds them
     if constexpr (COUNTS) lane_pass(lanes_sh, L_ROUND, lanes);
