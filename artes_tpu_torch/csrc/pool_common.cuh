@@ -18,6 +18,70 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// One launch of a pool kernel: every input and output of it, by name, the
+// same for the three kernels (pool_cuda.PoolLaunch mirrors it field for
+// field; tests/test_torch_launch_abi.py holds the two alike). Each kernel's
+// entry points, artes_<k>_launch(PoolLaunch*, stream), artes_<k>_blocks(const
+// PoolLaunch*) and artes_<k>_layout(int*), read the fields it needs; a
+// pointer a kernel does not read may be null. Per-cell tables are flat over
+// (r, theta, phi).
+struct PoolLaunch {
+  const float* rfront;        // (nr+1,) face radii
+  const float* opacity;       // (ncell,) extinction per scaled length
+  const float* albedo;        // (ncell,)
+  const float* scatter;       // (ncell*180, 16) matrix rows
+  const float* prefix;        // (ncell, 4, 181) alpha-CDF prefixes
+  const float* p_int;         // (ncell, 4) azimuth integrals
+  const float* consts;        // 83 sampling constants
+  const float* scal;          // N_SCAL scalars (enum S_*)
+  const float* emis_cum;      // (ncell,) emissivity CDF (thermal)
+  const float* cell_weight;   // (ncell,) emission weights (thermal)
+  const float* theta_tan;     // (nt+1,) the 3-D grid's faces (pool_geom3d.cuh::Grid3)
+  const float* theta_cos;     // (nt+1,)
+  const int* theta_flags;     // (nt+1,) bit 0 cone, bit 1 theta < pi/2
+  const float* phi_sin;       // (np,)
+  const float* phi_cos;       // (np,)
+  const float* phifront;      // (np,) face azimuths in [0, 2 pi)
+  const float* kbar;          // (nr,) the jump tables, read by pool_grid3d only
+  const float* dk;            // (ncell,)
+  const float* dr;            // (nr-1, nt*np)
+  const float* dtt;           // (nt-1, nr*np)
+  const float* dpp;           // (np, nr*nt)
+  const float* rf2;           // (nr-1,)
+  int nr;
+  int ntheta;
+  int nphi;
+  int cell_depth;
+  int max_crossings;
+  float same_eps;
+  float sel2;
+  float boundary_tol;
+  float surface_albedo;       // pool_march's Lambert surface
+  unsigned int n_photons;
+  unsigned int key_hi;
+  unsigned int id_lo;
+  int max_scatter;
+  int variant;                // bit 0 thermal, bit 1 image, bit 2 flow
+  int flags;                  // F_CRESCENT, F_BIASED, F_DEBUG_STOKES, F_NO_SCATTER
+  int nx;
+  int ny;
+  double* img_sums;           // (nx*ny, N_IMG_D), added into
+  unsigned long long* img_counts;  // (nx*ny, N_IMG_I)
+  double* out_d;              // N_OUT_D sums
+  unsigned long long* out_i;  // the kernel's out_i counters (its layout's slot 2)
+  double* flow_g;             // (ncell, 3) flow diagnostics, with flow
+  double* flow_t;             // (ncell, 4)
+  double* flow_buf;           // flow_buf_blocks copies of both, zeroed, or null
+  int flow_buf_blocks;
+  float* rec;                 // (rec_cap, REC_W) error records
+  unsigned int* rec_count;
+  int rec_cap;
+  unsigned long long* next_id;    // the persistent grid's photon counter, zeroed
+  unsigned long long* counters;   // the kernel's counters, zeroed, or null
+  int threads;                // a block
+  int blocks;                 // written by the launch: the grid it launched
+};
+
 namespace {
 
 constexpr int N_ANGLE = 180;
@@ -711,6 +775,42 @@ __device__ __forceinline__ void reduce_block(double* acc, unsigned long long* cn
     for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += sh_i[w][k];
     atomicAdd(out_i + k, s);
   }
+}
+
+// ------------------------------------------------------------- launch ----
+
+// a launch's kernel arguments from its PoolLaunch (host code)
+inline Tables tables_of(const PoolLaunch& a) {
+  return Tables{a.rfront, a.opacity, a.albedo, a.scatter, a.prefix, a.p_int, a.consts,
+                a.emis_cum, a.cell_weight, a.nr};
+}
+
+inline Image image_of(const PoolLaunch& a) {
+  return Image{a.img_sums, a.img_counts, a.nx, a.ny};
+}
+
+inline Records records_of(const PoolLaunch& a) {
+  return Records{a.rec, a.rec_count, (unsigned int)a.rec_cap};
+}
+
+// a block size every kernel takes: whole warps, at most 256 threads
+inline bool threads_ok(int threads) {
+  return threads >= 32 && threads <= 256 && threads % 32 == 0;
+}
+
+// the layout slots every kernel reports to the wrapper: {N_SCAL, N_OUT_D,
+// n_out_i, N_IMG_D, N_IMG_I, REC_W, n_counters, sizeof(PoolLaunch)}; returns
+// the slots written
+inline int common_layout(int* sizes, int n_out_i, int n_counters) {
+  sizes[0] = N_SCAL;
+  sizes[1] = N_OUT_D;
+  sizes[2] = n_out_i;
+  sizes[3] = N_IMG_D;
+  sizes[4] = N_IMG_I;
+  sizes[5] = REC_W;
+  sizes[6] = n_counters;
+  sizes[7] = (int)sizeof(PoolLaunch);
+  return 8;
 }
 
 }  // namespace

@@ -309,4 +309,12 @@ __device__ float emit_thermal(const Tables& T, const Grid3& G, const Scal& S, co
   return thermal_direction(S, u, biased, pos, dir) / __ldg(T.cell_weight + idx);
 }
 
+// the grid argument of a launch from its PoolLaunch (host code)
+inline Grid3 grid_of(const PoolLaunch& a) {
+  return Grid3{a.theta_tan, a.theta_cos, a.theta_flags, a.phi_sin, a.phi_cos, a.phifront,
+               a.kbar, a.dk, a.dr, a.dtt, a.dpp, a.rf2, records_of(a),
+               a.ntheta, a.nphi, a.cell_depth, a.max_crossings,
+               a.same_eps, a.sel2, a.boundary_tol};
+}
+
 }  // namespace

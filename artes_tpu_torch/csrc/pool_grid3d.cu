@@ -589,69 +589,52 @@ KernelFn variant_fn(int variant) {
   }
 }
 
+// the grid of launch `a` of kernel `fn` with `smem` bytes of dynamic shared
+// memory a block: the persistent grid, as pool_radial's; 0 blocks when the
+// occupancy query fails
+int launch_grid(const PoolLaunch& a, KernelFn fn, size_t smem) {
+  const int resident = resident_blocks(a.variant, fn, a.threads, smem);
+  return resident < 1 ? 0 : persistent_blocks(resident, a.n_photons, a.threads);
+}
+
 }  // namespace
 
 // C entry point for ctypes: launches the instantiation of `variant` (bit 0
-// thermal, bit 1 image) on `stream` and returns cudaGetLastError().
-// Per-cell tables are flat over (r, theta, phi). `tables` holds the 24 device
-// pointers in the order of the Tables then the Grid3 fields up to rec_count
-// (consts and scal after p_int, as the radial entry point has them, rec and
-// rec_count last); `sizes` holds {nr, nt, np, cell_depth, max_crossings,
-// rec_cap, nx, ny}; `eps` holds {same_eps, sel2, boundary_tol}. out_d: 10
-// doubles as the radial kernel's; out_i: its first 4 counters, then photons
-// abandoned, codes 031 / 032 / 034 and Stokes anomalies. `flags` as
-// pool_radial's. The grid is persistent, as pool_radial's: the blocks the
-// card holds at once, whose lanes take photon ids id_lo + *next_id from the
-// launch's counter, which the caller zeroes. `lanes`, where not null, is
-// N_LANE + N_WALK zeroed counters the launch adds its lane counts
-// (pool_common.cuh::lane_pass) and its walk counts (count_walk) into. The
-// launch gives each block phi_table_bytes of dynamic shared memory.
-extern "C" int artes_pool_grid3d_launch(
-    const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
-    unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
-    double* img_sums, unsigned long long* img_counts, double* out_d, unsigned long long* out_i,
-    unsigned long long* next_id, unsigned long long* lanes, int threads, void* stream) {
-  auto f = [&](int i) { return (const float*)tables[i]; };
-  Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
-  Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
-          f(19), f(20), f(21),
-          Records{(float*)tables[22], (unsigned int*)tables[23], (unsigned int)sizes[5]},
-          sizes[1], sizes[2], sizes[3], sizes[4],
-          eps[0], eps[1], eps[2]};
-  Image img{img_sums, img_counts, sizes[6], sizes[7]};
-  const KernelFn fn = variant_fn(variant);
-  if (fn == nullptr || threads > 256 || threads % 32 != 0 || threads < 32)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = phi_table_bytes(G.np, threads);
-  const int resident = resident_blocks(variant, fn, threads, smem);
-  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
-  fn<<<persistent_blocks(resident, n_photons, threads), threads, smem, (cudaStream_t)stream>>>(
-      T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, next_id,
-      lanes);
+// thermal, bit 1 image) on `stream`, writes its grid into a->blocks and
+// returns cudaGetLastError(). Reads the tables, the 3-D grid and the jump
+// tables of PoolLaunch; not the flow fields. out_d: 10 doubles as the radial
+// kernel's; out_i: its first 4 counters, then photons abandoned, codes 031 /
+// 032 / 034 and Stokes anomalies. `flags` as pool_radial's. The grid is
+// persistent, as pool_radial's: the blocks the card holds at once, whose
+// lanes take photon ids id_lo + *next_id from the launch's counter.
+// `counters`, where not null, is N_LANE + N_WALK zeroed counters the launch
+// adds its lane counts (pool_common.cuh::lane_pass) and its walk counts
+// (count_walk) into. The launch gives each block phi_table_bytes of dynamic
+// shared memory.
+extern "C" int artes_pool_grid3d_launch(PoolLaunch* a, void* stream) {
+  const KernelFn fn = variant_fn(a->variant);
+  if (fn == nullptr || !threads_ok(a->threads)) return (int)cudaErrorInvalidValue;
+  const size_t smem = phi_table_bytes(a->nphi, a->threads);
+  const int blocks = launch_grid(*a, fn, smem);
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  a->blocks = blocks;
+  fn<<<blocks, a->threads, smem, (cudaStream_t)stream>>>(
+      tables_of(*a), grid_of(*a), a->scal, image_of(*a), a->n_photons, a->key_hi, a->id_lo,
+      a->max_scatter, a->flags, a->out_d, a->out_i, a->next_id, a->counters);
   return (int)cudaGetLastError();
 }
 
-// The blocks of a launch of `variant` with n_photons and `threads` a block
-// on a grid of np phi faces (the persistent grid), 0 when the occupancy query
-// fails.
-extern "C" int artes_pool_grid3d_blocks(int variant, unsigned int n_photons, int threads,
-                                        int np) {
-  const KernelFn fn = variant_fn(variant);
-  const int resident =
-      fn == nullptr ? 0 : resident_blocks(variant, fn, threads, phi_table_bytes(np, threads));
-  return resident < 1 ? 0 : persistent_blocks(resident, n_photons, threads);
+// The blocks artes_pool_grid3d_launch launches for `a`, whose phi faces
+// size its blocks' shared memory; 0 when the occupancy query fails.
+extern "C" int artes_pool_grid3d_blocks(const PoolLaunch* a) {
+  const KernelFn fn = variant_fn(a->variant);
+  return fn == nullptr ? 0 : launch_grid(*a, fn, phi_table_bytes(a->nphi, a->threads));
 }
 
-// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, REC_W,
-// N_WALK, PHI_TABLE_MAX}.
+// Table sizes the wrapper must agree with (pool_common.cuh::common_layout):
+// out_i's N_OUT_I3 counters, N_LANE + N_WALK counters; then PHI_TABLE_MAX.
 extern "C" int artes_pool_grid3d_layout(int* sizes) {
-  sizes[0] = N_SCAL;
-  sizes[1] = N_OUT_D;
-  sizes[2] = N_OUT_I3;
-  sizes[3] = N_IMG_D;
-  sizes[4] = N_IMG_I;
-  sizes[5] = REC_W;
-  sizes[6] = N_WALK;
-  sizes[7] = PHI_TABLE_MAX;
-  return 0;
+  const int n = common_layout(sizes, N_OUT_I3, N_LANE + N_WALK);
+  sizes[n] = PHI_TABLE_MAX;
+  return n + 1;
 }

@@ -422,71 +422,47 @@ KernelFn variant_fn(int variant) {
   }
 }
 
-// the persistent grid of a launch of `variant` with n photons; 0 blocks when
-// the card's occupancy cannot be read
-int launch_grid(int variant, unsigned int n, int threads) {
-  const int resident = resident_blocks(variant, variant_fn(variant), threads);
-  return resident < 1 ? 0 : persistent_blocks(resident, n, threads);
+// the persistent grid of launch `a`; 0 blocks when the variant is unknown
+// or the card's occupancy cannot be read
+int launch_grid(const PoolLaunch& a) {
+  if (a.variant < 0 || a.variant > 7) return 0;
+  const int resident = resident_blocks(a.variant, variant_fn(a.variant), a.threads);
+  return resident < 1 ? 0 : persistent_blocks(resident, a.n_photons, a.threads);
 }
 
 }  // namespace
 
 // C entry point for ctypes: launches the instantiation of `variant` (bit 0
-// thermal, bit 1 image, bit 2 flow) on `stream` and returns
-// cudaGetLastError(). Per-cell tables are flat over (r, theta, phi). `tables`
-// holds the 24 device pointers of pool_grid3d's entry point, in its order;
-// the six jump tables (16-21) are not read and may be null. `sizes` holds
-// {nr, nt, np, cell_depth, max_crossings, rec_cap, nx, ny}; `eps` holds
-// {same_eps, sel2, boundary_tol, surface_albedo}. out_d: 10 doubles as the
-// radial kernel's; out_i: pool_grid3d's 9 counters, then the scatter and
-// birth peel walks that failed, the passes of cell_face made and the passes
-// that booked flow. `flags` as pool_radial's. The grid is persistent, as
-// pool_grid3d's: the blocks the card holds at once (fewer for a small
-// launch; artes_pool_march_blocks gives them), whose lanes take photon ids
-// id_lo + *next_id from the launch's counter, which the caller zeroes. The
-// flow diagnostics go into flow_g (ncell, 3) and flow_t (ncell, 4), through
-// a copy a block in flow_buf where that is given, a zeroed buffer of
-// flow_buf_blocks x 7 ncell doubles (pool_common.cuh::flow_begin), else
-// straight.
-extern "C" int artes_pool_march_launch(
-    const void* const* tables, const int* sizes, const float* eps, unsigned int n_photons,
-    unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags,
-    double* img_sums, unsigned long long* img_counts, double* out_d, unsigned long long* out_i,
-    double* flow_g, double* flow_t, double* flow_buf, int flow_buf_blocks,
-    unsigned long long* next_id, int threads, void* stream) {
-  auto f = [&](int i) { return (const float*)tables[i]; };
-  Tables T{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(8), f(9), sizes[0]};
-  Grid3 G{f(10), f(11), (const int*)tables[12], f(13), f(14), f(15), f(16), f(17), f(18),
-          f(19), f(20), f(21),
-          Records{(float*)tables[22], (unsigned int*)tables[23], (unsigned int)sizes[5]},
-          sizes[1], sizes[2], sizes[3], sizes[4],
-          eps[0], eps[1], eps[2]};
-  Image img{img_sums, img_counts, sizes[6], sizes[7]};
-  if (variant < 0 || variant > 7 || threads > 256 || threads % 32 != 0 || threads < 32)
+// thermal, bit 1 image, bit 2 flow) on `stream`, writes its grid into
+// a->blocks and returns cudaGetLastError(). Reads the tables, the 3-D grid
+// and surface_albedo of PoolLaunch, not the jump tables; counts no counters.
+// out_d: 10 doubles as the radial kernel's; out_i: pool_grid3d's 9
+// counters, then the scatter and birth peel walks that failed, the passes of
+// cell_face made and the passes that booked flow. `flags` as pool_radial's.
+// The grid is persistent, as pool_grid3d's: the blocks the card holds at
+// once (fewer for a small launch; artes_pool_march_blocks gives them), whose
+// lanes take photon ids id_lo + *next_id from the launch's counter. The flow
+// diagnostics go into flow_g (ncell, 3) and flow_t (ncell, 4), through a
+// copy a block in flow_buf where that is given (pool_common.cuh::
+// flow_begin), else straight.
+extern "C" int artes_pool_march_launch(PoolLaunch* a, void* stream) {
+  if (a->variant < 0 || a->variant > 7 || !threads_ok(a->threads))
     return (int)cudaErrorInvalidValue;
-  const int blocks = launch_grid(variant, n_photons, threads);
+  const int blocks = launch_grid(*a);
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  if (flow_buf != nullptr && blocks > flow_buf_blocks) return (int)cudaErrorInvalidValue;
-  variant_fn(variant)<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      T, G, f(7), img, n_photons, key_hi, id_lo, max_scatter, flags, eps[3], out_d, out_i,
-      flow_g, flow_t, flow_buf, next_id);
+  if (a->flow_buf != nullptr && blocks > a->flow_buf_blocks) return (int)cudaErrorInvalidValue;
+  a->blocks = blocks;
+  variant_fn(a->variant)<<<blocks, a->threads, 0, (cudaStream_t)stream>>>(
+      tables_of(*a), grid_of(*a), a->scal, image_of(*a), a->n_photons, a->key_hi, a->id_lo,
+      a->max_scatter, a->flags, a->surface_albedo, a->out_d, a->out_i, a->flow_g, a->flow_t,
+      a->flow_buf, a->next_id);
   return (int)cudaGetLastError();
 }
 
-// The blocks of a launch of `variant` with n_photons and `threads` a block
-// (0 when the card's occupancy cannot be read).
-extern "C" int artes_pool_march_blocks(int variant, unsigned int n_photons, int threads) {
-  if (variant < 0 || variant > 7) return 0;
-  return launch_grid(variant, n_photons, threads);
-}
+// The blocks artes_pool_march_launch launches for `a` (0 when the card's
+// occupancy cannot be read).
+extern "C" int artes_pool_march_blocks(const PoolLaunch* a) { return launch_grid(*a); }
 
-// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_IM, N_IMG_D, N_IMG_I, REC_W}.
-extern "C" int artes_pool_march_layout(int* sizes) {
-  sizes[0] = N_SCAL;
-  sizes[1] = N_OUT_D;
-  sizes[2] = N_OUT_IM;
-  sizes[3] = N_IMG_D;
-  sizes[4] = N_IMG_I;
-  sizes[5] = REC_W;
-  return 0;
-}
+// Table sizes the wrapper must agree with (pool_common.cuh::common_layout):
+// out_i's N_OUT_IM counters, no counters.
+extern "C" int artes_pool_march_layout(int* sizes) { return common_layout(sizes, N_OUT_IM, 0); }

@@ -540,80 +540,75 @@ KernelFn variant_fn(int variant) {
   }
 }
 
+// the block size and the grid of launch `a` of kernel `fn`: the persistent
+// grid, exactly the blocks the card holds at once (fewer for a small
+// launch), or with ARTES_F32_LANES the TPU's lanes; 0 blocks when the
+// occupancy query fails
+int launch_grid(const PoolLaunch& a, KernelFn fn, int& threads) {
+#ifdef ARTES_F32_LANES
+  threads = LANE_THREADS;
+#else
+  threads = a.threads;
+#endif
+  const int resident = resident_blocks(a.variant, fn, threads);
+  if (resident < 1) return 0;
+#ifdef ARTES_F32_LANES
+  return ARTES_F32_LANES / LANE_THREADS;
+#else
+  return persistent_blocks(resident, a.n_photons, threads);
+#endif
+}
+
 }  // namespace
 
 // C entry point for ctypes: launches the instantiation of `variant` (bit 0
-// thermal, bit 1 image, bit 2 flow) on `stream` and returns
-// cudaGetLastError(). `flags`: F_CRESCENT, F_BIASED, F_DEBUG_STOKES,
-// F_NO_SCATTER of pool_common.cuh. The grid is persistent: exactly the
-// blocks the card holds at once (fewer for a small launch), whose lanes take
-// photon ids id_lo + *next_id from the launch's counter, which the caller
-// zeroes.
+// thermal, bit 1 image, bit 2 flow) on `stream`, writes its grid into
+// a->blocks and returns cudaGetLastError(). Reads the radial tables of
+// PoolLaunch, not the 3-D grid's. `flags`: F_CRESCENT, F_BIASED,
+// F_DEBUG_STOKES, F_NO_SCATTER of pool_common.cuh. The grid is persistent
+// (launch_grid), whose lanes take photon ids id_lo + *next_id from the
+// launch's counter.
 // out_d: 10 doubles (I, Q, U, V sums and their squares, zero for an image;
 // flux emitted; flux exit); out_i: 5 counters (scatter peels, photons capped
 // at max_scatter, photons emitted, birth peels, photons abandoned on a Stokes
 // anomaly, and with flow a sixth: the segments that booked flow). An image
-// (nx * ny pixels) is added into img_sums (npix, 8) and img_counts (npix, 2);
-// the flow diagnostics into flow_g (nr, 3) and flow_t (nr, 4), through a
-// copy a block in flow_buf where that is given, a zeroed buffer of
-// flow_buf_blocks x 7 nr doubles (pool_common.cuh::flow_begin;
+// (nx * ny pixels) is added into img_sums and img_counts; the flow
+// diagnostics into flow_g (nr, 3) and flow_t (nr, 4), through a copy a block
+// in flow_buf where that is given (pool_common.cuh::flow_begin;
 // artes_pool_radial_blocks gives the launch's blocks), else straight. Stokes
-// anomalies leave records (pool_common.cuh::record_error) in rec (rec_cap,
-// 16), their count in rec_count. `lanes`, where not null, is N_LANE + N_DRAIN
-// zeroed counters the launch adds its lane counts into (pool_common.cuh::
-// lane_pass; every instantiation but the stellar image, CountsLanes) and
-// stamps its drain into (drain_stamp; every instantiation).
-extern "C" int artes_pool_radial_launch(
-    const float* rfront, const float* opacity, const float* albedo, const float* scatter,
-    const float* prefix, const float* p_int, const float* consts, const float* scal,
-    const float* emis_cum, const float* cell_weight, int nr, unsigned int n_photons,
-    unsigned int key_hi, unsigned int id_lo, int max_scatter, int variant, int flags, int nx,
-    int ny, double* img_sums, unsigned long long* img_counts, double* out_d,
-    unsigned long long* out_i, double* flow_g, double* flow_t, double* flow_buf,
-    int flow_buf_blocks, float* rec, unsigned int* rec_count, int rec_cap,
-    unsigned long long* next_id, unsigned long long* lanes, int threads, void* stream) {
-  Tables T{rfront, opacity, albedo, scatter, prefix, p_int, consts, emis_cum, cell_weight, nr};
-  Image img{img_sums, img_counts, nx, ny};
-  Records R{rec, rec_count, (unsigned int)rec_cap};
-  const KernelFn fn = variant_fn(variant);
-  if (fn == nullptr || threads > 256 || threads % 32 != 0 || threads < 32 || rec_cap < 0)
+// anomalies leave records (pool_common.cuh::record_error) in rec, their
+// count in rec_count. `counters`, where not null, is N_LANE + N_DRAIN zeroed
+// counters the launch adds its lane counts into (pool_common.cuh::lane_pass;
+// every instantiation but the stellar image, CountsLanes) and stamps its
+// drain into (drain_stamp; every instantiation).
+extern "C" int artes_pool_radial_launch(PoolLaunch* a, void* stream) {
+  const KernelFn fn = variant_fn(a->variant);
+  if (fn == nullptr || !threads_ok(a->threads) || a->rec_cap < 0)
     return (int)cudaErrorInvalidValue;
-#ifdef ARTES_F32_LANES
-  threads = LANE_THREADS;
-#endif
-  const int resident = resident_blocks(variant, fn, threads);
-  if (resident < 1) return (int)cudaErrorInvalidConfiguration;
-#ifdef ARTES_F32_LANES
-  const int blocks = ARTES_F32_LANES / LANE_THREADS;
-#else
-  const int blocks = persistent_blocks(resident, n_photons, threads);
-#endif
-  if (flow_buf != nullptr && blocks > flow_buf_blocks) return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  const int blocks = launch_grid(*a, fn, threads);
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  if (a->flow_buf != nullptr && blocks > a->flow_buf_blocks) return (int)cudaErrorInvalidValue;
+  a->blocks = blocks;
   fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      T, scal, img, n_photons, key_hi, id_lo, max_scatter, flags, out_d, out_i, flow_g, flow_t,
-      flow_buf, R, next_id, lanes);
+      tables_of(*a), a->scal, image_of(*a), a->n_photons, a->key_hi, a->id_lo, a->max_scatter,
+      a->flags, a->out_d, a->out_i, a->flow_g, a->flow_t, a->flow_buf, records_of(*a),
+      a->next_id, a->counters);
   return (int)cudaGetLastError();
 }
 
-// The blocks of a launch of `variant` with n_photons and `threads` a block
-// (the persistent grid), 0 when the occupancy query fails.
-extern "C" int artes_pool_radial_blocks(int variant, unsigned int n_photons, int threads) {
-  const KernelFn fn = variant_fn(variant);
-  const int resident = fn == nullptr ? 0 : resident_blocks(variant, fn, threads);
-  return resident < 1 ? 0 : persistent_blocks(resident, n_photons, threads);
+// The blocks artes_pool_radial_launch launches for `a` (launch_grid), 0 when
+// the occupancy query fails.
+extern "C" int artes_pool_radial_blocks(const PoolLaunch* a) {
+  const KernelFn fn = variant_fn(a->variant);
+  int threads = 0;
+  return fn == nullptr ? 0 : launch_grid(*a, fn, threads);
 }
 
-// Table sizes the wrapper must agree with: {N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, REC_W,
-// N_LANE + N_DRAIN}.
+// Table sizes the wrapper must agree with (pool_common.cuh::common_layout):
+// out_i's N_OUT_IR counters, N_LANE + N_DRAIN counters.
 extern "C" int artes_pool_radial_layout(int* sizes) {
-  sizes[0] = N_SCAL;
-  sizes[1] = N_OUT_D;
-  sizes[2] = N_OUT_IR;
-  sizes[3] = N_IMG_D;
-  sizes[4] = N_IMG_I;
-  sizes[5] = REC_W;
-  sizes[6] = N_LANE + N_DRAIN;
-  return 0;
+  return common_layout(sizes, N_OUT_IR, N_LANE + N_DRAIN);
 }
 
 #ifdef ARTES_POOL_CLOCKS

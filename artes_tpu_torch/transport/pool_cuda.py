@@ -27,9 +27,17 @@ switch (:data:`VARIANTS` ... :data:`VARIANTS_MARCH`). ``LAUNCHES`` counts
 kernel launches per instantiation, where the kernel is launched and nowhere
 else, so a run can show that it went through the kernel.
 
+One contract holds for the three kernels: a launch fills one
+:class:`PoolLaunch`, the mirror of ``struct PoolLaunch`` of
+``csrc/pool_common.cuh``, and makes one call, ``artes_<kernel>_launch``,
+which writes the grid it launched into the struct; ``artes_<kernel>_blocks``
+gives that grid beforehand and ``artes_<kernel>_layout`` the sizes that
+:func:`_library` checks. Each kernel's out_i counters are named once, in
+:data:`OUT_I_SLOTS`, and read by name.
+
 A launch's tallies live in two allocations, one float64 and one int64
-(:func:`tallies`): every tally of the result is a view into them, so the mesh
-sums a launch with one ``all_reduce`` of each (``parallel.mesh``).
+(:func:`tally_views`): every tally of the result is a view into them, so the
+mesh sums a launch with one ``all_reduce`` of each (``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -72,12 +80,27 @@ DRAIN_KEYS = ("drain_first", "drain_last")
 PHI_TABLE_MAX = 32
 N_SCAL = 32
 N_OUT_D = 10
-N_OUT_I = 4             # scatter peels, photons capped, emitted, birth (and surface) peels
 N_IMG_D = 8
 N_IMG_I = 2
-N_OUT_IR = 5            # pool_radial: N_OUT_I + photons abandoned on a Stokes anomaly
-N_OUT_I3 = 9            # pool_grid3d: N_OUT_I + abandoned, codes 031, 032, 034, anomalies
-N_OUT_IM = 12           # pool_march: N_OUT_I3 + failed peel walks, cell_face passes, flow bookings
+# each kernel's out_i counters by name, in the order its reduce_block adds
+# them (pool_radial.cu N_OUT_IR, pool_geom3d.cuh C_*, pool_march.cu C_*):
+# the scatter peels, the photons capped at max_scatter, the photons emitted,
+# the birth peels (with pool_march's surface peels); then pool_radial's photons
+# abandoned on a Stokes anomaly, the only ones it abandons, and in its flow
+# instantiations the walked segments that booked flow; pool_grid3d's photons
+# abandoned, by code 031, 032 and 034, and on a Stokes anomaly; pool_march's
+# also its failed peel walks (code 05x), its passes of cell_face and those
+# that booked flow
+OUT_I_SLOTS = {
+    "pool_radial": ("scatter_peels", "capped", "emitted", "birth_peels", "anomalies"),
+    "pool_radial_flow": ("scatter_peels", "capped", "emitted", "birth_peels", "anomalies",
+                         "flow_booked"),
+    "pool_grid3d": ("scatter_peels", "capped", "emitted", "birth_peels", "abandoned", "e031",
+                    "e032", "e034", "anomalies"),
+    "pool_march": ("scatter_peels", "capped", "emitted", "birth_peels", "abandoned", "e031",
+                   "e032", "e034", "anomalies", "peel_walks_failed", "cell_face",
+                   "flow_booked"),
+}
 FLOW_BUF_MAX = 256 << 20        # bytes of the blocks' copies of the flow sums
 F_CRESCENT, F_BIASED, F_DEBUG_STOKES, F_NO_SCATTER = 1, 2, 4, 8
 # rows of the 3-D kernel's error-record buffer (64 bytes each); errors are
@@ -170,14 +193,32 @@ EVENT_KEYS = {"count": "peels", "count_quv": "peels_quv", "pixel_N": "peels",
               "capped": "emitted", "n_error": "emitted", "error_codes": "emitted",
               "stokes_anomaly": "emitted"}
 
-_vp = ctypes.c_void_p
-_ARGTYPES = ([_vp] * 10 + [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
-             + [ctypes.c_int] * 5 + [_vp] * 7 + [ctypes.c_int] + [_vp] * 2 + [ctypes.c_int]
-             + [_vp, _vp, ctypes.c_int, _vp])
-_ARGTYPES_3D = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 6
-                + [ctypes.c_int, _vp])
-_ARGTYPES_MARCH = ([_vp] * 3 + [ctypes.c_uint] * 3 + [ctypes.c_int] * 3 + [_vp] * 7
-                   + [ctypes.c_int, _vp, ctypes.c_int, _vp])
+_PTR, _INT, _UINT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+
+
+class PoolLaunch(ctypes.Structure):
+    """One launch of a pool kernel: ``struct PoolLaunch`` of pool_common.cuh
+    field for field (:func:`_library` holds the two sizes alike), device
+    pointers as integers (``None`` for null). Every kernel takes it through
+    ``artes_<kernel>_launch``, which writes ``blocks``, the grid it launched,
+    and ``artes_<kernel>_blocks``, which returns that grid."""
+
+    _fields_ = ([(name, _PTR) for name in (
+        "rfront", "opacity", "albedo", "scatter", "prefix", "p_int", "consts", "scal",
+        "emis_cum", "cell_weight", "theta_tan", "theta_cos", "theta_flags", "phi_sin",
+        "phi_cos", "phifront", "kbar", "dk", "dr", "dtt", "dpp", "rf2")]
+        + [(name, _INT) for name in ("nr", "ntheta", "nphi", "cell_depth", "max_crossings")]
+        + [(name, _FLOAT) for name in ("same_eps", "sel2", "boundary_tol", "surface_albedo")]
+        + [(name, _UINT) for name in ("n_photons", "key_hi", "id_lo")]
+        + [(name, _INT) for name in ("max_scatter", "variant", "flags", "nx", "ny")]
+        + [(name, _PTR) for name in ("img_sums", "img_counts", "out_d", "out_i", "flow_g",
+                                     "flow_t", "flow_buf")]
+        + [("flow_buf_blocks", _INT), ("rec", _PTR), ("rec_count", _PTR), ("rec_cap", _INT),
+           ("next_id", _PTR), ("counters", _PTR), ("threads", _INT), ("blocks", _INT)])
+
+
+def _ptr(x: torch.Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
 
 
 def supports(tables: TransportTables, static: KernelStatic) -> bool:
@@ -343,23 +384,35 @@ def limits_from(readings: list[dict], old: dict, floors: dict) -> dict:
     return new
 
 
-def _library(name: str, argtypes, layout: tuple, build: str | None = None):
-    """The launch function of ``csrc/<name>.cu`` (or of its variant build
-    ``build``, ``_build.VARIANT_BUILDS``), built at first use; its table sizes
-    must be the wrapper's."""
-    lib = _build.load(build or name)
-    fn = getattr(lib, f"artes_{name}_launch")
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        sizes = (ctypes.c_int * len(layout))()
-        get = getattr(lib, f"artes_{name}_layout")
+def _library(source: str, lib: str | None = None) -> ctypes.CDLL:
+    """Library ``lib`` of kernel ``source`` (``csrc/<source>.cu``, or a
+    variant build of it, ``_build.VARIANT_BUILDS``), built at first use, with
+    the prototypes of its entry points ``artes_<source>_launch(PoolLaunch*,
+    stream)`` and ``artes_<source>_blocks(const PoolLaunch*)``. Its layout
+    must be the wrapper's: the table sizes, the kernel's out_i slots
+    (:data:`OUT_I_SLOTS`) and counters (:func:`counter_keys`), and
+    ``sizeof(PoolLaunch)``; ``pool_grid3d`` adds :data:`PHI_TABLE_MAX`."""
+    cdll = _build.load(lib or source)
+    launch = getattr(cdll, f"artes_{source}_launch")
+    if launch.argtypes is None:
+        layout = (N_SCAL, N_OUT_D, len(OUT_I_SLOTS[source]), N_IMG_D, N_IMG_I, ERR_RECORD_W,
+                  len(counter_keys(source)), ctypes.sizeof(PoolLaunch))
+        if source == "pool_grid3d":
+            layout += (PHI_TABLE_MAX,)
+        sizes = (ctypes.c_int * 16)()
+        get = getattr(cdll, f"artes_{source}_layout")
         get.argtypes = [ctypes.POINTER(ctypes.c_int)]
         get.restype = ctypes.c_int
-        get(sizes)
-        if tuple(sizes) != layout:
-            raise RuntimeError(f"{name} layout {tuple(sizes)} does not match the wrapper")
-    return fn
+        got = tuple(sizes[:get(sizes)])
+        if got != layout:
+            raise RuntimeError(f"{lib or source} layout {got} does not match the wrapper's "
+                               f"{layout}")
+        blocks = getattr(cdll, f"artes_{source}_blocks")
+        blocks.argtypes = [ctypes.POINTER(PoolLaunch)]
+        blocks.restype = ctypes.c_int
+        launch.restype = ctypes.c_int
+        launch.argtypes = [ctypes.POINTER(PoolLaunch), _PTR]
+    return cdll
 
 
 def launch_blocks(tables: TransportTables, static: KernelStatic, n: int,
@@ -368,20 +421,15 @@ def launch_blocks(tables: TransportTables, static: KernelStatic, n: int,
     ``n`` photons: the kernel's persistent grid, the blocks the card holds
     at once (fewer for a small launch), as ``artes_<kernel>_blocks`` of
     library ``lib`` (the configuration's kernel, or a variant build of it)
-    gives it; the library is built at first use. ``pool_grid3d`` is also
-    given the grid's phi faces, which size its blocks' shared memory."""
+    gives it; the library is built at first use. ``pool_grid3d``'s blocks
+    depend on the grid's phi faces too, which size their shared memory."""
     source = kernel_of(tables, static)[0]
-    fn = getattr(_build.load(lib or source), f"artes_{source}_blocks")
-    args = (variant_of(static), n, THREADS)
-    if source == "pool_grid3d":
-        args += (tables.grid.nphi,)
-    fn.argtypes = [ctypes.c_int, ctypes.c_uint] + [ctypes.c_int] * (len(args) - 2)
-    fn.restype = ctypes.c_int
+    args = PoolLaunch(variant=variant_of(static), n_photons=n, threads=THREADS,
+                      nphi=tables.grid.nphi)
     with torch.cuda.device(tables.opacity.device):
-        blocks = fn(*args)
+        blocks = getattr(_library(source, lib), f"artes_{source}_blocks")(ctypes.byref(args))
     if blocks < 1:
-        raise RuntimeError(f"{lib or source}: no resident blocks for variant "
-                           f"{variant_of(static)}")
+        raise RuntimeError(f"{lib or source}: no resident blocks for variant {args.variant}")
     return blocks
 
 
@@ -406,7 +454,7 @@ def _constants(device) -> torch.Tensor:
                            dtype=torch.float32).to(device)
 
 
-def _check_inputs(t: TransportTables) -> int:
+def _check_inputs(t: TransportTables) -> None:
     dev = t.opacity.device
     if dev.type != "cuda":
         raise ValueError(f"run_stream_cuda needs tables on a CUDA device, got {dev}")
@@ -433,7 +481,6 @@ def _check_inputs(t: TransportTables) -> int:
                              f"got {tuple(x.shape)} on {x.device}")
     if nc * 180 * 16 >= 1 << 31:
         raise ValueError(f"{nc} cells overflow the kernel's 32-bit table offsets")
-    return nr
 
 
 def _decode_records(rec: torch.Tensor) -> torch.Tensor:
@@ -445,27 +492,49 @@ def _decode_records(rec: torch.Tensor) -> torch.Tensor:
     return out[torch.argsort(out[:, 1], stable=True)].cpu()
 
 
-def _cell_tables(t: TransportTables, static: KernelStatic, scal, consts, rec, rec_count):
-    """The pointer table and sizes that ``pool_grid3d`` and ``pool_march``
-    share, with the error-record buffer ``rec`` and its row count:
-    ``(tables, sizes, keep)``; ``keep`` holds the tensors made here, which
-    must outlive the launch."""
-    g, j = t.grid, t.jump
+def _launch_args(t: TransportTables, static: KernelStatic, source: str, n: int, key_hi: int,
+                 id_lo: int, v: dict, rec, next_id, buf, counters):
+    """The :class:`PoolLaunch` of a launch of kernel ``source`` and the
+    tensors made for it, which must outlive the launch: ``(args, keep)``.
+    ``v`` holds the launch's tally views (:func:`tally_views`), ``rec`` its
+    error-record rows, ``next_id`` its photon counter, ``buf`` its flow
+    buffer and ``counters`` its counters' view (each may be None)."""
+    g = t.grid
     dev = t.opacity.device
-    theta_flags = (g.thetaplane_cone.to(torch.int32) | (g.theta_above.to(torch.int32) << 1)
-                   ).contiguous()
-    phifront = G.phi_fronts(g).contiguous()
-    # the jump tables: read by pool_grid3d only
-    jump = [None] * 6 if j is None else [j.kbar, j.dk, j.dr, j.dtt, j.dpp, j.rf2]
-    # the order of the Tables and Grid3 fields in pool_geom3d.cuh
-    ptrs = [g.rfront, t.opacity, t.albedo, t.scatter_rows, t.alpha_prefix, t.p_int, consts,
-            scal, t.emis_cum, t.cell_weight, g.theta_tan, g.theta_cos, theta_flags, g.phi_sin,
-            g.phi_cos, phifront, *jump, rec, rec_count]
-    tables = (ctypes.c_void_p * len(ptrs))(*[None if x is None else x.data_ptr()
-                                             for x in ptrs])
-    sizes = (ctypes.c_int * 8)(g.nr, g.ntheta, g.nphi, int(t.cell_depth),
-                               int(static.max_crossings), REC_CAP, static.nx, static.ny)
-    return tables, sizes, (theta_flags, phifront)
+    scal, consts = _scalars(t, static), _constants(dev)
+    keep = [scal, consts]
+    args = PoolLaunch(
+        rfront=g.rfront.data_ptr(), opacity=t.opacity.data_ptr(), albedo=t.albedo.data_ptr(),
+        scatter=t.scatter_rows.data_ptr(), prefix=t.alpha_prefix.data_ptr(),
+        p_int=t.p_int.data_ptr(), consts=consts.data_ptr(), scal=scal.data_ptr(),
+        emis_cum=t.emis_cum.data_ptr(), cell_weight=t.cell_weight.data_ptr(), nr=g.nr,
+        n_photons=n, key_hi=key_hi, id_lo=id_lo, max_scatter=int(static.max_scatter),
+        variant=variant_of(static), flags=flags_of(static), nx=static.nx, ny=static.ny,
+        img_sums=v["img_d"].data_ptr(), img_counts=v["img_i"].data_ptr(),
+        out_d=v["out_d"].data_ptr(), out_i=v["out_i"].data_ptr(), flow_g=_ptr(v["flow_g"]),
+        flow_t=_ptr(v["flow_t"]), flow_buf=_ptr(buf),
+        flow_buf_blocks=0 if buf is None else buf.numel() // (7 * t.opacity.shape[0]),
+        rec=rec.data_ptr(), rec_count=v["rec_count"].data_ptr(), rec_cap=REC_CAP,
+        next_id=next_id.data_ptr(), counters=_ptr(counters), threads=THREADS)
+    if source != "pool_radial":
+        # the 3-D grid (pool_geom3d.cuh::Grid3), which the radial kernel does not read
+        theta_flags = (g.thetaplane_cone.to(torch.int32) | (g.theta_above.to(torch.int32) << 1)
+                       ).contiguous()
+        phifront = G.phi_fronts(g).contiguous()
+        keep += [theta_flags, phifront]
+        for name, x in (("theta_tan", g.theta_tan), ("theta_cos", g.theta_cos),
+                        ("theta_flags", theta_flags), ("phi_sin", g.phi_sin),
+                        ("phi_cos", g.phi_cos), ("phifront", phifront)):
+            setattr(args, name, x.data_ptr())
+        args.ntheta, args.nphi = g.ntheta, g.nphi
+        args.cell_depth, args.max_crossings = int(t.cell_depth), int(static.max_crossings)
+        args.same_eps, args.sel2, args.boundary_tol = g.same_eps, g.sel2, g.boundary_tol
+    if source == "pool_grid3d":
+        for name in ("kbar", "dk", "dr", "dtt", "dpp", "rf2"):
+            setattr(args, name, getattr(t.jump, name).data_ptr())
+    if source == "pool_march":
+        args.surface_albedo = float(t.surface_albedo)
+    return args, keep
 
 
 def _record_rows(dev):
@@ -498,30 +567,31 @@ def record_block(rec: torch.Tensor, count: torch.Tensor, k: int = ERR_RECORD_K) 
 
 
 def _layout(source: str, static: KernelStatic, ncell: int) -> tuple:
-    """``(source, track_flow, rows, ncell, n_out_i)``: what the two tally
+    """``(source, track_flow, rows, ncell, slots)``: what the two tally
     allocations hold. float64: the kernel's out_d, img_d (rows x 8), and
-    with flow flow_g (ncell x 3) and flow_t (ncell x 4); int64: out_i, img_i
-    (rows x 2), the counters of :func:`counter_keys` and the error records'
-    row count (a 32-bit counter in the low word of the last element)."""
+    with flow flow_g (ncell x 3) and flow_t (ncell x 4); int64: out_i, whose
+    counters are named by ``slots`` (:data:`OUT_I_SLOTS`), img_i (rows x 2),
+    the counters of :func:`counter_keys` and the error records' row count (a
+    32-bit counter in the low word of the last element)."""
     npix = static.nx * static.ny
-    # the radial kernel's flow instantiations count their bookings in a sixth counter
-    n_out_i = {"pool_radial": N_OUT_IR + int(static.track_flow), "pool_grid3d": N_OUT_I3,
-               "pool_march": N_OUT_IM}[source]
-    return source, bool(static.track_flow), npix if npix > 1 else 1, ncell, n_out_i
+    flow = bool(static.track_flow)
+    slots = OUT_I_SLOTS["pool_radial_flow" if source == "pool_radial" and flow else source]
+    return source, flow, npix if npix > 1 else 1, ncell, slots
 
 
 def counter_keys(source: str) -> tuple:
     """The names of the counters kernel ``source`` counts while spans record:
     :data:`LANE_KEYS`, and after them :data:`WALK_KEYS` in ``pool_grid3d``,
-    :data:`DRAIN_KEYS` in ``pool_radial``."""
-    return LANE_KEYS + {"pool_grid3d": WALK_KEYS, "pool_radial": DRAIN_KEYS}.get(source, ())
+    :data:`DRAIN_KEYS` in ``pool_radial``; none in ``pool_march``."""
+    return {"pool_grid3d": LANE_KEYS + WALK_KEYS, "pool_radial": LANE_KEYS + DRAIN_KEYS
+            }.get(source, ())
 
 
 def _alloc(layout, dev):
-    source, flow, rows, ncell, n_out_i = layout
+    source, flow, rows, ncell, slots = layout
     flat_f = torch.zeros(N_OUT_D + rows * N_IMG_D + (7 * ncell if flow else 0),
                          dtype=torch.float64, device=dev)
-    flat_i = torch.zeros(n_out_i + rows * N_IMG_I + len(counter_keys(source)) + 1,
+    flat_i = torch.zeros(len(slots) + rows * N_IMG_I + len(counter_keys(source)) + 1,
                          dtype=torch.int64, device=dev)
     return flat_f, flat_i, tally_views(layout, flat_f, flat_i)
 
@@ -530,7 +600,8 @@ def tally_views(layout, flat_f: torch.Tensor, flat_i: torch.Tensor) -> dict:
     """The kernel's tally buffers as views into the two allocations:
     ``out_d``, ``img_d``, ``flow_g``, ``flow_t`` (None without flow),
     ``out_i``, ``img_i``, ``lanes`` and ``rec_count``."""
-    source, flow, rows, ncell, n_out_i = layout
+    source, flow, rows, ncell, slots = layout
+    n_out_i = len(slots)
     at = N_OUT_D + rows * N_IMG_D
     at_i = n_out_i + rows * N_IMG_I
     return {"out_d": flat_f[:N_OUT_D], "img_d": flat_f[N_OUT_D:at].view(rows, N_IMG_D),
@@ -549,22 +620,22 @@ def result_of(layout, flat_f: torch.Tensor, flat_i: torch.Tensor, records,
     records (float64 rows in photon-id order, of which the first and last
     ``err_k`` are kept); no value is read on the host. ``packed`` holds the
     layout and the two allocations."""
-    source, flow, rows, ncell, n_out_i = layout
+    source, flow, rows, ncell, slots = layout
     v = tally_views(layout, flat_f, flat_i)
-    out_d, out_i = v["out_d"], v["out_i"]
+    out_d = v["out_d"]
+    out_i = dict(zip(slots, v["out_i"]))
     if rows > 1:
         sums, counts = v["img_d"].reshape(rows, 2, 4).transpose(1, 2), v["img_i"]
     else:
         sums = out_d[:8].reshape(1, 2, 4).transpose(1, 2)
-        counts = torch.stack([out_i[0] + out_i[3], out_i[0]]).reshape(1, 2)
-    if source == "pool_radial":
-        # the closed form has no failure modes: only Stokes anomalies abandon
-        n_error = anomalies = out_i[4]
-        codes = torch.zeros(4, dtype=torch.int64, device=flat_i.device)
-    else:
-        peel = out_i[9:10] if source == "pool_march" else torch.zeros_like(out_i[:1])
-        n_error, anomalies = out_i[4], out_i[8]
-        codes = torch.cat([out_i[5:8], peel])
+        counts = torch.stack([out_i["scatter_peels"] + out_i["birth_peels"],
+                              out_i["scatter_peels"]]).reshape(1, 2)
+    anomalies = out_i["anomalies"]
+    # the closed form has no failure modes: only Stokes anomalies abandon
+    n_error = out_i.get("abandoned", anomalies)
+    zero = torch.zeros((), dtype=torch.int64, device=flat_i.device)
+    codes = torch.stack([out_i.get(k, zero) for k in ("e031", "e032", "e034",
+                                                      "peel_walks_failed")])
     return {
         "detector": detector_from_tallies(sums, counts),
         "flux_emitted": out_d[8],
@@ -574,13 +645,12 @@ def result_of(layout, flat_f: torch.Tensor, flat_i: torch.Tensor, records,
         "n_error": n_error,
         "error_codes": codes,
         "n_stokes_anomaly": anomalies,
-        "n_alive_at_cap": out_i[1],
-        "n_emitted": out_i[2],
+        "n_alive_at_cap": out_i["capped"],
+        "n_emitted": out_i["emitted"],
         "error_records": select_error_records([records], err_k),
         "n_error_records": flat_i[-1],
-        "n_cell_face": out_i[10] if source == "pool_march" else None,
-        "n_flow_booked": None if not flow or source == "pool_grid3d"
-        else out_i[11 if source == "pool_march" else N_OUT_IR],
+        "n_cell_face": out_i.get("cell_face"),
+        "n_flow_booked": out_i.get("flow_booked") if flow else None,
         "packed": (layout, flat_f, flat_i),
     }
 
@@ -636,7 +706,7 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
     if build is not None and _build.VARIANT_BUILDS[build][0] != source:
         raise ValueError(f"{build} is a build of {_build.VARIANT_BUILDS[build][0]}, not of "
                          f"{source}")
-    nr = _check_inputs(tables)
+    _check_inputs(tables)
     if source == "pool_grid3d" and tables.jump is None:
         raise ValueError("jump walks need the jump tables (tables.build_tables makes them)")
     n = int(n_photons)
@@ -645,11 +715,8 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
     npix = static.nx * static.ny
     if npix >= 1 << 31:
         raise ValueError(f"{npix} pixels overflow the kernel's 32-bit pixel index")
-    t = tables
-    g = t.grid
-    dev = t.opacity.device
-    variant = variant_of(static)
-    ncell = t.opacity.shape[0]
+    dev = tables.opacity.device
+    ncell = tables.opacity.shape[0]
     layout = _layout(source, static, ncell)
     flat_f, flat_i, v = _alloc(layout, dev)
     rec = _record_rows(dev)
@@ -657,9 +724,6 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
     # only the radial kernel without the anomaly check abandons no photon
     abandons = source != "pool_radial" or static.debug_stokes
     if n > 0:
-        scal = _scalars(t, static)
-        consts = _constants(dev)
-        key_hi = R.key_hi(seed, id_hi)
         lib = build or source
         # the persistent grid's photon counter (pool_common.cuh::next_photon)
         next_id = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -668,52 +732,18 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
             # the blocks' copies of the flow sums, zeroed, where they fit
             n_buf = flow_buf(ncell, launch_blocks(tables, static, n, lib))
             buf = torch.zeros(n_buf, dtype=torch.float64, device=dev) if n_buf else None
-        flow_ptrs = (None if v["flow_g"] is None else v["flow_g"].data_ptr(),
-                     None if v["flow_t"] is None else v["flow_t"].data_ptr(),
-                     None if buf is None else buf.data_ptr())
-        buf_blocks = buf.numel() // (7 * ncell) if buf is not None else 0
-        outs = (v["img_d"].data_ptr(), v["img_i"].data_ptr(), v["out_d"].data_ptr(),
-                v["out_i"].data_ptr())
         # the lane, walk and drain counters (counter_keys) and the events, while
         # recording
-        lanes = v["lanes"] if s and source != "pool_march" else None
-        lanes_ptr = None if lanes is None else lanes.data_ptr()
+        counters = v["lanes"] if s and counter_keys(source) else None
+        args, keep = _launch_args(tables, static, source, n, R.key_hi(seed, id_hi), int(id_lo),
+                                  v, rec, next_id, buf, counters)
+        launch = getattr(_library(source, lib), f"artes_{source}_launch")
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            launch = (n, key_hi, int(id_lo), int(static.max_scatter), variant, flags_of(static))
             if s:
                 events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 events[0].record()
-            if source == "pool_radial":
-                fn = _library("pool_radial", _ARGTYPES,
-                              (N_SCAL, N_OUT_D, N_OUT_IR, N_IMG_D, N_IMG_I, ERR_RECORD_W,
-                               len(counter_keys(source))), lib)
-                rc = fn(g.rfront.data_ptr(), t.opacity.data_ptr(), t.albedo.data_ptr(),
-                        t.scatter_rows.data_ptr(), t.alpha_prefix.data_ptr(),
-                        t.p_int.data_ptr(), consts.data_ptr(), scal.data_ptr(),
-                        t.emis_cum.data_ptr(), t.cell_weight.data_ptr(), nr, *launch,
-                        static.nx, static.ny, *outs, *flow_ptrs, buf_blocks,
-                        rec.data_ptr(), v["rec_count"].data_ptr(), REC_CAP,
-                        next_id.data_ptr(), lanes_ptr, THREADS, stream)
-                keep = ()
-            else:
-                ptrs, sizes, keep = _cell_tables(t, static, scal, consts, rec, v["rec_count"])
-                if source == "pool_grid3d":
-                    fn = _library("pool_grid3d", _ARGTYPES_3D,
-                                  (N_SCAL, N_OUT_D, N_OUT_I3, N_IMG_D, N_IMG_I, ERR_RECORD_W,
-                                   len(WALK_KEYS), PHI_TABLE_MAX))
-                    eps = (ctypes.c_float * 3)(g.same_eps, g.sel2, g.boundary_tol)
-                    rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
-                            ctypes.addressof(eps), *launch, *outs, next_id.data_ptr(), lanes_ptr,
-                            THREADS, stream)
-                else:
-                    fn = _library("pool_march", _ARGTYPES_MARCH,
-                                  (N_SCAL, N_OUT_D, N_OUT_IM, N_IMG_D, N_IMG_I, ERR_RECORD_W))
-                    eps = (ctypes.c_float * 4)(g.same_eps, g.sel2, g.boundary_tol,
-                                               float(t.surface_albedo))
-                    rc = fn(ctypes.addressof(ptrs), ctypes.addressof(sizes),
-                            ctypes.addressof(eps), *launch, *outs, *flow_ptrs, buf_blocks,
-                            next_id.data_ptr(), THREADS, stream)
+            rc = launch(ctypes.byref(args), stream)
             if s:
                 events[1].record()
         if rc != 0:
@@ -721,9 +751,8 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
         if build is None:
             LAUNCHES[name] += 1
         if s:
-            s.set(kernel=name, source=source, blocks=launch_blocks(tables, static, n, lib))
-            spans.later(lambda: _read_launch(s, events, v["out_i"], lanes,
-                                             counter_keys(source)))
+            s.set(kernel=name, source=source, blocks=args.blocks)
+            spans.later(lambda: _read_launch(s, events, layout, v["out_i"], counters))
         if abandons and host_records:
             with spans.span("wait"):
                 n_rec = int(v["rec_count"])             # waits for the kernel
@@ -736,16 +765,18 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
     return out
 
 
-def _read_launch(s, events, out_i, lanes, keys) -> None:
+def _read_launch(s, events, layout, out_i, counters) -> None:
     """Set a launch span's device values (:func:`run_stream_cuda`) when the
-    spans are read: the drain stamps as ``drain_ms``, and the other counters
-    ``keys``, left out where all stayed zero (an instantiation that counts
-    none)."""
+    spans are read: the out_i counters of ``layout``'s slots it reports, the
+    drain stamps as ``drain_ms``, and the other counters of
+    :func:`counter_keys`, left out where all stayed zero (an instantiation
+    that counts none)."""
     events[1].synchronize()
-    rounds, capped, emitted = out_i[:3].tolist()
-    s.set(device_ms=events[0].elapsed_time(events[1]), rounds=rounds, capped=capped,
-          photons_emitted=emitted)
-    counts = dict(zip(keys, [] if lanes is None else lanes.tolist()))
+    source, slots = layout[0], layout[-1]
+    count = dict(zip(slots, out_i.tolist()))
+    s.set(device_ms=events[0].elapsed_time(events[1]), rounds=count["scatter_peels"],
+          capped=count["capped"], photons_emitted=count["emitted"])
+    counts = dict(zip(counter_keys(source), [] if counters is None else counters.tolist()))
     first, last = (counts.pop(k, 0) for k in DRAIN_KEYS)
     if last:
         # the earliest stamp is kept as its complement (pool_radial.cu::drain_stamp)

@@ -26,7 +26,6 @@ the JAX package and the records of BASELINE_RUNS.json, on the CPU.
 """
 
 import json
-import os
 import pathlib
 import subprocess
 import sys
@@ -50,19 +49,12 @@ from artes_tpu_torch.transport import convert
 from artes_tpu_torch.transport import kernel as TK
 from test_torch_pool import JAX_WIDTH, _close, _diverging, _tallies, assert_matches_jax
 from test_torch_standalone import _same
+from torch_threads import one_thread, one_thread_env  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 N = 1 << 10
 # BASELINE #2's angles: their index in the phase curve gives their seed
 ANGLES_2 = (1.0e-5, 97.5, 177.5)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _atm(chain, package):
@@ -286,7 +278,7 @@ def test_summed_as_record_weighs_the_chunks_by_their_photons():
 
 @pytest.mark.parametrize("chain,photons", [(1, 512), (2, 64), (5, 512)])
 def test_chain_runs_on_the_cpu(chain, photons):
-    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env = one_thread_env(PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-m", "artes_tpu_torch.baselines", str(chain),
                            "--device", "cpu", "--photons", str(photons)],
                           capture_output=True, text=True, env=env, timeout=300)

@@ -46,16 +46,9 @@ from artes_tpu_torch.transport import convert
 from test_torch_grid3d import assert_matches_jax_3d
 from test_torch_pool import assert_matches_jax
 from test_torch_standalone import _same
+from torch_threads import one_thread, one_thread_env  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _tool(name):
@@ -174,7 +167,7 @@ def test_mie_deck_matches_tool():
 
 @pytest.mark.parametrize("chain,photons", [(3, 256), (4, 4096)])
 def test_chain_runs_on_the_cpu(chain, photons):
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = one_thread_env(PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-m", "artes_tpu_torch.baselines", str(chain),
                            "--device", "cpu", "--photons", str(photons)],
                           capture_output=True, text=True, env=env, timeout=300)

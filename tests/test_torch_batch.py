@@ -42,6 +42,7 @@ from artes_tpu_torch import cells, presets
 from artes_tpu_torch.transport import convert
 from artes_tpu_torch.transport import kernel as TK
 from artes_tpu_torch.transport import sampling as TS
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 11
 N_BATCH = 192
@@ -73,14 +74,6 @@ CASES = {
                        dict(photon_source="planet", photon_scattering=False)),
     "debug stokes": (cells.flagship, dict(debug_stokes=True)),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def setup(atm, keys):

@@ -25,6 +25,7 @@ from artes_tpu import runner as jax_runner
 from artes_tpu.atmosphere import load_artifact
 from artes_tpu.config import ArtesConfig
 from artes_tpu_torch import cells, cli, output, runner
+from torch_threads import one_thread, one_thread_env  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -93,7 +94,7 @@ def test_port_runs_with_jax_blocked(quickstart):
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in sys.modules.items()\n"
         "               if v is not None)\n"
         "print('ran without jax')\n")
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = one_thread_env(PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(quickstart), env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr

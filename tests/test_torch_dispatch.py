@@ -30,6 +30,7 @@ from artes_tpu_torch.parallel import mesh as M
 from artes_tpu_torch.transport import kernel as TK
 from test_torch_mesh import (N_RUN, SEED, assert_same_run, assert_same_tallies, case_config,
                              case_tables, run_ranks)
+from torch_threads import one_thread  # noqa: F401
 
 # the cases of test_torch_mesh run through the dispatches; chunks of 128 ids
 DISPATCH_CASES = ("flagship", "flow", "image over a surface")
@@ -91,14 +92,6 @@ def jax_case_run(name, dispatch, monkeypatch):
     det = jax_detector_setup(cfg, float(atm.rfront[-1]))
     return jax_runner.run_wavelength(atm, cfg, det, 0, N_RUN, seed=SEED, batch_size=BATCH,
                                      dtype=jnp.float64, dispatch=dispatch)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -41,25 +41,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from artes_tpu.transport import kernel as JK
 from artes_tpu_torch import cells
 from artes_tpu_torch.transport import kernel as TK
 from test_torch_pool import setup
+from torch_threads import one_thread  # noqa: F401
 
 N = 1 << 13
 SEED = 30
 MIN_FAILED_PEELS = 30
 MAX_COMPILED_PASSES = 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def rates(out):

@@ -44,16 +44,9 @@ from artes_tpu_torch.transport import pool_cuda
 from artes_tpu_torch.transport import radial as TRAD
 from test_torch_grid3d import JAX_WIDTH, SEED, assert_matches_jax_3d
 from test_torch_pool import _close, _tallies, setup
+from torch_threads import one_thread  # noqa: F401
 
 FLOW = dict(flow_global=True, flow_theta=True)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 class FlowAcc:

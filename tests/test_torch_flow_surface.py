@@ -6,17 +6,9 @@ the two files share the time between test workers.
 """
 
 import pytest
-import torch
 
 from test_torch_flow import SURFACE_CASES, check_plain_flow
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("case", SURFACE_CASES)

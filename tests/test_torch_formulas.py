@@ -20,6 +20,7 @@ from artes_tpu.transport import sampling as JS
 from artes_tpu_torch.transport import mueller as TM
 from artes_tpu_torch.transport import radial as TRAD
 from artes_tpu_torch.transport import sampling as TS
+from torch_threads import one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-12, 1e-14
 

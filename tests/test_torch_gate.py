@@ -18,6 +18,7 @@ import torch
 
 from artes_tpu_torch import baselines, cells, runner
 from artes_tpu_torch.transport import pool_cuda
+from torch_threads import one_thread  # noqa: F401
 
 # the former limits, set from single readings while nvcc still contracted the
 # kernels' multiply-adds, before limits_from's rule

@@ -17,6 +17,7 @@ import torch
 from artes_tpu.transport import geometry as JG
 from artes_tpu_torch.transport import geometry as TG
 from test_geometry import GRIDS, FakeAtm, locate, sample_interior
+from torch_threads import one_thread  # noqa: F401
 
 RTOL = 1e-12
 INT_KEYS = ("next_face", "cell_out", "grid_exit", "error", "err_nocand", "err_degen")

@@ -9,6 +9,7 @@ out):
 
 import os
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from artes_tpu_torch.parallel import mesh
 from artes_tpu_torch.cells import CELLS, KERNEL_CELLS, gate_photons, spectrum_tables
 from artes_tpu_torch.transport import kernel, pool_cuda
 from test_torch_gate import FORMER_LIMITS
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 7
 
@@ -543,13 +545,16 @@ def test_drain_stamps_change_no_tally(cuda, name, monkeypatch):
     buffers = []
     library = pool_cuda._library
 
-    def spy(*args, **kw):
-        fn = library(*args, **kw)
+    def spy(source, lib=None):
+        cdll = library(source, lib)
+        launch = getattr(cdll, f"artes_{source}_launch")
 
-        def launch(*a):
-            buffers.append(a[-3])               # lanes: the counters' pointer
-            return fn(*a)
-        return launch
+        def counted(args, stream):
+            buffers.append(args._obj.counters)  # the counters' pointer of the PoolLaunch
+            return launch(args, stream)
+        return types.SimpleNamespace(**{f"artes_{source}_launch": counted,
+                                        f"artes_{source}_blocks":
+                                        getattr(cdll, f"artes_{source}_blocks")})
 
     monkeypatch.setattr(pool_cuda, "_library", spy)
     off = pool_cuda.run_stream_cuda(tables, static, n, SEED)

@@ -19,6 +19,7 @@ from artes_tpu_torch import spans
 from artes_tpu_torch.cells import KERNEL_CELLS
 from artes_tpu_torch.parallel import mesh
 from artes_tpu_torch.transport import pool_cuda
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 7
 # the stellar spectrum's cells, at photons enough a lane of the persistent

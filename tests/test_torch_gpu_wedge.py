@@ -21,6 +21,7 @@ import torch
 from artes_tpu_torch import _build, cells, spans
 from artes_tpu_torch.cells import gate_photons, spectrum_tables
 from artes_tpu_torch.transport import kernel, pool_cuda
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 7
 # one grid a size class of the table: none, the least, the deck's, the most, one past
@@ -53,18 +54,18 @@ def test_phi_table_max_is_the_kernels():
 @pytest.mark.parametrize("source", ["pool_radial", "pool_grid3d", "pool_march"])
 def test_counter_slots_by_kernel(source):
     """``pool_grid3d`` counts its jump walks in two slots after the four lane
-    counters, ``pool_radial`` stamps its drain in two; ``pool_march`` keeps
-    the four."""
+    counters, ``pool_radial`` stamps its drain in two; ``pool_march`` counts
+    none (its layout on the card says so too)."""
     keys = pool_cuda.counter_keys(source)
-    assert keys[:4] == pool_cuda.LANE_KEYS
-    assert keys[4:] == {"pool_grid3d": pool_cuda.WALK_KEYS,
-                        "pool_radial": pool_cuda.DRAIN_KEYS}.get(source, ())
+    assert keys == {"pool_grid3d": pool_cuda.LANE_KEYS + pool_cuda.WALK_KEYS,
+                    "pool_radial": pool_cuda.LANE_KEYS + pool_cuda.DRAIN_KEYS,
+                    "pool_march": ()}[source]
     tables, static = spectrum_tables(cells.wedge_grid(8), torch.device("cpu"))
     layout = pool_cuda._layout(source, static, tables.opacity.shape[0])
     flat_f, flat_i, v = pool_cuda._alloc(layout, torch.device("cpu"))
     assert v["lanes"].numel() == len(keys)
     assert v["rec_count"].data_ptr() == flat_i[-1:].data_ptr()
-    assert v["lanes"].data_ptr() + 8 * len(keys) == flat_i[-1:].data_ptr()
+    assert v["lanes"].storage_offset() + len(keys) == flat_i.numel() - 1
 
 
 @pytest.mark.parametrize("nphi", WEDGES)

@@ -37,17 +37,10 @@ from artes_tpu_torch import cells, cli, runner
 from artes_tpu_torch.transport import convert
 from artes_tpu_torch.transport import kernel as TK
 from test_torch_pool import _close, _diverging, _tallies, setup
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 9
 JAX_WIDTH = 256
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def two_species_3d():

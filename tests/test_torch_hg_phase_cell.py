@@ -17,6 +17,7 @@ from artes_tpu_torch import presets, runner, spans
 from artes_tpu_torch.atmosphere import Atmosphere
 from artes_tpu_torch.config import ArtesConfig, detector_setup
 from portbench import check, hg_table, inputs, run
+from torch_threads import one_thread  # noqa: F401
 
 CELL = "hg_deck_phase_curve"
 

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_pool import SEED, assert_matches_jax, setup
-from test_torch_pool import one_thread  # noqa: F401  (autouse, module scope)
+from torch_threads import one_thread  # noqa: F401
 
 from artes_tpu import cli as jax_cli
 from artes_tpu import presets

@@ -36,6 +36,7 @@ from artes_tpu_torch import cells
 from artes_tpu_torch.transport import jumps as TJ
 from artes_tpu_torch.transport import radial as RAD
 from test_torch_jumps import RTOL, rays
+from torch_threads import one_thread  # noqa: F401
 
 DECKS = {"grid3d_2496": cells.grid3d_2496, "blended_5184": cells.blended_5184}
 N = 2048

@@ -24,6 +24,7 @@ from artes_tpu_torch.transport import convert
 from artes_tpu_torch.transport import geometry as TG
 from artes_tpu_torch.transport import jumps as TJ
 from test_jumps import _brute, _env_from_tables
+from torch_threads import one_thread  # noqa: F401
 
 RTOL = 1e-12
 

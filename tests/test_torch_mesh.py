@@ -37,6 +37,7 @@ from artes_tpu_torch import cells, presets, runner
 from artes_tpu_torch.config import ArtesConfig, detector_setup
 from artes_tpu_torch.parallel import mesh as M
 from artes_tpu_torch.transport import kernel as TK
+from torch_threads import one_thread, one_thread_env  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 5
@@ -131,10 +132,9 @@ def run_ranks(tmp_path, size, argv, timeout=300):
     port = free_port()
     procs, logs = [], []
     for rank in range(size):
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   WORLD_SIZE=str(size), RANK=str(rank), LOCAL_RANK=str(rank),
-                   OMP_NUM_THREADS="1",
-                   PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env = one_thread_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                             WORLD_SIZE=str(size), RANK=str(rank), LOCAL_RANK=str(rank),
+                             PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
         env.pop("XLA_FLAGS", None)
         log = open(tmp_path / f"rank{rank}.log", "w")
         logs.append(log)

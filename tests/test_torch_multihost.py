@@ -27,6 +27,7 @@ from artes_tpu_torch import cells, cli, presets, runner
 from artes_tpu_torch.config import ArtesConfig
 from artes_tpu_torch.parallel import multihost
 from test_torch_mesh import run_ranks
+from torch_threads import one_thread  # noqa: F401
 
 WAVELENGTHS = (0.5, 0.6, 0.7, 0.8)
 

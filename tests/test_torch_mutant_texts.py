@@ -13,6 +13,7 @@ import pytest
 from artes_tpu_torch import _build
 from artes_tpu_torch.cells import KERNEL_CELLS
 from test_torch_gpu import MUTANTS
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("fault", sorted(MUTANTS))

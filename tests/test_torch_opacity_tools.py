@@ -37,6 +37,7 @@ from artes_tpu_torch.opacity import ptprofile as t_ptprofile
 from artes_tpu_torch.opacity.base import p11_norm
 from test_mie_molecules import make_molecule_dir
 from test_torch_standalone import _same
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

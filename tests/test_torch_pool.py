@@ -34,20 +34,10 @@ from artes_tpu_torch.cells import CELLS as CONFIGS
 from artes_tpu_torch.cells import spectrum_tables
 from artes_tpu_torch.transport import convert, pool_cuda
 from artes_tpu_torch.transport import kernel as TK
+from torch_threads import one_thread  # noqa: F401
 
 SEED = 7
 JAX_WIDTH = 1024
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module's tests, restored after: the plain
-    version runs many small tensor ops, for which threads cost more than
-    they give (several times the wall time with 8 threads)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def setup(name, dtype, crescent=False, **cfg_keys):

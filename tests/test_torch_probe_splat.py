@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from artes_tpu_torch import probe_splat as P
+from torch_threads import one_thread  # noqa: F401
 
 ROUNDS = 20
 

@@ -12,6 +12,7 @@ import torch
 
 from artes_tpu.transport import rng as JR
 from artes_tpu_torch.transport import rng as TR
+from torch_threads import one_thread  # noqa: F401
 
 u32 = jnp.uint32
 

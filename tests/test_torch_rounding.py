@@ -47,6 +47,7 @@ from artes_tpu_torch import cells
 from artes_tpu_torch.transport import geometry as TG
 from artes_tpu_torch.transport import jumps as TJ
 from artes_tpu_torch.transport import kernel as TK
+from torch_threads import one_thread  # noqa: F401
 
 N = 4096
 GRIDS = {"hydrostatic39": cells.hydrostatic39, "grid3d_2496": cells.grid3d_2496}

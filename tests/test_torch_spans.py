@@ -24,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from artes_tpu_torch import cells, cli, presets, runner, spans
 from artes_tpu_torch.config import ArtesConfig, detector_setup
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -37,6 +37,7 @@ import artes_tpu_torch.io.fitsio as t_fitsio
 import artes_tpu_torch.opacity as t_opacity
 import artes_tpu_torch.opacity.base as t_base
 import artes_tpu_torch.presets as t_presets
+from torch_threads import one_thread, one_thread_env  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -73,7 +74,8 @@ loaded = [m for m, v in sys.modules.items() if v is not None
 assert not loaded, loaded
 print('ran alone')
 """
-    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env = one_thread_env(
+        PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(tmp_path), env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

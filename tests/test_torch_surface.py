@@ -35,14 +35,7 @@ from artes_tpu_torch.transport import kernel as TK
 from test_geometry import locate
 from test_torch_grid3d import assert_matches_jax_3d, records_of
 from test_torch_pool import setup
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from torch_threads import one_thread  # noqa: F401
 
 
 # a walk sums up to a dozen cell_face distances, each equal at 1e-12; on shells

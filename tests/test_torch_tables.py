@@ -23,6 +23,7 @@ from artes_tpu_torch.cells import flagship, hydrostatic39
 from artes_tpu_torch.transport import convert
 from artes_tpu_torch.transport import geometry as TG
 from artes_tpu_torch.transport import tables as TT
+from torch_threads import one_thread  # noqa: F401
 
 
 ATMOSPHERES = {

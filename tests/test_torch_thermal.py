@@ -18,7 +18,7 @@ import os
 import numpy as np
 import pytest
 from test_torch_pool import SEED, assert_matches_jax, setup
-from test_torch_pool import one_thread  # noqa: F401  (autouse, module scope)
+from torch_threads import one_thread  # noqa: F401
 
 from artes_tpu import cli as jax_cli
 from artes_tpu.config import ArtesConfig, detector_setup
