@@ -35,7 +35,10 @@
 // Peels, the prewalk and the exit precheck are jump walks: the closed-form
 // radial chords carry the baseline opacity kbar[shell], and every face the
 // ray crosses (nr-1 radial, NT-1 theta, NP phi faces, at run-time sizes)
-// adds its opacity jump from the per-face difference tables dr/dtt/dpp. The
+// adds its opacity jump from the per-face difference tables dr/dtt/dpp. One
+// pass up the radial faces solves each face's sphere once (nr + 2 roots a
+// walk with the floor's and the outer face's) and takes from it both the
+// kbar chords of the shell below and the face's two jumps. The
 // phi wedge of a crossing is the count of phi half-plane crossings at or
 // below it: a walk evaluates its NP half-plane crossings once, into its
 // thread's column of a table in dynamic shared memory (NP x threads floats,
@@ -64,7 +67,9 @@
 // scattering on, and rare photons took other paths (on the Mie deck, 18
 // peels against 8); op by op both take the same paths. The jump terms and
 // the kbar chords are summed left to right in float32, as the plain
-// version's radial.left_scan sums them (with the chords'
+// version's radial.left_scan sums them: the jumps in the reference's order,
+// the kbar chords in the port's own, the inbound chords from shell 0 up in
+// one sum, the outbound ones in another, then the two sums (with the chords'
 // torch.cumsum it parted photons 73722, 86952 and 132818 of grid3d_2496 at
 // seed 9, and none without); acosf, cosf, sinf, expf, logf, tanf and atan2f
 // round as PyTorch's functions do on the card (python -m
@@ -79,7 +84,7 @@
 //
 // What bounds it on an H100: arithmetic, divergence and table latency, not
 // memory bandwidth. Marches differ by tens of crossings between the photons
-// of a warp; a jump walk costs NP plane evaluations, 2 (nr + 1) chords and
+// of a warp; a jump walk costs NP plane evaluations, nr + 2 sphere roots and
 // (2 nr + 2 NT + NP) crossings, each with NP table reads (NP plane
 // evaluations each past PHI_TABLE_MAX); the per-cell scatter tables (36 MB
 // at 2,496 cells) are gathered at random from L2.
@@ -155,31 +160,15 @@ __device__ __forceinline__ bool roots_fma(const Ray& r, float r_face, float& lo,
   return ok;
 }
 
-// the jump walk's baseline: the optical depth of the shells' kbar along the
-// ray's chords to the boundary or the floor at s_surf (radial.tau_walk)
-__device__ float tau_kbar(const Tables& T, const Grid3& G, const Ray& r, bool surface_hit,
-                          float s_surf) {
-  float tau = 0.0f, lo, hi;
-  roots_fma(r, __ldg(T.rfront + T.nr), lo, hi);
-  float e_hi = fmaxf(lo, 0.0f);
-  for (int m = T.nr - 1; m >= 0; --m) {
-    roots_fma(r, __ldg(T.rfront + m), lo, hi);
-    const float e_lo = fmaxf(lo, 0.0f);
-    const float seg = fmaxf(fminf(e_lo, s_surf) - fminf(e_hi, s_surf), 0.0f);
-    tau += __ldg(G.kbar + m) * seg;
-    e_hi = e_lo;
-  }
-  if (!surface_hit) {
-    roots_fma(r, __ldg(T.rfront), lo, hi);
-    float h_lo = fmaxf(hi, 0.0f);
-    for (int m = 0; m < T.nr; ++m) {
-      roots_fma(r, __ldg(T.rfront + m + 1), lo, hi);
-      const float h_hi = fmaxf(hi, 0.0f);
-      tau += __ldg(G.kbar + m) * fmaxf(h_hi - h_lo, 0.0f);
-      h_lo = h_hi;
-    }
-  }
-  return tau;
+// shell m's part of the jump walk's kbar baseline, from the clamped roots of
+// its faces, m (e_lo, h_lo) and m + 1 (e_hi, h_hi): the inbound chord, cut at
+// the floor's s_surf, into tau_in, and the outbound chord, where the ray does
+// not end on the floor, into tau_out (jumps.tau_walk_jumps)
+__device__ __forceinline__ void add_shell(float kb, float e_lo, float h_lo, float e_hi,
+                                          float h_hi, float s_surf, bool surface_hit,
+                                          float& tau_in, float& tau_out) {
+  tau_in += kb * fmaxf(fminf(e_lo, s_surf) - fminf(e_hi, s_surf), 0.0f);
+  if (!surface_hit) tau_out += kb * fmaxf(h_hi - h_lo, 0.0f);
 }
 
 // a ray for the jump walk: the sphere quadratic and what the crossings need
@@ -282,35 +271,48 @@ __device__ float walk_jumps(const Tables& T, const Grid3& G, const Scal& S, cons
   if (TABLED)
     for (int j = 0; j < G.np; ++j) phi_column()[j * blockDim.x] = phi_crossing(G, J, j);
   count_walk(walks, TABLED);
-  // the floor: hit where the forward path enters the photon-floor sphere
-  float lo_f, hi_f, lo_o, hi_o;
-  surface_hit = roots_fma(J.r, S.rfloor, lo_f, hi_f) && lo_f > S.pos_eps;
-  const float s_surf = surface_hit ? lo_f : BIG;
-  const float tau_bar = tau_kbar(T, G, J.r, surface_hit, s_surf);
-  roots_fma(J.r, __ldg(T.rfront + T.nr), lo_o, hi_o);
-  J.s_end = surface_hit ? s_surf : fmaxf(hi_o, 0.0f);
-  const float s_end = J.s_end;
   const int nr = T.nr, NT = G.nt, NP = G.np;
+  // the floor and the outer face first: where the path ends, s_end, which
+  // every jump term needs
+  float lo, hi;
+  surface_hit = roots_fma(J.r, S.rfloor, lo, hi) && lo > S.pos_eps;
+  const float s_surf = surface_hit ? lo : BIG;
+  roots_fma(J.r, __ldg(T.rfront + nr), lo, hi);
+  const float e_top = fmaxf(lo, 0.0f);
+  J.s_end = surface_hit ? s_surf : fmaxf(hi, 0.0f);
+  const float s_end = J.s_end;
   const float pz = p[2], dz = d[2];
 
   float dk_sum = __ldg(G.dk + (cell[0] * NT + cell[1]) * NP + cell[2]) * s_end;
 
-  // radial faces: inbound at e (shell j -> j-1), outbound at h
+  // the radial faces in one pass up, each face's roots solved once: face j
+  // closes shell j - 1's kbar chords (add_shell) and adds its two jumps,
+  // inbound at e (shell j -> j-1) and outbound at h; the outer face's roots
+  // close shell nr - 1 (its h is s_end wherever the outbound chords count)
+  roots_fma(J.r, __ldg(T.rfront), lo, hi);
+  float e_lo = fmaxf(lo, 0.0f), h_lo = fmaxf(hi, 0.0f);
+  float tau_in = 0.0f, tau_out = 0.0f;
   for (int j = 1; j < nr; ++j) {
     const float rf = __ldg(T.rfront + j);
-    float lo, hi;
     roots_fma(J.r, rf, lo, hi);
+    const float e = fmaxf(lo, 0.0f), h = fmaxf(hi, 0.0f);
+    add_shell(__ldg(G.kbar + j - 1), e_lo, h_lo, e, h, s_surf, surface_hit, tau_in, tau_out);
     const float inv_rf = 1.0f / rf;
     const float* row = G.dr + (size_t)(j - 1) * NT * NP;
     for (int k = 0; k < 2; ++k) {
-      const float t = fmaxf(k == 0 ? lo : hi, 0.0f);
+      const float t = k == 0 ? e : h;
       if (!(t > 0.0f && t < BIG)) continue;
       const int ct_i = ct_at(G, J.sq_c * (pz + t * dz) * inv_rf);
       const int cp_i = cp_at<TABLED>(G, J, t);
       const float delta = __ldg(row + ct_i * NP + cp_i);
       dk_sum += jump_term(k == 0 ? -delta : delta, s_end, t);
     }
+    e_lo = e;
+    h_lo = h;
   }
+  add_shell(__ldg(G.kbar + nr - 1), e_lo, h_lo, e_top, s_end, s_surf, surface_hit, tau_in,
+            tau_out);
+  const float tau_bar = tau_in + tau_out;
 
   // theta faces: the cone's low then high root, or the plane's one crossing
   if (NT > 1) {

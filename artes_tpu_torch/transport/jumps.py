@@ -9,7 +9,9 @@ with t_i the ray's face-crossing parameters (radial spheres and theta cones:
 quadratic roots; the theta = 90 deg plane and the phi half-planes: linear)
 and dk_i the opacity jump across crossing i. The opacity splits as
 ``k[cell] = kbar[cr] + dk[cr, ct, cp]`` with ``kbar[m] = k[m, 0, 0]``: the
-kbar part is the closed-form radial walk of ``radial.py``, and only the dk
+kbar part is the radial chords of ``radial.py`` (the inbound chords and the
+outbound ones each summed from shell 0 up, then the two sums added: the
+3-D kernel's order, not the closed form's path order), and only the dk
 part pays per-crossing jumps, each read from a per-face difference table
 
     DR[j][a]    = dk[j, a] - dk[j-1, a]          (radial face j; a = ct*NP+cp)
@@ -136,10 +138,20 @@ def tau_walk_jumps(grid, jt: JumpTables, rf_floor, px, py, pz, dx, dy, dz, cr0, 
     # ray quadratic in transformed coordinates: r^2(t) = A t^2 + 2 B t + C
     A, Bq, Cq = quad_terms(a2, b2, c2, px, py, pz, dx, dy, dz)
 
-    # radial chords and the kbar baseline (the closed form's, in the chains)
+    # radial chords (the closed form's, in the chains) and the kbar baseline:
+    # shell m's inbound chord, cut at the floor, and its outbound chord where
+    # the ray does not end on the floor, each kind summed over shells 0 ..
+    # nr-1 in a sum of its own, as the 3-D kernel's one pass over the faces
+    # adds them (the closed form's path order, tau_from_chords, adds inbound
+    # shells nr-1 .. 0, then outbound)
     e, h, surface_hit, s_surf = RAD.chords(A, Bq, Cq, grid.rfront, rf_floor, grid.pos_eps,
                                            chord_disc)
-    tau_bar = RAD.tau_from_chords(e, h, surface_hit, s_surf, jt.kbar)
+    s_col = s_surf.unsqueeze(-1)
+    inbound = jt.kbar * torch.clamp_min(
+        torch.minimum(e[..., :nr], s_col) - torch.minimum(e[..., 1:], s_col), 0.0)
+    outbound = torch.where(surface_hit.unsqueeze(-1), 0.0,
+                           jt.kbar * torch.clamp_min(h[..., 1:] - h[..., :-1], 0.0))
+    tau_bar = RAD.left_scan(inbound)[..., -1] + RAD.left_scan(outbound)[..., -1]
     s_end = torch.where(surface_hit, s_surf, h[..., nr])
 
     col = [v.unsqueeze(-1) for v in (px, py, pz, dx, dy, dz, A, Bq, Cq)]

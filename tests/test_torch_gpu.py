@@ -200,6 +200,13 @@ MUTANTS = {
         "pool_grid3d.cu", "const bool no_scatter = (flags & F_NO_SCATTER) != 0;",
         "const bool no_scatter = false;",
         ("noscatter_patchy3d",)),
+    # the jump walk's one pass over the radial faces: shell j - 1's kbar
+    # chords weighed with the kbar of the shell above (seen only where kbar
+    # steps between shells: not on the Mie deck, whose zone (0, 0) is clear)
+    "jump walk chords with the kbar of the shell above": (
+        "pool_grid3d.cu", "add_shell(__ldg(G.kbar + j - 1), e_lo,",
+        "add_shell(__ldg(G.kbar + j), e_lo,",
+        ("grid3d_2496", "blended_5184", "grid3d_thermal")),
     # small faults of the main path, pool_radial <false, false, false>: each
     # moves the flagship's I and Q sums by under MAIN_PATH_SMALL
     "peel matrix angle from a rounded degree": (

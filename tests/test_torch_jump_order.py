@@ -1,10 +1,16 @@
-"""The plain walks add their terms as the reference does: one at a time,
-left to right, in the walk's dtype (``radial.left_scan``).
+"""The plain walks add their terms as the kernels do: one at a time, left
+to right, in the walk's dtype (``radial.left_scan``).
 
 The reference adds each jump term to a running sum
 (artes_tpu/transport/jumps.py:196-205) and each shell segment to a running
 optical depth (artes_tpu/transport/radial.py:110-124, :205-240), and so do
-the kernels (csrc/pool_grid3d.cu, pool_common.cuh::tau_walk, pool_radial.cu).
+the closed-form walk and march on both sides (pool_common.cuh::tau_walk,
+pool_radial.cu) and the jump walk's jump terms. The jump walk's kbar
+baseline adds in the port's own order on both sides
+(csrc/pool_grid3d.cu::walk_jumps, ``jumps.tau_walk_jumps``): its one pass
+over the radial faces sums the inbound chords from shell 0 up, the outbound
+ones likewise, then the two sums (tests/test_torch_jump_roots.py), where the
+reference adds inbound shells from the top down, then outbound, in one sum.
 The port's walks used ``torch.cumsum``, which is not that sum on either
 device: on the CPU it carries float32 in float64 and rounds each prefix
 once, and on a card its scan adds in another order. On the grid3d_2496 and
