@@ -11,7 +11,8 @@
 // plain PyTorch version is artes_tpu_torch/transport/kernel.py::run_stream in
 // walk mode "march" (_tau_walk_march, _march_cells).
 //
-// Eight compile-time instantiations, pool_march_kernel<THERMAL, IMAGE, FLOW>.
+// Eight compile-time instantiations, pool_march_kernel<THERMAL, IMAGE, FLOW>,
+// each with a counting twin (COUNTS, below).
 // The surface albedo is a run-time scalar: at albedo 0 (3-D flow without a
 // surface) the floor absorbs through the same `u > albedo` test. A radial
 // grid runs with nt = np = 1.
@@ -42,6 +43,17 @@
 // banked budget have no counterpart. Peels and the prewalk march cell_face
 // too, stop at the grid's edge, the floor face or an error, and fail when
 // still marching after max_crossings passes.
+//
+// Counts. out_i counts the passes of cell_face every walk made (C_PASSES)
+// and, with FLOW, the passes that booked flow. Given a buffer for them
+// (pool_cuda passes one while artes_tpu_torch.spans records), a launch also
+// counts its warps' passes through the persistent loop's refill and round
+// branches and their active lanes (pool_common.cuh::lane_pass), in every
+// instantiation: it launches the instantiation's twin with COUNTS set, on the
+// same grid. Without a buffer it launches the one without: the counting code
+// in the loop, skipped at a null buffer, cost 0.8-2.5% of the kernel's time on
+// the surface cells (H100, PERF.md), so that the loop a launch runs unrecorded
+// holds none of it.
 //
 // Flow. Every pass of a transport march adds energy x step projected on the
 // local (r, theta, phi) unit vectors at the advanced position into the cell
@@ -225,13 +237,15 @@ __device__ int march_cells(const Tables& T, const Grid3& G, const Scal& S, float
 // Registers budgeted for four blocks of 256 an SM on a surface (64, spilling:
 // more warps hide the latency), two with flow (128, no spills), the fastest
 // of one to four on an H100 (PERF.md)
-template <bool THERMAL, bool IMAGE, bool FLOW>
+template <bool THERMAL, bool IMAGE, bool FLOW, bool COUNTS>
 __global__ void __launch_bounds__(256, FLOW ? 2 : 4)
 pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
                   uint32_t n_photons, uint32_t key_hi, uint32_t id_lo, int max_scatter,
                   int flags, float surface_albedo, double* __restrict__ out_d,
                   unsigned long long* __restrict__ out_i, double* flow_g, double* flow_t,
-                  double* flow_buf, unsigned long long* next_id) {
+                  double* flow_buf, unsigned long long* next_id, unsigned long long* lanes) {
+  __shared__ unsigned long long lanes_sh[N_LANE];
+  if constexpr (COUNTS) lanes_begin(lanes_sh, lanes);
   const int ncell = T.nr * G.nt * G.np;
   Flow fl{nullptr, nullptr};
   if constexpr (FLOW) fl = flow_begin(flow_g, flow_t, flow_buf, ncell);
@@ -267,6 +281,8 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
   // with one
   while (true) {
     if (!alive) {
+      // before the break: every lane's last pass counts
+      if constexpr (COUNTS) lane_pass(lanes_sh, L_REFILL, lanes);
       const unsigned long long i = next_photon(next_id);
       if (i >= n_photons) break;
       pid = id_lo + (uint32_t)i;
@@ -324,6 +340,7 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
       n_scat = 0;
     } else {
       // the scattering round after march n_scat (ARTES.f90:786-951)
+      if constexpr (COUNTS) lane_pass(lanes_sh, L_ROUND, lanes);
       alive = false;
       if (n_scat > 0 && n_scat >= max_scatter) {
         cnt[1] += 1;
@@ -402,31 +419,35 @@ pool_march_kernel(Tables T, Grid3 G, const float* __restrict__ scal, Image img,
   }
 
   if constexpr (FLOW) flow_end(flow_g, flow_t, fl, ncell);
+  if constexpr (COUNTS) lanes_end(lanes_sh, lanes);
   reduce_block<N_OUT_D, N_OUT_IM>(acc, cnt, out_d, out_i);
 }
 
 using KernelFn = void (*)(Tables, Grid3, const float*, Image, uint32_t, uint32_t, uint32_t, int,
                           int, float, double*, unsigned long long*, double*, double*, double*,
-                          unsigned long long*);
-// the instantiation of a variant: bit 0 thermal, bit 1 image, bit 2 flow
+                          unsigned long long*, unsigned long long*);
+// the instantiation of a variant (bit 0 thermal, bit 1 image, bit 2 flow),
+// counting or not
+template <bool COUNTS>
 KernelFn variant_fn(int variant) {
   switch (variant) {
-    case 0: return pool_march_kernel<false, false, false>;
-    case 1: return pool_march_kernel<true, false, false>;
-    case 2: return pool_march_kernel<false, true, false>;
-    case 3: return pool_march_kernel<true, true, false>;
-    case 4: return pool_march_kernel<false, false, true>;
-    case 5: return pool_march_kernel<true, false, true>;
-    case 6: return pool_march_kernel<false, true, true>;
-    default: return pool_march_kernel<true, true, true>;
+    case 0: return pool_march_kernel<false, false, false, COUNTS>;
+    case 1: return pool_march_kernel<true, false, false, COUNTS>;
+    case 2: return pool_march_kernel<false, true, false, COUNTS>;
+    case 3: return pool_march_kernel<true, true, false, COUNTS>;
+    case 4: return pool_march_kernel<false, false, true, COUNTS>;
+    case 5: return pool_march_kernel<true, false, true, COUNTS>;
+    case 6: return pool_march_kernel<false, true, true, COUNTS>;
+    default: return pool_march_kernel<true, true, true, COUNTS>;
   }
 }
 
-// the persistent grid of launch `a`; 0 blocks when the variant is unknown
-// or the card's occupancy cannot be read
+// the persistent grid of launch `a`, by the occupancy of the instantiation
+// that does not count (its twin has the same launch bounds); 0 blocks when
+// the variant is unknown or the card's occupancy cannot be read
 int launch_grid(const PoolLaunch& a) {
   if (a.variant < 0 || a.variant > 7) return 0;
-  const int resident = resident_blocks(a.variant, variant_fn(a.variant), a.threads);
+  const int resident = resident_blocks(a.variant, variant_fn<false>(a.variant), a.threads);
   return resident < 1 ? 0 : persistent_blocks(resident, a.n_photons, a.threads);
 }
 
@@ -435,10 +456,12 @@ int launch_grid(const PoolLaunch& a) {
 // C entry point for ctypes: launches the instantiation of `variant` (bit 0
 // thermal, bit 1 image, bit 2 flow) on `stream`, writes its grid into
 // a->blocks and returns cudaGetLastError(). Reads the tables, the 3-D grid
-// and surface_albedo of PoolLaunch, not the jump tables; counts no counters.
-// out_d: 10 doubles as the radial kernel's; out_i: pool_grid3d's 9
-// counters, then the scatter and birth peel walks that failed, the passes of
-// cell_face made and the passes that booked flow. `flags` as pool_radial's.
+// and surface_albedo of PoolLaunch, not the jump tables. out_d: 10 doubles
+// as the radial kernel's; out_i: pool_grid3d's 9 counters, then the scatter
+// and birth peel walks that failed, the passes of cell_face made and the
+// passes that booked flow. `flags` as pool_radial's. `counters`, where not
+// null, is N_LANE zeroed counters the launch adds its lane counts into
+// (pool_common.cuh::lane_pass): it then launches the counting twin.
 // The grid is persistent, as pool_grid3d's: the blocks the card holds at
 // once (fewer for a small launch; artes_pool_march_blocks gives them), whose
 // lanes take photon ids id_lo + *next_id from the launch's counter. The flow
@@ -452,10 +475,12 @@ extern "C" int artes_pool_march_launch(PoolLaunch* a, void* stream) {
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
   if (a->flow_buf != nullptr && blocks > a->flow_buf_blocks) return (int)cudaErrorInvalidValue;
   a->blocks = blocks;
-  variant_fn(a->variant)<<<blocks, a->threads, 0, (cudaStream_t)stream>>>(
+  const KernelFn fn = a->counters != nullptr ? variant_fn<true>(a->variant)
+                                             : variant_fn<false>(a->variant);
+  fn<<<blocks, a->threads, 0, (cudaStream_t)stream>>>(
       tables_of(*a), grid_of(*a), a->scal, image_of(*a), a->n_photons, a->key_hi, a->id_lo,
       a->max_scatter, a->flags, a->surface_albedo, a->out_d, a->out_i, a->flow_g, a->flow_t,
-      a->flow_buf, a->next_id);
+      a->flow_buf, a->next_id, a->counters);
   return (int)cudaGetLastError();
 }
 
@@ -464,5 +489,7 @@ extern "C" int artes_pool_march_launch(PoolLaunch* a, void* stream) {
 extern "C" int artes_pool_march_blocks(const PoolLaunch* a) { return launch_grid(*a); }
 
 // Table sizes the wrapper must agree with (pool_common.cuh::common_layout):
-// out_i's N_OUT_IM counters, no counters.
-extern "C" int artes_pool_march_layout(int* sizes) { return common_layout(sizes, N_OUT_IM, 0); }
+// out_i's N_OUT_IM counters, N_LANE counters.
+extern "C" int artes_pool_march_layout(int* sizes) {
+  return common_layout(sizes, N_OUT_IM, N_LANE);
+}

@@ -64,9 +64,9 @@ VARIANTS_MARCH = tuple("march_" + v for v in VARIANTS + VARIANTS_FLOW)
 LAUNCHES = dict.fromkeys(VARIANTS + VARIANTS_FLOW + VARIANTS_3D + VARIANTS_MARCH, 0)
 
 THREADS = 256
-# the lane counters of pool_radial and pool_grid3d (pool_common.cuh::lane_pass)
-# while spans record: a warp's passes through the persistent loop's refill
-# branch and the lanes active at each, then the same for its scattering rounds
+# the lane counters of the three kernels (pool_common.cuh::lane_pass) while
+# spans record: a warp's passes through the persistent loop's refill branch and
+# the lanes active at each, then the same for its scattering rounds
 LANE_KEYS = ("refill_passes", "refill_lanes", "round_passes", "round_lanes")
 # pool_grid3d's walk counters after them (pool_grid3d.cu::count_walk): its jump
 # walks, and those that read the walk's table of phi half-plane crossings
@@ -582,9 +582,10 @@ def _layout(source: str, static: KernelStatic, ncell: int) -> tuple:
 def counter_keys(source: str) -> tuple:
     """The names of the counters kernel ``source`` counts while spans record:
     :data:`LANE_KEYS`, and after them :data:`WALK_KEYS` in ``pool_grid3d``,
-    :data:`DRAIN_KEYS` in ``pool_radial``; none in ``pool_march``."""
-    return {"pool_grid3d": LANE_KEYS + WALK_KEYS, "pool_radial": LANE_KEYS + DRAIN_KEYS
-            }.get(source, ())
+    :data:`DRAIN_KEYS` in ``pool_radial``; :data:`LANE_KEYS` alone in
+    ``pool_march``."""
+    return {"pool_grid3d": LANE_KEYS + WALK_KEYS, "pool_radial": LANE_KEYS + DRAIN_KEYS,
+            "pool_march": LANE_KEYS}[source]
 
 
 def _alloc(layout, dev):
@@ -679,16 +680,17 @@ def run_stream_cuda(tables: TransportTables, static: KernelStatic, n_photons: in
     The call is the span ``launch`` of ``artes_tpu_torch.spans``, from entry
     to return, with a child ``wait`` where it waits for the kernel's
     records. While it records, the launch is bracketed by two CUDA events on
-    its stream and ``pool_radial`` and ``pool_grid3d`` count their warps'
-    passes through the persistent loop, into the launch's own integer
-    tallies, and ``pool_radial`` stamps when its blocks leave the loop; once the
-    spans are read the span holds ``kernel`` (the instantiation),
-    ``source``, ``blocks``, ``photons_emitted``, ``rounds`` (scattering
-    rounds that booked a peel), ``capped``, ``device_ms`` (the events'
-    elapsed time: the kernel's, and where the stream idles before it, the
-    host's time to launch it) and, from those two kernels but the stellar
-    image, which counts none (``pool_radial.cu::CountsLanes``),
-    :data:`LANE_KEYS`, and from ``pool_grid3d`` :data:`WALK_KEYS`: its jump
+    its stream and the three kernels count their warps' passes through the
+    persistent loop, into the launch's own integer tallies, and
+    ``pool_radial`` stamps when its blocks leave the loop; once the spans are
+    read the span holds ``kernel`` (the instantiation), ``source``,
+    ``blocks``, ``photons_emitted``, ``rounds`` (scattering rounds that
+    booked a peel), ``capped``, ``device_ms`` (the events' elapsed time: the
+    kernel's, and where the stream idles before it, the host's time to
+    launch it), from ``pool_march`` ``cell_face`` (its ``n_cell_face``), and
+    from every kernel but ``pool_radial``'s stellar image, which counts none
+    (``pool_radial.cu::CountsLanes``), :data:`LANE_KEYS`, and from
+    ``pool_grid3d`` :data:`WALK_KEYS`: its jump
     walks, and those that read their phi crossings from the walk's table
     (all of them where the grid has 2 to :data:`PHI_TABLE_MAX` phi faces, none
     elsewhere), and from ``pool_radial``, every instantiation, ``drain_ms``:
@@ -734,7 +736,7 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
             buf = torch.zeros(n_buf, dtype=torch.float64, device=dev) if n_buf else None
         # the lane, walk and drain counters (counter_keys) and the events, while
         # recording
-        counters = v["lanes"] if s and counter_keys(source) else None
+        counters = v["lanes"] if s else None
         args, keep = _launch_args(tables, static, source, n, R.key_hi(seed, id_hi), int(id_lo),
                                   v, rec, next_id, buf, counters)
         launch = getattr(_library(source, lib), f"artes_{source}_launch")
@@ -767,8 +769,9 @@ def _run_stream_cuda(s, tables, static, n_photons, seed, id_hi, id_lo, err_k, bu
 
 def _read_launch(s, events, layout, out_i, counters) -> None:
     """Set a launch span's device values (:func:`run_stream_cuda`) when the
-    spans are read: the out_i counters of ``layout``'s slots it reports, the
-    drain stamps as ``drain_ms``, and the other counters of
+    spans are read: the out_i counters of ``layout``'s slots it reports
+    (``cell_face`` where the kernel counts it), the drain stamps as
+    ``drain_ms``, and the other counters of
     :func:`counter_keys`, left out where all stayed zero (an instantiation
     that counts none)."""
     events[1].synchronize()
@@ -776,6 +779,8 @@ def _read_launch(s, events, layout, out_i, counters) -> None:
     count = dict(zip(slots, out_i.tolist()))
     s.set(device_ms=events[0].elapsed_time(events[1]), rounds=count["scatter_peels"],
           capped=count["capped"], photons_emitted=count["emitted"])
+    if "cell_face" in count:
+        s.set(cell_face=count["cell_face"])
     counts = dict(zip(counter_keys(source), [] if counters is None else counters.tolist()))
     first, last = (counts.pop(k, 0) for k in DRAIN_KEYS)
     if last:

@@ -481,8 +481,12 @@ def test_nccl_mesh_of_one_card_equals_one_launch(cuda, monkeypatch):
 
 
 # the instantiations the benchmark's cells run: the radial kernel's stellar
-# spectrum and image, the 3-D kernel's image (the Mie deck)
-LANE_CELLS = {"flagship": 1 << 22, "imaging25": 1 << 20, "mie_patchy_imaging25": 1 << 18}
+# spectrum and image, the 3-D kernel's image (the Mie deck), the marching
+# kernel's stellar spectrum over a surface (the Lambert layer) on a radial and
+# a 3-D grid, and one of its flow instantiations
+LANE_CELLS = {"flagship": 1 << 22, "imaging25": 1 << 20, "mie_patchy_imaging25": 1 << 18,
+              "lambert_tau05": 1 << 20, "grid3d_2496_surface": 1 << 16,
+              "grid3d_2496_flow": 1 << 16}
 TALLY_KEYS = ("detector", "flux_emitted", "flux_exit", "n_error", "error_codes",
               "n_stokes_anomaly", "n_alive_at_cap", "n_emitted", "n_error_records")
 
@@ -496,9 +500,10 @@ def test_lane_counters_change_no_tally(cuda, name):
     two launches with the counters off), within ``mesh.SPLIT_RTOL``; the
     refill branch's lanes are the photons emitted plus the threads launched
     (each thread's last pass finds no photon); no pass counts more than 32
-    lanes; the stellar image counts none. The deck's 3-D kernel also counts
-    its jump walks, at least one a photon (its prewalk), every one read from
-    its table of phi crossings; the radial kernel counts none."""
+    lanes; the radial kernel's stellar image counts none. The deck's 3-D
+    kernel also counts its jump walks, at least one a photon (its prewalk),
+    every one read from its table of phi crossings; the other two kernels
+    count none."""
     tables, static = KERNEL_CELLS[name](cuda)
     n = LANE_CELLS[name]
     off = pool_cuda.run_stream_cuda(tables, static, n, SEED)
@@ -532,6 +537,31 @@ def test_lane_counters_change_no_tally(cuda, name):
         assert a["jump_walks_tabled"] == a["jump_walks"]
     else:
         assert not set(pool_cuda.WALK_KEYS) & set(a)
+
+
+# the marching kernel's cells: radial and 3-D grids over a surface, stellar and
+# thermal, spectrum and image, and a 3-D grid with flow
+MARCH_FACE_CELLS = ("lambert_tau05", "lambert_imaging25", "thermal_surface",
+                    "grid3d_2496_surface", "grid3d_2496_flow")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", MARCH_FACE_CELLS)
+def test_launch_span_carries_cell_face(cuda, name):
+    """A recorded ``pool_march`` launch's span carries ``cell_face``, the
+    kernel's own count of its ``cell_face`` passes: the result's
+    ``n_cell_face``, more than one a photon; the other kernels' spans carry
+    none."""
+    tables, static = KERNEL_CELLS[name](cuda)
+    n = gate_photons(tables, static)
+    with spans.recording() as rec:
+        out = pool_cuda.run_stream_cuda(tables, static, n, SEED)
+        flagship = pool_cuda.run_stream_cuda(*KERNEL_CELLS["flagship"](cuda), 1 << 16, SEED)
+    march, radial = [s.attrs for s in rec.spans if s.name == "launch"]
+    print(f"cell_face [{name}]: {march['cell_face']} passes, {n} photons")
+    assert march["source"] == "pool_march" and radial["source"] == "pool_radial"
+    assert march["cell_face"] == int(out["n_cell_face"]) > n
+    assert "cell_face" not in radial and flagship["n_cell_face"] is None
 
 
 # the radial kernel's stellar spectrum (the spectrum cells), BASELINE #2's deck

@@ -55,11 +55,11 @@ def test_phi_table_max_is_the_kernels():
 def test_counter_slots_by_kernel(source):
     """``pool_grid3d`` counts its jump walks in two slots after the four lane
     counters, ``pool_radial`` stamps its drain in two; ``pool_march`` counts
-    none (its layout on the card says so too)."""
+    the four lane counters alone (its layout on the card says so too)."""
     keys = pool_cuda.counter_keys(source)
     assert keys == {"pool_grid3d": pool_cuda.LANE_KEYS + pool_cuda.WALK_KEYS,
                     "pool_radial": pool_cuda.LANE_KEYS + pool_cuda.DRAIN_KEYS,
-                    "pool_march": ()}[source]
+                    "pool_march": pool_cuda.LANE_KEYS}[source]
     tables, static = spectrum_tables(cells.wedge_grid(8), torch.device("cpu"))
     layout = pool_cuda._layout(source, static, tables.opacity.shape[0])
     flat_f, flat_i, v = pool_cuda._alloc(layout, torch.device("cpu"))
